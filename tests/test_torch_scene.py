@@ -1,0 +1,142 @@
+"""Port parity: the forward slice as a whole — RaytraceScene.trace_rays(
+mode="float") and endpoint_render's forward — against the JAX package, plus
+the port's API contract on the CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+import volumeraytracer_tpu as vrt
+from volumeraytracer_tpu.parallel.shard import endpoint_render as jax_endpoint_render
+import volumeraytracer_tpu_torch as vtt
+from volumeraytracer_tpu_torch.convert import state_from_jax
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _scene_inputs(n=40, n_rays=256, seed=0):
+    """Lens bump with an opaque plane, and a bundle of 256 rays entering at
+    x = 1.5 (the tests/test_lines.py scene)."""
+    ax = np.linspace(-1, 1, n, dtype=np.float32)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    ior = 1.0 + 0.4 * np.exp(-3.0 * (x * x + y * y + z * z)).astype(np.float32)
+    tr = np.full((n, n, n), 0xFFFFFFFF, np.uint32)
+    tr[9] = 0
+    rng = np.random.default_rng(seed)
+    pos = np.stack(
+        [np.full(n_rays, 1.5, np.float32), rng.uniform(3.0, 34.0, n_rays).astype(np.float32),
+         rng.uniform(3.0, 34.0, n_rays).astype(np.float32)], axis=-1,
+    )
+    dirs = np.stack(
+        [np.full(n_rays, 16.0, np.float32), rng.uniform(-2.0, 2.0, n_rays).astype(np.float32),
+         rng.uniform(-2.0, 2.0, n_rays).astype(np.float32)], axis=-1,
+    )
+    return ior, tr, pos, dirs
+
+
+def _assert_trace_close(got, ref):
+    """tests/test_lines.py tolerances for the float march."""
+    np.testing.assert_array_equal(got.end_iteration.numpy(), np.asarray(ref.end_iteration).astype(np.int64))
+    np.testing.assert_array_equal(got.remaining_light.numpy(), np.asarray(ref.remaining_light).astype(np.int64))
+    np.testing.assert_allclose(got.end_position.numpy(), np.asarray(ref.end_position), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.end_direction.numpy(), np.asarray(ref.end_direction), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_tr", [False, True], ids=["no_tr", "opaque_plane"])
+def test_trace_rays_float_matches_jax(with_tr):
+    """40³, 256 rays, budget 300; with the opaque plane some rays stop on it."""
+    ior, tr, pos, dirs = _scene_inputs()
+    kw = dict(invscale=[2.0] * 3, iterations=300, mode="float")
+    ref = vrt.RaytraceScene(ior, tr if with_tr else None).trace_rays(pos, dirs, **kw)
+    st = state_from_jax({"ior": ior, "tr": tr, "pos": pos, "dirs": dirs}, "cpu")
+    scene = vtt.RaytraceScene(st["ior"], st["tr"] if with_tr else None, device="cpu")
+    got = scene.trace_rays(st["pos"], st["dirs"], **kw)
+    _assert_trace_close(got, ref)
+    assert got.windows_used is None and got.path is None
+    assert (got.end_iteration < 300).any() == with_tr
+
+
+def test_endpoint_render_forward_matches_jax():
+    ior, tr, pos, dirs = _scene_inputs(seed=1)
+    ref_pos, ref_dir = jax_endpoint_render(
+        jnp.asarray(ior), jnp.asarray(pos), jnp.asarray(dirs), 300, 2.0, 64,
+        kernel="xla", translucency=jnp.asarray(tr),
+    )
+    st = state_from_jax({"ior": ior, "tr": tr, "pos": pos, "dirs": dirs}, "cpu")
+    got_pos, got_dir = vtt.endpoint_render(st["ior"], st["pos"], st["dirs"], 300, 2.0, 64, translucency=st["tr"])
+    np.testing.assert_allclose(got_pos.numpy(), np.asarray(ref_pos), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got_dir.numpy(), np.asarray(ref_dir), rtol=1e-6, atol=1e-6)
+
+
+def test_endpoint_render_backward_raises():
+    ior, _, pos, dirs = _scene_inputs(n=12, n_rays=4)
+    ior_t = torch.from_numpy(ior).requires_grad_(True)
+    end_pos, _ = vtt.endpoint_render(ior_t, torch.from_numpy(pos) * 0.25, torch.from_numpy(dirs), 8, 2.0, 8)
+    with pytest.raises(NotImplementedError, match="K3"):
+        end_pos.sum().backward()
+
+
+def test_readme_quick_start_matches_jax():
+    ior = np.full((100, 10, 10), 1.0, np.float32)
+    kw = dict(invscale=[2.0] * 3, iterations=100_000, mode="float")
+    ref = vrt.RaytraceScene(ior).trace_rays([[1.0, 4.0, 4.0]], [[16.0, 0.0, 0.0]], **kw)
+    got = vtt.RaytraceScene(ior, device="cpu").trace_rays([[1.0, 4.0, 4.0]], [[16.0, 0.0, 0.0]], **kw)
+    _assert_trace_close(got, ref)
+    assert got.end_position[0, 0] > 97.0
+
+
+def test_ramp_momentum_invariant():
+    """|v| = n: on a 1 → 2 ramp the end direction is n(end) · 16."""
+    ior = np.broadcast_to(np.linspace(1.0, 2.0, 100, dtype=np.float32)[:, None, None], (100, 10, 10))
+    res = vtt.RaytraceScene(ior, device="cpu").trace_rays(
+        [[1.0, 4.0, 4.0]], [[16.0, 0.0, 0.0]], invscale=[2.0] * 3, mode="float"
+    )
+    assert abs(float(res.end_direction[0, 0]) / 16.0 - 2.0) < 0.02
+
+
+@pytest.mark.parametrize(
+    "ior, tr",
+    [
+        (np.full((5, 5, 5), 0.0, np.float32), None),
+        (np.ones((5, 5, 5), np.float32), np.zeros((5, 5, 4), np.uint32)),
+        (np.ones((5,), np.float32), None),
+    ],
+    ids=["ior_not_positive", "shape_mismatch", "1d_volume"],
+)
+def test_scene_rejects_bad_input(ior, tr):
+    with pytest.raises(ValueError):
+        vtt.RaytraceScene(ior, tr, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["scene", "endpoint_render"])
+def test_cuda_kernel_on_cpu_tensors_raises(entry):
+    ior, _, pos, dirs = _scene_inputs(n=12, n_rays=4)
+    with pytest.raises(ValueError, match="cuda"):
+        if entry == "scene":
+            vtt.RaytraceScene(ior, device="cpu").trace_rays(pos, dirs, mode="float", kernel="cuda")
+        else:
+            vtt.endpoint_render(torch.from_numpy(ior), torch.from_numpy(pos), torch.from_numpy(dirs), 8, 2.0, 8,
+                                kernel="cuda")
+
+
+@pytest.mark.parametrize(
+    "kw", [{"mode": "fixed"}, {"mode": "float", "trace_path": True}, {"mode": "float", "kernel": "native"}],
+    ids=["fixed", "trace_path", "native"],
+)
+def test_unported_trace_options_raise(kw):
+    scene = vtt.RaytraceScene(np.ones((6, 6, 6), np.float32), device="cpu")
+    with pytest.raises(NotImplementedError):
+        scene.trace_rays([[2.0, 2.0, 2.0]], [[16.0, 0.0, 0.0]], **kw)
+
+
+def test_import_leaves_jax_out():
+    code = "import sys, volumeraytracer_tpu_torch; assert 'jax' not in sys.modules, 'jax imported'"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
