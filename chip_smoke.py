@@ -21,12 +21,25 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      kernel="plain" and against endpoint_render's forward;
   6. physics: |v| = n at the end of a 1 → 2 index ramp;
   7. times (CUDA events): K1, K2 and their plain versions, and the forward
-     trace end to end.
+     trace end to end;
+  8. K4 (gradient fold) against its plain fold on seeded gradient tables at
+     the bench grid and at (24, 18, 14), within 1e-6 (and whether bit-exact);
+  9. K3 (reverse-replay adjoint) against its plain replay on the scene of
+     tests/test_lines.py:126 and on the full-size bundle, within 1e-3 of the
+     largest plain value, with the replay's drift back to the start;
+ 10. the training slice at full size: (a) endpoint_render's gradient to the
+     256³ field, kernels against kernel="plain", with each of K1-K4 launched
+     exactly once per step; (b) fit_field, three Adam steps on the card with
+     finite, falling losses and K3/K4 launched every step; (c) the
+     differentiable trace_rays, value and gradient, kernels against plain;
+ 11. times (CUDA events): K3, K4 and their plain versions, and one train step
+     (value + grad + SGD update) with kernels and with kernel="plain".
 
 The line before the last is one JSON object with each kernel's launches on
-the main path, error against its plain version and times; the last line is
-``{"ok": true, "device": {...}}``.  It exits nonzero, printing no result,
-when there is no CUDA device or any phase fails.
+the training step (the path that runs all four), error against its plain
+version and times; the last line is ``{"ok": true, "device": {...}}``.  It
+exits nonzero, printing no result, when there is no CUDA device or any
+phase fails.
 """
 
 from __future__ import annotations
@@ -61,14 +74,21 @@ def bench_rays(n_rays=131072, grid=256):
     return pos, dirs
 
 
+def grin(n, amp=0.4):
+    """tests/test_lines.py's lens, 1 + amp·exp(−3r²) on [−1, 1]³."""
+    ax = np.linspace(-1, 1, n, dtype=np.float32)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    return 1.0 + amp * np.exp(-3.0 * (x * x + y * y + z * z)).astype(np.float32)
+
+
 def lines_rays(n_rays, lo=3.0, hi=34.0, seed=0):
-    """tests/test_lines.py's ray batch."""
+    """tests/test_lines.py's ray batch, and its generator for what follows."""
     rng = np.random.default_rng(seed)
     pos = np.stack([np.full(n_rays, 1.5, np.float32), rng.uniform(lo, hi, n_rays).astype(np.float32),
                     rng.uniform(lo, hi, n_rays).astype(np.float32)], axis=-1)
     dirs = np.stack([np.full(n_rays, 16.0, np.float32), rng.uniform(-2.0, 2.0, n_rays).astype(np.float32),
                      rng.uniform(-2.0, 2.0, n_rays).astype(np.float32)], axis=-1)
-    return pos, dirs
+    return pos, dirs, rng
 
 
 def main() -> None:
@@ -77,10 +97,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
 
-    from volumeraytracer_tpu_torch import RaytraceScene, endpoint_render
+    from volumeraytracer_tpu_torch import RaytraceScene, endpoint_render, fit_field
     from volumeraytracer_tpu_torch.kernels import _build, line_table_cuda
     from volumeraytracer_tpu_torch.kernels import march_lines as ml
-    from volumeraytracer_tpu_torch.kernels.line_table import absorption_fraction, build_line_table
+    from volumeraytracer_tpu_torch.kernels.line_table import (
+        absorption_fraction, build_line_table, fold_line_grads, line_brick_grid,
+    )
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field, cropped_translucency
     from volumeraytracer_tpu_torch.ops.interp import interp_linear
     from volumeraytracer_tpu_torch.ops.march import march_float
@@ -138,13 +160,11 @@ def main() -> None:
 
     # 4. K2 against the plain march on tests/test_lines.py's scenes
     n = 40
-    ax = np.linspace(-1, 1, n, dtype=np.float32)
-    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
-    ior40 = 1.0 + 0.4 * np.exp(-3.0 * (x * x + y * y + z * z)).astype(np.float32)
+    ior40 = grin(n)
     tr40 = np.full((n, n, n), 0xFFFFFFFF, np.int64)
     tr40[9] = 0
     packed40 = build_packed_field(t(ior40), t(tr40, np.int64))
-    pos, dirs = (t(a) for a in lines_rays(70))
+    pos, dirs = (t(a) for a in lines_rays(70)[:2])
     for budget in (64, 300):
         got = ml.march_lines(packed40, pos, dirs, budget, bend_scale=BEND, step_scale=STEP)
         ref = march_float(packed40, None, pos, dirs, budget, bend_scale=BEND, step_scale=STEP, chunk_steps=64)
@@ -181,13 +201,12 @@ def main() -> None:
     scene = RaytraceScene(ior256, device=dev)
     trace = dict(invscale=[INV] * 3, iterations=BUDGET, mode="float")
     sync()
-    line_table_cuda.launches = 0
-    ml.launches = 0
+    _build.launches.clear()
     t0 = time.perf_counter()
     res = scene.trace_rays(pos, dirs, kernel="auto", **trace)
     sync()
     first_s = time.perf_counter() - t0
-    launches = {"line_table_build": line_table_cuda.launches, "march_lines_fwd": ml.launches}
+    launches = {k: _build.launches[k] for k in ("line_table_build", "march_lines_fwd")}
     if min(launches.values()) < 1:
         raise AssertionError(f"the main path skipped a kernel: launches {launches}")
     for name in ("end_position", "end_direction"):
@@ -267,17 +286,186 @@ def main() -> None:
             extra = f", {n_rays / ms / 1e3:.4f} Mrays/s, {steps / ms / 1e6:.4f} Gsteps/s"
         print(f"phase 7 time {label}: {times[key]:.4f} ms{extra} {card}")
 
+    del table, ps, ds, k2_args
+
+    def err_scale(got, ref):
+        """max |got − ref| and the bound 1e-3·max |ref|."""
+        return (got - ref).abs().max().item(), 1e-3 * ref.abs().max().item()
+
+    # 8. K4 against its plain fold
+    k4_err = 0.0
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for name, shape in (("256^3", tuple(packed256.shape)), ("24x18x14", (22, 16, 12, 4))):
+        nb = line_brick_grid(shape)
+        gtable = torch.randn((nb[0] * nb[1] * nb[2], 72, 128), generator=gen, device=dev)
+        got = line_table_cuda.fold_line_grads_cuda(gtable, shape, nb)
+        ref = fold_line_grads(gtable, shape, nb)
+        sync()
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+        err = (got - ref).abs().max().item()
+        k4_err = max(k4_err, err)
+        print(f"phase 8 K4 {name}: grad {tuple(got.shape)} max err {err:.3g} "
+              f"({'bit-exact' if torch.equal(got, ref) else 'within 1e-6'})")
+    del gtable, got, ref
+
+    # 9. K3 against its plain replay: the tests/test_lines.py:126 scene, then full size
+    packed32 = build_packed_field(t(grin(32)))
+    pos_s, dirs_s, rng = lines_rays(24, hi=26.0)
+    wp_s, wd_s = t(rng.normal(size=(24, 3))), t(rng.normal(size=(24, 3)))
+    k3 = {}
+    for name, packed, p0, d0, budget, wp, wd in (
+        ("lens32", packed32, t(pos_s), t(dirs_s), 150, wp_s, wd_s),
+        ("256^3 bench", packed256, p, d, BUDGET, t(rng.normal(size=(n_rays, 3))), t(rng.normal(size=(n_rays, 3)))),
+    ):
+        table, nb = line_table_cuda.build_line_table_cuda(packed)
+        fwd, raw = ml.march_lines(packed, p0, d0, budget, bend_scale=BEND, step_scale=STEP,
+                                  return_state=True, table=table, nb=nb)
+        nexec = torch.clamp(budget - 1 - raw["remaining"], min=0)
+        bkw = dict(bend=(BEND,) * 3, step=(STEP,) * 3, max_steps=budget)
+        got = ml.march_lines_bwd(table, nb, fwd.end_position, fwd.end_direction, nexec, wp, wd, **bkw)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = ml._bwd_lines_plain(table, nb, fwd.end_position, fwd.end_direction, nexec, wp, wd, **bkw)
+        stop.record()
+        sync()
+        if bool(got[4].any()) or bool(ref[4].any()):
+            raise AssertionError(f"K3 {name}: the replay was cut (residual > 0)")
+        errs = {}
+        for key, a, b in (("recon", got[3], ref[3]), ("d_pos0", got[1], ref[1]), ("d_dir0", got[2], ref[2]),
+                          ("d_packed", line_table_cuda.fold_line_grads_cuda(got[0], packed.shape, nb),
+                           fold_line_grads(ref[0], packed.shape, nb))):
+            err, bound = err_scale(a, b)
+            if not err <= bound:
+                raise AssertionError(f"K3 {name}: {key} max err {err:.3g} above 1e-3·max|ref| = {bound:.3g}")
+            errs[key] = err
+        drift = (got[3] - p0).abs().max().item()
+        if name == "lens32" and not drift <= 2e-3:
+            raise AssertionError(f"K3 lens32: replay drift {drift:.3g} above 2e-3")
+        k3[name] = dict(errs=errs, drift=drift, plain_ms=start.elapsed_time(stop),
+                        args=(table, nb, fwd.end_position, fwd.end_direction, nexec, wp, wd), bkw=bkw)
+        print(f"phase 9 K3 {name}: max err vs plain "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; drift |recon − start| {drift:.3g}; steps replayed {int(nexec.sum())}")
+        del got, ref, fwd, raw
+    k3_err = max(k3["256^3 bench"]["errs"].values())
+
+    # 10a. endpoint_render's gradient at full size: kernels against plain
+    def train_step(ior, kernel, lr=1e-3):
+        """value + grad + SGD update of bench.py's loss (sum of end y)."""
+        ior.grad = None
+        end_pos, _ = endpoint_render(ior, pos, dirs, BUDGET, INV, 64, kernel=kernel)
+        loss = end_pos[:, 1].sum()
+        loss.backward()
+        with torch.no_grad():
+            ior -= lr * ior.grad
+        return loss
+
+    ior_k = ior256.clone().requires_grad_(True)
+    sync()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    end_pos, _ = endpoint_render(ior_k, pos, dirs, BUDGET, INV, 64, kernel="auto")
+    end_pos[:, 1].sum().backward()
+    sync()
+    grad_s = time.perf_counter() - t0
+    train_launches = dict(_build.launches)
+    want = {"line_table_build": 1, "march_lines_fwd": 1, "march_lines_bwd": 1, "line_table_fold": 1}
+    if train_launches != want:
+        raise AssertionError(f"the training step's kernel launches {train_launches}, expected {want}")
+    ior_p = ior256.clone().requires_grad_(True)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain_loss = train_step(ior_p, "plain")
+    stop.record()
+    sync()
+    step_plain_ms = start.elapsed_time(stop)
+    g_ref = ior_p.grad
+    if not bool(torch.isfinite(ior_k.grad).all()):
+        raise AssertionError("d_ior through the kernels is not finite")
+    err, bound = err_scale(ior_k.grad, g_ref)
+    if not err <= bound:
+        raise AssertionError(f"d_ior kernels vs plain: max err {err:.3g} above 1e-3·max|ref| = {bound:.3g}")
+    print(f"phase 10a train grad 256^3, {n_rays} rays, budget {BUDGET}: launches {train_launches}, "
+          f"first fwd+bwd {grad_s:.3f} s; d_ior max err vs plain {err:.3g} (bound {bound:.3g}, "
+          f"max|d_ior| {g_ref.abs().max().item():.4g}); loss {end_pos[:, 1].sum().item():.6g} vs plain "
+          f"{plain_loss.item():.6g}")
+    del ior_p, g_ref, end_pos
+
+    # 10b. fit_field on the card
+    ax = np.linspace(-1.0, 1.0, 256, dtype=np.float32)
+    xx, yy, zz = np.meshgrid(ax, ax, ax, indexing="ij")
+    r2 = xx * xx + yy * yy + zz * zz
+    del xx, yy, zz
+    with torch.no_grad():
+        targets, _ = endpoint_render(t(1.0 + 0.55 * np.exp(-4.0 * r2)), pos, dirs, BUDGET, INV, 64)
+    _build.launches.clear()
+    fit = fit_field(lens, pos, dirs, targets, budget=BUDGET, invscale=INV, steps=3, learning_rate=1e-3,
+                    device=dev)
+    sync()
+    fit_launches = dict(_build.launches)
+    if not (np.isfinite(fit.losses).all() and fit.losses[-1] < fit.losses[0]):
+        raise AssertionError(f"fit_field losses not finite and falling: {fit.losses.tolist()}")
+    if fit_launches.get("march_lines_bwd") != 3 or fit_launches.get("line_table_fold") != 3:
+        raise AssertionError(f"fit_field did not run K3/K4 on every step: launches {fit_launches}")
+    print(f"phase 10b fit_field 256^3, 3 Adam steps: losses {fit.losses.tolist()}, launches {fit_launches}")
+    del targets, fit
+
+    # 10c. trace_rays(differentiable=True) on the ramp, kernels against plain
+    ramp24 = np.ones((24, 12, 12), np.float32) * (1.0 + np.arange(24, dtype=np.float32) / 23.0)[:, None, None]
+    rscene = RaytraceScene(ramp24, device=dev)
+    vals = {}
+    for kernel in ("auto", "plain"):
+        rp = t([[1.5, 4.0, 4.0], [1.5, 6.5, 3.5], [1.5, 8.0, 8.0]]).requires_grad_(True)
+        r = rscene.trace_rays(rp, t(np.tile([[16.0, 0.0, 0.0]], (3, 1))), invscale=[INV] * 3, iterations=200,
+                              mode="float", differentiable=True, kernel=kernel)
+        v = r.end_position.sum() + r.end_direction.sum()
+        v.backward()
+        vals[kernel] = (v.detach(), rp.grad)
+    torch.testing.assert_close(vals["auto"][0], vals["plain"][0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(vals["auto"][1], vals["plain"][1], rtol=1e-3, atol=1e-5)
+    print(f"phase 10c trace_rays differentiable ramp: value {vals['auto'][0].item():.6g} vs plain "
+          f"{vals['plain'][0].item():.6g}, grad max err {(vals['auto'][1] - vals['plain'][1]).abs().max().item():.3g}")
+
+    # 11. times
+    big = k3["256^3 bench"]
+    nb256 = line_brick_grid(packed256.shape)
+    gfull = torch.randn((nb256[0] * nb256[1] * nb256[2], 72, 128), generator=gen, device=dev)
+    order, _ = ml._sort_by_line_brick(big["args"][2], nb256, big["args"][4] > 0)
+    k3_args = (big["args"][0], nb256, *(a[order].contiguous() for a in big["args"][2:]))
+    ior_t = ior256.clone().requires_grad_(True)
+    times.update({
+        "k3": timed(lambda: ml.march_lines_bwd_cuda(*k3_args, **big["bkw"]), 5),
+        "k3_plain": big["plain_ms"],
+        "k4": timed(lambda: line_table_cuda.fold_line_grads_cuda(gfull, packed256.shape, nb256), 10),
+        "k4_plain": timed(lambda: fold_line_grads(gfull, packed256.shape, nb256), 3),
+        "step": timed(lambda: train_step(ior_t, "auto"), 5),
+        "step_plain": step_plain_ms,
+    })
+    for key, label in (("k3", "K3 march_lines_bwd (incl. gtable zeroing)"), ("k3_plain", "K3 plain replay (one run)"),
+                       ("k4", "K4 line_table_fold"), ("k4_plain", "K4 plain fold"),
+                       ("step", "train step kernel=auto (fwd+bwd+SGD)"),
+                       ("step_plain", "train step kernel=plain (one run)")):
+        extra = f", {n_rays / times[key] / 1e3:.4f} Mrays/s fwd+bwd" if key.startswith("step") else ""
+        print(f"phase 11 time {label}: {times[key]:.4f} ms{extra} {card}")
+
+    src = "volumeraytracer_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
-        {"name": "line_table_build", "route": "cuda",
-         "source": "volumeraytracer_tpu_torch/kernels/csrc/line_table_build.cu",
+        {"name": "line_table_build", "route": "cuda", "source": src + "line_table_build.cu",
          "replaces": "volumeraytracer_tpu/kernels/line_table_pallas.py:108",
-         "launches": launches["line_table_build"], "max_abs_err": k1_err,
+         "launches": train_launches["line_table_build"], "max_abs_err": k1_err,
          "ms": times["k1"], "plain_ms": times["k1_plain"]},
-        {"name": "march_lines_fwd", "route": "cuda",
-         "source": "volumeraytracer_tpu_torch/kernels/csrc/march_lines_fwd.cu",
+        {"name": "march_lines_fwd", "route": "cuda", "source": src + "march_lines_fwd.cu",
          "replaces": "volumeraytracer_tpu/kernels/march_lines.py:190",
-         "launches": launches["march_lines_fwd"], "max_abs_err": k2_err,
+         "launches": train_launches["march_lines_fwd"], "max_abs_err": k2_err,
          "ms": times["k2"], "plain_ms": times["k2_plain"]},
+        {"name": "march_lines_bwd", "route": "cuda", "source": src + "march_lines_bwd.cu",
+         "replaces": "volumeraytracer_tpu/kernels/march_lines.py:1105",
+         "launches": train_launches["march_lines_bwd"], "max_abs_err": k3_err,
+         "ms": times["k3"], "plain_ms": times["k3_plain"]},
+        {"name": "line_table_fold", "route": "cuda", "source": src + "line_table_fold.cu",
+         "replaces": "volumeraytracer_tpu/kernels/line_table_pallas.py:274",
+         "launches": train_launches["line_table_fold"], "max_abs_err": k4_err,
+         "ms": times["k4"], "plain_ms": times["k4_plain"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -49,12 +49,12 @@ def test_build_line_table_bit_exact(reference, with_absorb):
 def test_cuda_wrapper_runs_plain_build_on_cpu():
     """K1's wrapper takes the plain build for CPU tensors."""
     _, _, st = _state(True, seed=4)
-    from volumeraytracer_tpu_torch.kernels import line_table_cuda
+    from volumeraytracer_tpu_torch.kernels import _build
     from volumeraytracer_tpu_torch.kernels.line_table import absorption_fraction
 
-    before = line_table_cuda.launches
+    before = _build.launches["line_table_build"]
     absorb = absorption_fraction(st["trc"])
     got, nb = build_line_table_cuda(st["packed"], absorb)
     ref, nb_ref = build_line_table(st["packed"], absorb=absorb)
     assert nb == nb_ref and torch.equal(got, ref)
-    assert line_table_cuda.launches == before
+    assert _build.launches["line_table_build"] == before

@@ -130,6 +130,6 @@ def test_march_lines_matches_jax_kernel(name):
 def test_unported_march_options_raise():
     packed, _, pos, dirs, _, _ = _case("64")
     st = _port_inputs(packed, None, pos, dirs)
-    for kw in ({"record_path": True}, {"differentiable": True}, {"soft_opacity_tau": 256.0}):
+    for kw in ({"record_path": True}, {"soft_opacity_tau": 256.0}):
         with pytest.raises(NotImplementedError):
             march_float(st["packed"], None, st["pos"], st["dirs"], 8, bend_scale=BEND, step_scale=STEP, **kw)

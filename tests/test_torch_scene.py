@@ -76,11 +76,12 @@ def test_endpoint_render_forward_matches_jax():
 
 
 def test_endpoint_render_backward_raises():
+    """The gradient through the line table is ported (tests/test_torch_train.py);
+    the point-table layout, whose adjoint is K6, is not and raises."""
     ior, _, pos, dirs = _scene_inputs(n=12, n_rays=4)
     ior_t = torch.from_numpy(ior).requires_grad_(True)
-    end_pos, _ = vtt.endpoint_render(ior_t, torch.from_numpy(pos) * 0.25, torch.from_numpy(dirs), 8, 2.0, 8)
-    with pytest.raises(NotImplementedError, match="K3"):
-        end_pos.sum().backward()
+    with pytest.raises(NotImplementedError, match="K6"):
+        vtt.endpoint_render(ior_t, torch.from_numpy(pos) * 0.25, torch.from_numpy(dirs), 8, 2.0, 8, layout="points")
 
 
 def test_readme_quick_start_matches_jax():

@@ -1,21 +1,26 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Both ``csrc/*.cu`` files are compiled by ``nvcc`` into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds):
+The ``csrc/*.cu`` files have a plain C interface (no PyTorch headers, so a
+build takes seconds).  One ``nvcc`` per source, all started together,
+compiles each to an object, and one more links them into a shared library:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o _build/libvrt_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c -o <source>.o csrc/<source>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libvrt_kernels_<hash>.so *.o
 
 ``-fmad=false`` keeps every multiply and add separate, as the plain torch
-march computes them, and fast math stays off so that ``1/|d|²`` is an IEEE
-division: the march's iteration counts depend on both.  The library's name
-carries a hash of the sources and flags, so an edited source is rebuilt.
-Each C function returns ``cudaGetLastError()``; ``check`` raises on a
-nonzero code.
+versions compute them, and fast math stays off so that ``1/|d|²`` is an
+IEEE division: the march's iteration counts depend on both.  The library's
+name carries a hash of the sources and flags, so an edited source is
+rebuilt.  Each C function returns ``cudaGetLastError()``; ``check`` raises
+on a nonzero code.  ``launches`` counts each kernel's launches by name;
+only a launch adds to it.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -26,12 +31,13 @@ from pathlib import Path
 from typing import Optional
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = (_HERE / "csrc" / "line_table_build.cu", _HERE / "csrc" / "march_lines_fwd.cu")
-BUILD_DIR = _HERE.parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+SOURCES = tuple(
+    _HERE / "csrc" / name
+    for name in ("line_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu")
 )
+BUILD_DIR = _HERE.parent / "_build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -42,7 +48,17 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P,  # state out
         _I, _F, _F, _F, _F, _F, _F, _F, _I, _P,  # n, bend, step, min_bright, has_absorb, stream
     ),
+    "vrt_march_lines_bwd": (
+        _P, _P, _I, _I, _I,  # table, gtable, nb
+        _P, _P, _P, _P, _P,  # end pos, end dir, nexec, d_pos, d_dir
+        _P, _P, _P, _P,  # d_pos0, d_dir0, recon_pos, residual
+        _I, _I, _F, _F, _F, _F, _F, _F, _P,  # n, max_steps, bend, step, stream
+    ),
+    "vrt_line_table_fold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
+
+#: launches of each kernel by name since the last ``clear()``
+launches: collections.Counter = collections.Counter()
 
 _lib: Optional[ctypes.CDLL] = None
 #: compiler output of the build this process made (ptxas register counts)
@@ -74,20 +90,27 @@ def load() -> ctypes.CDLL:
     path = library_path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
+        tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
         try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)],
-                capture_output=True, text=True,
-            )
+            nvcc = _nvcc()
+            objs = [os.path.join(tmpdir, src.stem + ".o") for src in SOURCES]
+            procs = [
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(SOURCES, objs)
+            ]
+            logs = [proc.communicate()[0] for proc in procs]
+            for src, proc, log in zip(SOURCES, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+            lib_tmp = os.path.join(tmpdir, "lib.so")
+            proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", lib_tmp, *objs], capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-            build_log = proc.stdout + proc.stderr
-            os.replace(tmp, path)
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            build_log = "".join(logs)
+            os.replace(lib_tmp, path)
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            shutil.rmtree(tmpdir, ignore_errors=True)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -14,7 +14,10 @@ brick), and TCH = 8 channel rows per point: the bf16-rounded hi of
 of dx, dy, dz.  Lanes 121..127 and points outside the field are 0.
 
 ``build_line_table`` here is plain torch: the CPU path and the plain
-version of the build kernel (``line_table_cuda.py``).
+version of the build kernel (``line_table_cuda.py``).  ``fold_line_grads``
+is the adjoint of its addressing, which turns a gradient table of the same
+shape into the packed field's gradient: the plain version of the fold
+kernel.
 """
 
 from __future__ import annotations
@@ -80,3 +83,35 @@ def build_line_table(
     t = t.unfold(0, LPX, LBX).unfold(1, LPY, LBY).unfold(2, LPZ, LBZ)
     t = t.permute(0, 1, 2, 6, 3, 4, 5).reshape(nbx * nby * nbz, LS, NLINES)
     return torch.nn.functional.pad(t, (0, LL - NLINES)), nb
+
+
+def _overlap_add(w: torch.Tensor, axis: int, step: int) -> torch.Tensor:
+    """(…, N, step+1, …) → (…, N·step+1, …) with out[n·step + j] += w[n, j]:
+    the adjoint of overlapping windows.  The halo plane j = step is added
+    after the body, as the JAX package's ``_overlap_add`` adds it."""
+    n = w.shape[axis]
+    shape = list(w.shape)
+    shape[axis : axis + 2] = [n * step]
+    body = w.narrow(axis + 1, 0, step).reshape(shape)
+    pad = [0, 0] * (w.ndim - 2 - axis) + [0, 1]
+    out = torch.nn.functional.pad(body, pad)
+    halo = out.narrow(axis, step, n * step + 1 - step)[(slice(None),) * axis + (slice(None, None, step),)]
+    halo += w.select(axis + 1, step)
+    return out
+
+
+def fold_line_grads(gtable: torch.Tensor, packed_shape, nb) -> torch.Tensor:
+    """(NB, LS, LL) gradient table → (X, Y, Z, 4) packed-field gradient: the
+    adjoint of ``build_line_table``'s addressing.  The halo planes are
+    overlap-added over x, then y, then z, in the order of the JAX package's
+    ``kernels/line_table.py:fold_line_grads``; only the hi rows of channels
+    0-3 are read."""
+    X, Y, Z, C = (int(s) for s in packed_shape)
+    nbx, nby, nbz = nb
+    g = gtable[:, :, :NLINES].reshape(nbx, nby, nbz, LS, LPX, LPY)
+    g = g.permute(0, 4, 1, 5, 2, 3)  # (nbx, LPX, nby, LPY, nbz, LS)
+    g = _overlap_add(g, 0, LBX)  # (CX+1, nby, LPY, nbz, LS)
+    g = _overlap_add(g, 1, LBY)  # (CX+1, CY+1, nbz, LS)
+    g = g.reshape(g.shape[0], g.shape[1], nbz, LPZ, TCH)
+    g = _overlap_add(g, 2, LBZ)  # (CX+1, CY+1, CZ+1, TCH)
+    return g[:X, :Y, :Z, :C].contiguous()

@@ -1,18 +1,24 @@
-"""K2: the forward march over the line table, its wrapper and its driver.
+"""K2 and K3: the forward march over the line table and its reverse-replay
+adjoint, their wrappers and the functions that call them.
 
-The kernel (``csrc/march_lines_fwd.cu``) replaces the TPU kernel
-``volumeraytracer_tpu/kernels/march_lines.py:_march_kernel_lines``; the
-source file says what bounds it on the H100 and how its design answers
-that.  Its plain version is ``ops.march.march_float`` with
+The forward kernel (``csrc/march_lines_fwd.cu``) replaces the TPU kernel
+``volumeraytracer_tpu/kernels/march_lines.py:_march_kernel_lines``, the
+adjoint kernel (``csrc/march_lines_bwd.cu``) its ``_bwd_kernel_lines``;
+each source file says what bounds it on the H100 and how its design
+answers that.  K2's plain version is ``ops.march.march_float`` with
 ``opaque_when_positive=True``, the spec the JAX package's own kernel tests
-use; ``march_lines`` runs it for tensors on the CPU.
+use; ``march_lines`` runs it for tensors on the CPU.  K3's plain version is
+``_bwd_lines_plain``: the same function over the same table in plain torch,
+which ``march_lines_bwd_cuda`` runs for tensors on the CPU.
 
-``march_lines`` is the driver of the JAX package's ``march_lines``: on the
-card it builds the table (K1), sorts the rays by line brick so that
-neighbouring threads read the same bricks, launches K2 through
-``march_lines_cuda``, restores the input order and turns the raw state
-into a ``TraceResult``.  The kernel needs no padding: it masks its own
-ragged edge.
+``march_lines`` is the counterpart of the JAX package's ``march_lines``:
+on the card it builds the table (K1) unless it is given one, sorts the
+rays by line brick so that neighbouring threads read the same bricks,
+launches K2 through ``march_lines_cuda``, restores the input order and
+turns the raw state into a ``TraceResult``.  ``march_lines_bwd`` is the
+counterpart of ``_bwd_impl_lines``: it sorts the rays by the line brick
+of their end position, launches K3 and restores the order.  The kernels
+need no padding: each masks its own ragged edge.
 """
 
 from __future__ import annotations
@@ -24,11 +30,11 @@ import torch
 from ..ops.march import _finish, march_float_state
 from ..types import TraceResult
 from . import _build
-from .line_table import BRIGHT_MAX_F, LBX, LBY, LBZ, LL, LS, absorption_fraction
+from .line_table import BRIGHT_MAX_F, LBX, LBY, LBZ, LCH, LL, LPY, LS, NLO, TCH, absorption_fraction
 from .line_table_cuda import build_line_table_cuda
 
-#: kernel launches since the last reset; only a launch adds to it
-launches = 0
+#: sort key of rays with nothing to replay: after every brick id
+DEAD_ID = 0x7FFFFFFF
 
 
 def march_lines_cuda(
@@ -50,7 +56,6 @@ def march_lines_cuda(
     f32, rem/alive (N,) int32, br (N,) f32 (brightness fraction, 1.0 =
     0xFFFFFFFF).  Returns the end (pos, dirs, rem, alive, br) in new
     tensors."""
-    global launches
     if table.device.type != "cuda":
         raise ValueError(f"march_lines_cuda needs CUDA tensors, got {table.device}")
     device = table.device
@@ -72,12 +77,13 @@ def march_lines_cuda(
             n, *bend, *step, min_bright, int(has_absorb), stream,
         )
     _build.check(rc, "march_lines_fwd")
-    launches += 1
+    _build.launches["march_lines_fwd"] += 1
     return out
 
 
 def use_kernels(kernel: str, device: torch.device, dim: int) -> bool:
-    """Whether a float trace on ``device`` runs the CUDA kernels (K1, K2):
+    """Whether a float trace on ``device`` runs the CUDA kernels (K1, K2,
+    and K3, K4 for its gradient):
     ``"auto"`` does for 3-D volumes on a CUDA device, ``"cuda"`` must or
     raises, ``"plain"`` never does.  Decided by the tensors' device, never
     by what is installed."""
@@ -93,13 +99,16 @@ def use_kernels(kernel: str, device: torch.device, dim: int) -> bool:
     return kernel == "auto" and on_cuda and dim == 3
 
 
-def _sort_by_line_brick(pos: torch.Tensor, nb):
-    """One locality sort by line-brick id; returns (order, inverse)."""
+def _sort_by_line_brick(pos: torch.Tensor, nb, valid: Optional[torch.Tensor] = None):
+    """One locality sort by line-brick id, rays where ``valid`` is False
+    last; returns (order, inverse)."""
     dev = pos.device
     extent = torch.tensor([nb[0] * LBX, nb[1] * LBY, nb[2] * LBZ], dtype=torch.int64, device=dev)
     cell = torch.minimum(torch.clamp(torch.floor(pos).to(torch.int64), min=0), extent - 1)
     b = cell // torch.tensor([LBX, LBY, LBZ], dtype=torch.int64, device=dev)
     brick = (b[:, 0] * nb[1] + b[:, 1]) * nb[2] + b[:, 2]
+    if valid is not None:
+        brick = torch.where(valid, brick, DEAD_ID)
     order = torch.argsort(brick, stable=True)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=dev)
@@ -117,12 +126,16 @@ def march_lines(
     translucency: Optional[torch.Tensor] = None,
     minimum_brightness: int = 0,
     return_state: bool = False,
+    table: Optional[torch.Tensor] = None,
+    nb: Optional[Tuple[int, int, int]] = None,
 ):
     """Forward float march with the semantics of ``ops.march.march_float``
     on a 3-D packed field (X, Y, Z, 4) and an optional int64 translucency
     grid (X, Y, Z).  With ``return_state=True`` it also returns
     ``{"remaining", "alive", "brightness"}``, the raw end state: rays
-    executed budget − 1 − remaining steps."""
+    executed budget − 1 − remaining steps.  ``table``/``nb``: a line table
+    of ``packed`` (and the translucency) built already, which the card then
+    marches without a build; the CPU path marches ``packed`` itself."""
     if packed.ndim != 4 or packed.shape[-1] != 4:
         raise ValueError(f"march_lines needs a 3-D packed field (X, Y, Z, 4), got {tuple(packed.shape)}")
     bend = tuple(float(v) for v in torch.as_tensor(bend_scale, dtype=torch.float32).expand(3))
@@ -142,8 +155,9 @@ def march_lines(
             }
         return result
 
-    absorb = None if translucency is None else absorption_fraction(translucency).contiguous()
-    table, nb = build_line_table_cuda(packed.contiguous(), absorb)
+    if table is None:
+        absorb = None if translucency is None else absorption_fraction(translucency).contiguous()
+        table, nb = build_line_table_cuda(packed.contiguous(), absorb)
     n = start_position.shape[0]
     dev = packed.device
     pos = start_position.to(torch.float32)
@@ -178,3 +192,164 @@ def march_lines(
     if return_state:
         return result, {"remaining": rem, "alive": alive, "brightness": br}
     return result
+
+
+def march_lines_bwd_cuda(
+    table: torch.Tensor,
+    nb: Tuple[int, int, int],
+    end_pos: torch.Tensor,
+    end_dir: torch.Tensor,
+    nexec: torch.Tensor,
+    d_pos: torch.Tensor,
+    d_dir: torch.Tensor,
+    *,
+    bend: Tuple[float, float, float],
+    step: Tuple[float, float, float],
+    max_steps: int,
+):
+    """Launch K3 on CUDA tensors: table (NB, 72, 128) f32; end_pos, end_dir,
+    d_pos, d_dir (N, 3) f32; nexec (N,) int32 executed steps.  Returns
+    (gtable (NB, 72, 128), d_pos0, d_dir0, recon_pos (N, 3), residual (N,)
+    int32) in new tensors.  CPU tensors run ``_bwd_lines_plain``."""
+    if table.device.type == "cpu":
+        return _bwd_lines_plain(
+            table, nb, end_pos, end_dir, nexec, d_pos, d_dir, bend=bend, step=step, max_steps=max_steps
+        )
+    if table.device.type != "cuda":
+        raise ValueError(f"march_lines_bwd_cuda: unsupported device {table.device}")
+    device = table.device
+    n = end_pos.shape[0]
+    _build.check_tensor("table", table, torch.float32, (nb[0] * nb[1] * nb[2], LS, LL), device)
+    for name, t in (("end_pos", end_pos), ("end_dir", end_dir), ("d_pos", d_pos), ("d_dir", d_dir)):
+        _build.check_tensor(name, t, torch.float32, (n, 3), device)
+    _build.check_tensor("nexec", nexec, torch.int32, (n,), device)
+    gtable = torch.zeros_like(table)
+    d_pos0, d_dir0, recon = (torch.empty_like(end_pos) for _ in range(3))
+    residual = torch.empty_like(nexec)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vrt_march_lines_bwd(
+            table.data_ptr(), gtable.data_ptr(), *nb,
+            *(t.data_ptr() for t in (end_pos, end_dir, nexec, d_pos, d_dir)),
+            *(t.data_ptr() for t in (d_pos0, d_dir0, recon, residual)),
+            n, int(max_steps), *bend, *step, stream,
+        )
+    _build.check(rc, "march_lines_bwd")
+    _build.launches["march_lines_bwd"] += 1
+    return gtable, d_pos0, d_dir0, recon, residual
+
+
+def _bwd_lines_plain(table, nb, end_pos, end_dir, nexec, d_pos, d_dir, *, bend, step, max_steps):
+    """K3's plain version: the reverse replay of ``csrc/march_lines_bwd.cu``
+    over the same table, vectorised over rays, operation for operation in
+    the kernel's order.  Corners are gathered from the flat table and the
+    corner gradients added into a zeroed gradient table with
+    ``index_add_``, step by step.  Same arguments and results as
+    ``march_lines_bwd_cuda``."""
+    dev = table.device
+    nbx, nby, nbz = nb
+    flat = table.reshape(-1)
+    gtable = torch.zeros_like(table)
+    gflat = gtable.view(-1)
+    # flat offsets of the 8 corners (dz fastest, then dy, dx) in rows
+    # c = 0..2 (hi) and LCH + c (lo): (8, 3) each
+    corner = torch.tensor(
+        [[((o & 1) * TCH) * LL + ((o >> 2) & 1) * LPY + ((o >> 1) & 1) for _ in range(NLO)] for o in range(8)],
+        dtype=torch.int64, device=dev,
+    )
+    hi_off = corner + torch.arange(NLO, device=dev) * LL
+    lo_off = hi_off + LCH * LL
+    ex, ey, ez = (float(b) for b in bend)
+    sx, sy, sz = (float(s) for s in step)
+    px, py, pz = end_pos.to(torch.float32).unbind(-1)
+    vx, vy, vz = end_dir.to(torch.float32).unbind(-1)
+    ax, ay, az = d_pos.to(torch.float32).unbind(-1)
+    bx, by, bz = d_dir.to(torch.float32).unbind(-1)
+    todo = nexec.to(torch.int64)
+    steps = torch.clamp(todo, max=int(max_steps))
+
+    def cell(f, lb, nbk):
+        cb = torch.clamp(torch.div(f.to(torch.int64), lb, rounding_mode="trunc"), 0, nbk - 1)
+        return cb, torch.clamp((f - (cb * lb).to(torch.float32)).to(torch.int64), 0, lb - 1)
+
+    for k in range(int(steps.max()) if steps.numel() else 0):
+        ok = k < steps
+        ilen = 1.0 / (vx * vx + vy * vy + vz * vz)
+        cx = px - vx * sx * ilen
+        cy = py - vy * sy * ilen
+        cz = pz - vz * sz * ilen
+        fpx, fpy, fpz = torch.floor(cx), torch.floor(cy), torch.floor(cz)
+        (cbx, lx), (cby, ly), (cbz, lz) = cell(fpx, LBX, nbx), cell(fpy, LBY, nby), cell(fpz, LBZ, nbz)
+        base = ((cbx * nby + cby) * nbz + cbz) * (LS * LL) + lz * (TCH * LL) + lx * LPY + ly
+        chv = flat[base[:, None, None] + hi_off] + flat[base[:, None, None] + lo_off]  # (N, 8, 3)
+
+        fx, fy, fz = cx - fpx, cy - fpy, cz - fpz
+        gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
+        w = [gx * gy * gz, gx * gy * fz, gx * fy * gz, gx * fy * fz,
+             fx * gy * gz, fx * gy * fz, fx * fy * gz, fx * fy * fz]
+        yz = (gy * gz, gy * fz, fy * gz, fy * fz)
+        xz = (gx * gz, gx * fz, fx * gz, fx * fz)
+        xy = (gx * gy, gx * fy, fx * gy, fx * fy)
+        dwx = [-yz[0], -yz[1], -yz[2], -yz[3], yz[0], yz[1], yz[2], yz[3]]
+        dwy = [-xz[0], -xz[1], xz[0], xz[1], -xz[2], -xz[3], xz[2], xz[3]]
+        dwz = [-xy[0], xy[0], -xy[1], xy[1], -xy[2], xy[2], -xy[3], xy[3]]
+
+        g0 = w[0] * chv[:, 0, 0]
+        g1 = w[0] * chv[:, 0, 1]
+        g2 = w[0] * chv[:, 0, 2]
+        for o in range(1, 8):
+            g0 = g0 + w[o] * chv[:, o, 0]
+            g1 = g1 + w[o] * chv[:, o, 1]
+            g2 = g2 + w[o] * chv[:, o, 2]
+        nvx, nvy, nvz = vx - g0 * ex, vy - g1 * ey, vz - g2 * ez
+
+        tt = sx * vx * ax + sy * vy * ay + sz * vz * az
+        il2 = ilen * ilen
+        ubx = bx + sx * ilen * ax - 2.0 * vx * il2 * tt
+        uby = by + sy * ilen * ay - 2.0 * vy * il2 * tt
+        ubz = bz + sz * ilen * az - 2.0 * vz * il2 * tt
+        h = (ex * ubx, ey * uby, ez * ubz)
+
+        m = chv[:, 0, 0] * h[0] + chv[:, 0, 1] * h[1] + chv[:, 0, 2] * h[2]
+        Gx, Gy, Gz = dwx[0] * m, dwy[0] * m, dwz[0] * m
+        for o in range(1, 8):
+            m = chv[:, o, 0] * h[0] + chv[:, o, 1] * h[1] + chv[:, o, 2] * h[2]
+            Gx = Gx + dwx[o] * m
+            Gy = Gy + dwy[o] * m
+            Gz = Gz + dwz[o] * m
+        dC = torch.stack([torch.stack([w[o] * h[c] for c in range(NLO)], -1) for o in range(8)], 1)
+        dC = torch.where(ok[:, None, None], dC, 0.0)
+        gflat.index_add_(0, (base[:, None, None] + hi_off).reshape(-1), dC.reshape(-1))
+
+        px, py, pz = (torch.where(ok, a, b) for a, b in ((cx, px), (cy, py), (cz, pz)))
+        vx, vy, vz = (torch.where(ok, a, b) for a, b in ((nvx, vx), (nvy, vy), (nvz, vz)))
+        ax, ay, az = (torch.where(ok, a + G, a) for a, G in ((ax, Gx), (ay, Gy), (az, Gz)))
+        bx, by, bz = (torch.where(ok, a, b) for a, b in ((ubx, bx), (uby, by), (ubz, bz)))
+
+    return (
+        gtable,
+        torch.stack([ax, ay, az], -1),
+        torch.stack([bx, by, bz], -1),
+        torch.stack([px, py, pz], -1),
+        (todo - steps).to(torch.int32),
+    )
+
+
+def march_lines_bwd(table, nb, end_pos, end_dir, nexec, d_pos, d_dir, *, bend, step, max_steps):
+    """Reverse replay of ``nexec`` executed steps per ray from the end state
+    (end_pos, end_dir) with the cotangents (d_pos, d_dir), over the table
+    the forward marched.  Sorts the rays by the line brick of their end
+    position (rays with nothing to replay last), runs K3 (its plain version
+    on the CPU) and restores the order.  Returns (gtable, d_pos0, d_dir0,
+    recon_pos, residual); ``residual`` = nexec − replayed is positive only
+    where ``max_steps`` cut the replay."""
+    nexec = nexec.to(torch.int32)
+    order, inv = _sort_by_line_brick(end_pos, nb, nexec > 0)
+    gtable, *rays = march_lines_bwd_cuda(
+        table, nb, *(t[order].to(torch.float32).contiguous() for t in (end_pos, end_dir)),
+        nexec[order].contiguous(),
+        *(t[order].to(torch.float32).contiguous() for t in (d_pos, d_dir)),
+        bend=bend, step=step, max_steps=max_steps,
+    )
+    return (gtable, *(r[inv] for r in rays))

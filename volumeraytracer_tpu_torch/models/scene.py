@@ -10,7 +10,12 @@ device ``kernel="auto"`` runs the CUDA kernels (table build K1, march K2)
 for 3-D volumes and the plain torch march for 2-D; ``"plain"`` runs the
 plain march; ``"cuda"`` runs the kernels or raises.  On the CPU ``"auto"``
 and ``"plain"`` run the plain march and ``"cuda"`` raises.
-``Options.minimum_device_rays`` is not consulted.
+``Options.minimum_device_rays`` is not consulted.  With
+``differentiable=True`` the end positions and directions carry gradients
+to the start positions and directions (and to ``ior`` when the scene was
+built from a tensor that requires grad): the kernel path through the
+adjoint kernels (K3 replay, K4 fold), the plain path through the
+checkpointed plain march.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.march_bwd import march_lines_diff
 from ..kernels.march_lines import march_lines, use_kernels
 from ..ops.fields import build_packed_field, cropped_translucency
 from ..ops.interp import interp_linear
@@ -60,7 +66,7 @@ class RaytraceScene:
             raise ValueError("refraction-index underflow: ior must be > 0")
         self.options = options or Options()
         if self.options.write_instance:
-            raise NotImplementedError("Options.write_instance is not ported yet (queue 1, item 13 of ROADMAP.md)")
+            raise NotImplementedError("Options.write_instance is not ported yet (queue 1, item 14 of ROADMAP.md)")
         self.bounds = tuple(int(s) for s in ior.shape)
         self.dim = ior.ndim
         self.ior = ior
@@ -93,17 +99,13 @@ class RaytraceScene:
         invscale: per-axis float scale.  Only ``mode="float"`` is ported.
         """
         if mode == "fixed" or dir_fixed:
-            raise NotImplementedError("mode='fixed' is not ported yet (queue 1, item 8 of ROADMAP.md)")
+            raise NotImplementedError("mode='fixed' is not ported yet (queue 1, item 9 of ROADMAP.md)")
         if mode != "float":
             raise ValueError(f"unknown mode {mode!r}")
         if kernel == "native":
             raise NotImplementedError("kernel='native' is not ported yet (queue 1, item 7 of ROADMAP.md)")
         if trace_path:
             raise NotImplementedError("trace_path is not ported yet (queue 1, item 4 of ROADMAP.md)")
-        if differentiable:
-            raise NotImplementedError(
-                "differentiable traces come with the adjoint kernels (K3, K4) in the next slice"
-            )
         if soft_opacity_tau is not None:
             raise NotImplementedError("soft_opacity_tau is not ported yet (queue 1, item 4 of ROADMAP.md)")
         use_cuda = use_kernels(kernel, self.device, self.dim)
@@ -133,7 +135,7 @@ class RaytraceScene:
         else:
             p = pos - 1.0
         if use_cuda:
-            res = march_lines(
+            res = (march_lines_diff if differentiable else march_lines)(
                 self.packed, p, dirs, iterations, bend_scale=bend, step_scale=step,
                 translucency=self.translucency_cropped, minimum_brightness=minimum_brightness,
             )
@@ -141,7 +143,7 @@ class RaytraceScene:
             res = march_float(
                 self.packed, self.translucency_cropped, p, dirs, iterations,
                 bend_scale=bend, step_scale=step, minimum_brightness=minimum_brightness,
-                chunk_steps=chunk_steps or self.options.chunk_steps,
+                chunk_steps=chunk_steps or self.options.chunk_steps, differentiable=differentiable,
             )
         return TraceResult(
             end_position=res.end_position + 1.0,

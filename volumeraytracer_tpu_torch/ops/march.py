@@ -13,7 +13,11 @@ per step:
 
 It is the CPU path of the port and the plain version of the forward march
 kernel (``kernels/march_lines.py``).  Sums of squares are written out
-axis by axis so that the kernel can take them in the same order.
+axis by axis so that the kernel can take them in the same order.  With
+``differentiable=True`` the march runs in checkpointed chunks (autograd
+keeps each chunk's start state and recomputes the chunk in the backward),
+the counterpart of the JAX package's scan of remat'd chunks: the CPU path
+of training and the oracle of the adjoint kernels.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..types import BRIGHTNESS_MAX, FIX_ONE, STEP_CONST, TraceResult
 from .interp import interp_linear
@@ -88,13 +93,25 @@ def _float_step(
     )
 
 
-def _run_while(step_fn, state: MarchState, budget: int, chunk_steps: int) -> MarchState:
+def _run_while(step_fn, state: MarchState, budget: int, chunk_steps: int, remat: bool = False) -> MarchState:
     """Run chunks of ``chunk_steps`` steps while any ray is alive (one host
-    sync per chunk)."""
+    sync per chunk).  ``remat``: autograd saves only each chunk's start
+    state and recomputes the chunk's steps in the backward.  A dead ray's
+    step is the identity, so the end state does not depend on how many
+    chunks run after the last ray stopped."""
     chunk_steps = max(1, min(chunk_steps, budget))
-    while bool(state.alive.any()):
+
+    def chunk(*s):
+        s = MarchState(*s)
         for _ in range(chunk_steps):
-            state = step_fn(state)
+            s = step_fn(s)
+        return tuple(s)
+
+    while bool(state.alive.any()):
+        if remat:
+            state = MarchState(*checkpoint(chunk, *state, use_reentrant=False))
+        else:
+            state = MarchState(*chunk(*state))
     return state
 
 
@@ -109,6 +126,7 @@ def march_float_state(
     step_scale,
     minimum_brightness: int = 0,
     chunk_steps: int = 256,
+    differentiable: bool = False,
 ) -> MarchState:
     """The march's raw end state (see ``march_float``)."""
     device = packed.device
@@ -138,7 +156,7 @@ def march_float_state(
             s, packed, translucency, bounds_m1, strides_t, bend, step, minimum_brightness,
         )
 
-    return _run_while(step_fn, state, budget, chunk_steps)
+    return _run_while(step_fn, state, budget, chunk_steps, remat=differentiable)
 
 
 def march_float(
@@ -163,20 +181,18 @@ def march_float(
     (*spatial) int64 absorption grid (``cropped_translucency``);
     start_position: (N, dim) float32 voxels in the packed frame;
     start_direction: (N, dim) float32 working direction (|v| = n already
-    applied by the caller).
+    applied by the caller).  ``differentiable``: march in checkpointed
+    chunks of ``chunk_steps`` steps, so that autograd's memory is one state
+    per chunk plus one chunk's steps.  Termination is straight-through.
     """
     if record_path:
         raise NotImplementedError("record_path is not ported yet (queue 1, item 4 of ROADMAP.md)")
-    if differentiable:
-        raise NotImplementedError(
-            "the differentiable march comes with the adjoint kernels (K3, K4) in the next slice"
-        )
     if soft_opacity_tau is not None:
         raise NotImplementedError("soft_opacity_tau is not ported yet (queue 1, item 4 of ROADMAP.md)")
     state = march_float_state(
         packed, translucency, start_position, start_direction, budget,
         bend_scale=bend_scale, step_scale=step_scale,
-        minimum_brightness=minimum_brightness, chunk_steps=chunk_steps,
+        minimum_brightness=minimum_brightness, chunk_steps=chunk_steps, differentiable=differentiable,
     )
     return _finish(state, budget)
 

@@ -1,9 +1,10 @@
 """Endpoint rendering: preprocess, |v| = n init, march, endpoints.
 
 Counterpart of ``volumeraytracer_tpu/parallel/shard.py:endpoint_render``,
-forward only.  The march runs inside ``EndpointMarch``, a
-``torch.autograd.Function`` whose backward raises: the reverse-replay
-adjoint (K3) and the gradient fold (K4) are not ported yet.
+differentiable with respect to ``ior``, the positions and the directions:
+the kernel path marches through ``kernels.march_bwd.march_lines_diff``
+(K1 → K2 forward, K3 → K4 backward), the plain path through the
+checkpointed ``march_float(differentiable=True)``, the JAX "xla" branch.
 """
 
 from __future__ import annotations
@@ -12,37 +13,11 @@ from typing import Optional
 
 import torch
 
-from ..kernels.march_lines import march_lines, use_kernels
+from ..kernels.march_bwd import march_lines_diff
+from ..kernels.march_lines import use_kernels
 from ..ops.fields import build_packed_field, cropped_translucency
 from ..ops.interp import interp_linear
 from ..ops.march import march_float, march_scales
-
-
-class EndpointMarch(torch.autograd.Function):
-    """Forward march of ``endpoint_render`` → (end_position, end_direction)
-    in the packed field's frame."""
-
-    @staticmethod
-    def forward(ctx, packed, pos, dirs, translucency, budget, invscale, chunk_steps, use_cuda):
-        bend, step = march_scales([invscale] * pos.shape[-1])
-        if use_cuda:
-            res = march_lines(
-                packed, pos, dirs, budget, bend_scale=bend, step_scale=step,
-                translucency=translucency,
-            )
-        else:
-            res = march_float(
-                packed, translucency, pos, dirs, budget,
-                bend_scale=bend, step_scale=step, chunk_steps=chunk_steps,
-            )
-        return res.end_position, res.end_direction
-
-    @staticmethod
-    def backward(ctx, grad_pos, grad_dir):
-        raise NotImplementedError(
-            "endpoint_render has no backward yet: the adjoint kernel (K3) and the "
-            "gradient fold (K4) are not ported"
-        )
 
 
 def endpoint_render(
@@ -54,6 +29,7 @@ def endpoint_render(
     chunk_steps: int,
     kernel: str = "auto",
     translucency: Optional[torch.Tensor] = None,
+    layout: Optional[str] = None,
 ):
     """Preprocess the field, |v| = n-init the rays, march, and return the
     per-ray (end_position, end_direction) in the scene frame.
@@ -61,9 +37,16 @@ def endpoint_render(
     ``kernel``: "auto" runs the CUDA kernels for 3-D fields on a CUDA
     device and the plain march otherwise; "cuda" runs the kernels or
     raises; "plain" runs the plain march.  ``translucency`` is an int64
-    grid holding uint32 values, or a float grid in [0, 1].  The JAX
-    package's ``layout``, ``soft_opacity_tau`` and ``return_transmittance``
-    are not ported yet."""
+    grid holding uint32 values, or a float grid in [0, 1]; it acts on
+    termination only and gets no gradient.  ``layout="points"`` (kernels K5
+    and K6), ``soft_opacity_tau`` and ``return_transmittance`` are not
+    ported yet."""
+    if layout == "points":
+        raise NotImplementedError(
+            "layout='points' needs the point-table kernels K5/K6, not ported yet (ROADMAP queue 1, item 8)"
+        )
+    if layout not in (None, "lines"):
+        raise ValueError(f"unknown layout {layout!r}")
     use_cuda = use_kernels(kernel, ior.device, positions.shape[-1])
 
     packed = build_packed_field(ior, translucency)
@@ -71,7 +54,12 @@ def endpoint_render(
     pos = positions - 0.5
     dirs = directions * interp_linear(ior, pos)[..., None]
     pos = pos - 0.5
-    end_pos, end_dir = EndpointMarch.apply(
-        packed, pos, dirs, trc, budget, float(invscale), chunk_steps, use_cuda
-    )
-    return end_pos + 1.0, end_dir
+    bend, step = march_scales([invscale] * pos.shape[-1])
+    if use_cuda:
+        res = march_lines_diff(packed, pos, dirs, budget, bend_scale=bend, step_scale=step, translucency=trc)
+    else:
+        res = march_float(
+            packed, trc, pos, dirs, budget, bend_scale=bend, step_scale=step,
+            chunk_steps=chunk_steps, differentiable=True,
+        )
+    return res.end_position + 1.0, res.end_direction
