@@ -33,13 +33,23 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      finite, falling losses and K3/K4 launched every step; (c) the
      differentiable trace_rays, value and gradient, kernels against plain;
  11. times (CUDA events): K3, K4 and their plain versions, and one train step
-     (value + grad + SGD update) with kernels and with kernel="plain".
+     (value + grad + SGD update) with kernels and with kernel="plain";
+ 12. K5 (point-table forward march) against the plain march on the scenes
+     of phase 4 at their tolerances, then against the plain march and K2 at
+     full size (whether K5 equals K2 bit for bit);
+ 13. K6 (point-table adjoint) against its plain replay on the phase 9
+     scenes, within 1e-3 of the largest plain value, with the drift back to
+     the start and its per-ray outputs against K3's;
+ 14. the point train step at full size: endpoint_render(layout="points")
+     + backward + SGD, with K5 and K6 launched once each and K1-K4 not at
+     all, d_ior against the plain path's and the line path's; times of K5,
+     K6, the plain point build and fold and the point train step.
 
 The line before the last is one JSON object with each kernel's launches on
-the training step (the path that runs all four), error against its plain
-version and times; the last line is ``{"ok": true, "device": {...}}``.  It
-exits nonzero, printing no result, when there is no CUDA device or any
-phase fails.
+the training step of its layout (K1-K4 on the line step, K5 and K6 on the
+point step), error against its plain version and times; the last line is
+``{"ok": true, "device": {...}}``.  It exits nonzero, printing no result,
+when there is no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
@@ -100,8 +110,9 @@ def main() -> None:
     from volumeraytracer_tpu_torch import RaytraceScene, endpoint_render, fit_field
     from volumeraytracer_tpu_torch.kernels import _build, line_table_cuda
     from volumeraytracer_tpu_torch.kernels import march_lines as ml
+    from volumeraytracer_tpu_torch.kernels import march_pallas as mp
     from volumeraytracer_tpu_torch.kernels.line_table import (
-        absorption_fraction, build_line_table, fold_line_grads, line_brick_grid,
+        LBX, LBY, LBZ, absorption_fraction, build_line_table, fold_line_grads, line_brick_grid,
     )
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field, cropped_translucency
     from volumeraytracer_tpu_torch.ops.interp import interp_linear
@@ -177,14 +188,14 @@ def main() -> None:
               f"dir max err {(got.end_direction - ref.end_direction).abs().max().item():.3g}")
     n = 32
     tr32 = t(np.full((n, n, n), 0xFFFFFFFF - int(0xFFFFFFFF / 400)), np.int64)
-    packed32 = build_packed_field(t(np.full((n, n, n), 1.2, np.float32)), tr32)
+    packed32a = build_packed_field(t(np.full((n, n, n), 1.2, np.float32)), tr32)
     trc32 = cropped_translucency(tr32)
     pos = t(lines_rays(16, hi=26.0, seed=3)[0])
     dirs = t(np.tile(np.array([[16.0, 0.5, -0.25]], np.float32), (16, 1)))
     minb = int(0.5 * 0xFFFFFFFF)
-    got = ml.march_lines(packed32, pos, dirs, 500, bend_scale=BEND, step_scale=STEP, translucency=trc32,
+    got = ml.march_lines(packed32a, pos, dirs, 500, bend_scale=BEND, step_scale=STEP, translucency=trc32,
                          minimum_brightness=minb)
-    ref = march_float(packed32, trc32, pos, dirs, 500, bend_scale=BEND, step_scale=STEP, chunk_steps=64,
+    ref = march_float(packed32a, trc32, pos, dirs, 500, bend_scale=BEND, step_scale=STEP, chunk_steps=64,
                       minimum_brightness=minb)
     sync()
     assert bool((ref.end_iteration < 500).all())
@@ -261,7 +272,7 @@ def main() -> None:
     p0 = pos - 0.5
     d = dirs * interp_linear(ior256, p0)[..., None]
     p = p0 - 0.5
-    order, _ = ml._sort_by_line_brick(p, nb)
+    order, _ = ml._sort_by_brick(p, nb, (LBX, LBY, LBZ))
     ps, ds = p[order].contiguous(), d[order].contiguous()
     rem = torch.full((n_rays,), BUDGET - 1, dtype=torch.int32, device=dev)
     alive = torch.ones((n_rays,), dtype=torch.int32, device=dev)
@@ -341,7 +352,7 @@ def main() -> None:
         drift = (got[3] - p0).abs().max().item()
         if name == "lens32" and not drift <= 2e-3:
             raise AssertionError(f"K3 lens32: replay drift {drift:.3g} above 2e-3")
-        k3[name] = dict(errs=errs, drift=drift, plain_ms=start.elapsed_time(stop),
+        k3[name] = dict(errs=errs, drift=drift, plain_ms=start.elapsed_time(stop), rays=got[1:4],
                         args=(table, nb, fwd.end_position, fwd.end_direction, nexec, wp, wd), bkw=bkw)
         print(f"phase 9 K3 {name}: max err vs plain "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
@@ -350,10 +361,10 @@ def main() -> None:
     k3_err = max(k3["256^3 bench"]["errs"].values())
 
     # 10a. endpoint_render's gradient at full size: kernels against plain
-    def train_step(ior, kernel, lr=1e-3):
+    def train_step(ior, kernel, lr=1e-3, layout=None):
         """value + grad + SGD update of bench.py's loss (sum of end y)."""
         ior.grad = None
-        end_pos, _ = endpoint_render(ior, pos, dirs, BUDGET, INV, 64, kernel=kernel)
+        end_pos, _ = endpoint_render(ior, pos, dirs, BUDGET, INV, 64, kernel=kernel, layout=layout)
         loss = end_pos[:, 1].sum()
         loss.backward()
         with torch.no_grad():
@@ -389,7 +400,8 @@ def main() -> None:
           f"first fwd+bwd {grad_s:.3f} s; d_ior max err vs plain {err:.3g} (bound {bound:.3g}, "
           f"max|d_ior| {g_ref.abs().max().item():.4g}); loss {end_pos[:, 1].sum().item():.6g} vs plain "
           f"{plain_loss.item():.6g}")
-    del ior_p, g_ref, end_pos
+    g_line = ior_k.grad
+    del ior_p, ior_k, end_pos
 
     # 10b. fit_field on the card
     ax = np.linspace(-1.0, 1.0, 256, dtype=np.float32)
@@ -430,7 +442,7 @@ def main() -> None:
     big = k3["256^3 bench"]
     nb256 = line_brick_grid(packed256.shape)
     gfull = torch.randn((nb256[0] * nb256[1] * nb256[2], 72, 128), generator=gen, device=dev)
-    order, _ = ml._sort_by_line_brick(big["args"][2], nb256, big["args"][4] > 0)
+    order, _ = ml._sort_by_brick(big["args"][2], nb256, (LBX, LBY, LBZ), big["args"][4] > 0)
     k3_args = (big["args"][0], nb256, *(a[order].contiguous() for a in big["args"][2:]))
     ior_t = ior256.clone().requires_grad_(True)
     times.update({
@@ -447,6 +459,152 @@ def main() -> None:
                        ("step_plain", "train step kernel=plain (one run)")):
         extra = f", {n_rays / times[key] / 1e3:.4f} Mrays/s fwd+bwd" if key.startswith("step") else ""
         print(f"phase 11 time {label}: {times[key]:.4f} ms{extra} {card}")
+    del gfull, k3_args, ior_t
+
+    # 12. K5 against the plain march: the phase 4 scenes, then full size and against K2
+    pos40, dirs40 = (t(a) for a in lines_rays(70)[:2])
+    for budget in (64, 300):
+        got = mp.march_pallas(packed40, pos40, dirs40, budget, bend_scale=BEND, step_scale=STEP)
+        ref = march_float(packed40, None, pos40, dirs40, budget, bend_scale=BEND, step_scale=STEP, chunk_steps=64)
+        sync()
+        torch.testing.assert_close(got.end_iteration, ref.end_iteration, rtol=0, atol=0)
+        torch.testing.assert_close(got.end_position, ref.end_position, rtol=0, atol=1e-4)
+        torch.testing.assert_close(got.end_direction, ref.end_direction, rtol=1e-6, atol=1e-6)
+        print(f"phase 12 K5 lens40 budget {budget}: iterations exact (min {int(got.end_iteration.min())}), "
+              f"pos max err {(got.end_position - ref.end_position).abs().max().item():.3g}, "
+              f"dir max err {(got.end_direction - ref.end_direction).abs().max().item():.3g}")
+    pos32 = t(lines_rays(16, hi=26.0, seed=3)[0])
+    dirs32 = t(np.tile(np.array([[16.0, 0.5, -0.25]], np.float32), (16, 1)))
+    got = mp.march_pallas(packed32a, pos32, dirs32, 500, bend_scale=BEND, step_scale=STEP, translucency=trc32,
+                          minimum_brightness=minb)
+    ref = march_float(packed32a, trc32, pos32, dirs32, 500, bend_scale=BEND, step_scale=STEP, chunk_steps=64,
+                      minimum_brightness=minb)
+    sync()
+    assert bool((ref.end_iteration < 500).all())
+    torch.testing.assert_close(got.end_iteration, ref.end_iteration, rtol=0, atol=1)
+    torch.testing.assert_close(got.remaining_light.double(), ref.remaining_light.double(), rtol=2e-2, atol=0)
+    torch.testing.assert_close(got.end_position, ref.end_position, rtol=0, atol=5e-2)
+    print(f"phase 12 K5 absorption: iterations within 1, light max rel err "
+          f"{(got.remaining_light.double() / ref.remaining_light.double() - 1).abs().max().item():.3g}")
+    ptable, pnb = mp.build_brick_table(packed256)
+    fkw = dict(bend_scale=BEND, step_scale=STEP)
+    k5_res = mp.march_pallas(packed256, p, d, BUDGET, table=ptable, nb=pnb, **fkw)
+    k2_res = ml.march_lines(packed256, p, d, BUDGET, **fkw)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = march_float(packed256, None, p, d, BUDGET, **fkw)
+    stop.record()
+    sync()
+    k5_plain_ms = start.elapsed_time(stop)
+    torch.testing.assert_close(k5_res.end_iteration, ref.end_iteration, rtol=0, atol=0)
+    torch.testing.assert_close(k5_res.end_position, ref.end_position, rtol=0, atol=1e-4)
+    torch.testing.assert_close(k5_res.end_direction, ref.end_direction, rtol=1e-5, atol=1e-6)
+    k5_err = (k5_res.end_position - ref.end_position).abs().max().item()
+    fields_ = ("end_position", "end_direction", "end_iteration", "remaining_light")
+    k5_k2_equal = all(torch.equal(getattr(k5_res, f), getattr(k2_res, f)) for f in fields_)
+    k5_k2_diff = max((getattr(k5_res, f) - getattr(k2_res, f)).abs().max().item() for f in fields_)
+    print(f"phase 12 K5 256^3 bench, {n_rays} rays, budget {BUDGET}: vs plain iterations equal, pos max err "
+          f"{k5_err:.3g}; vs K2 {'bit-exact' if k5_k2_equal else f'NOT bit-exact (max diff {k5_k2_diff:.3g})'}")
+    del k2_res, ref
+
+    # 13. K6 against its plain replay: the phase 9 scenes; per-ray outputs against K3's
+    k6 = {}
+    for name, packed, p0, d0, budget, wp, wd in (
+        ("lens32", packed32, t(pos_s), t(dirs_s), 150, wp_s, wd_s),
+        ("256^3 bench", packed256, p, d, BUDGET, *k3["256^3 bench"]["args"][5:7]),
+    ):
+        table, nb = mp.build_brick_table(packed)
+        fwd, raw = mp.march_pallas(packed, p0, d0, budget, return_state=True, table=table, nb=nb, **fkw)
+        nexec = torch.clamp(budget - 1 - raw["remaining"], min=0)
+        bkw = dict(bend=(BEND,) * 3, step=(STEP,) * 3, max_steps=budget)
+        got = mp.march_points_bwd(table, nb, fwd.end_position, fwd.end_direction, nexec, wp, wd, **bkw)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = mp._bwd_points_plain(table, nb, fwd.end_position, fwd.end_direction, nexec, wp, wd, **bkw)
+        stop.record()
+        sync()
+        if bool(got[4].any()) or bool(ref[4].any()):
+            raise AssertionError(f"K6 {name}: the replay was cut (residual > 0)")
+        errs = {}
+        for key, a, b in (("recon", got[3], ref[3]), ("d_pos0", got[1], ref[1]), ("d_dir0", got[2], ref[2]),
+                          ("d_packed", mp.fold_brickmajor_grads(got[0], packed.shape, nb),
+                           mp.fold_brickmajor_grads(ref[0], packed.shape, nb))):
+            err, bound = err_scale(a, b)
+            if not err <= bound:
+                raise AssertionError(f"K6 {name}: {key} max err {err:.3g} above 1e-3·max|ref| = {bound:.3g}")
+            errs[key] = err
+        drift = (got[3] - p0).abs().max().item()
+        if name == "lens32" and not drift <= 2e-3:
+            raise AssertionError(f"K6 lens32: replay drift {drift:.3g} above 2e-3")
+        k3_equal = True
+        for key, a, b in zip(("d_pos0", "d_dir0", "recon"), got[1:4], k3[name]["rays"]):
+            err, bound = err_scale(a, b)
+            if not err <= bound:
+                raise AssertionError(f"K6 {name}: {key} max err vs K3 {err:.3g} above 1e-3·max|K3| = {bound:.3g}")
+            k3_equal = k3_equal and torch.equal(a, b)
+        k6[name] = dict(errs=errs, plain_ms=start.elapsed_time(stop),
+                        args=(table, nb, fwd.end_position, fwd.end_direction, nexec, wp, wd), bkw=bkw)
+        print(f"phase 13 K6 {name}: max err vs plain "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; drift |recon − start| {drift:.3g}; per-ray outputs vs K3 "
+              + ("bit-exact" if k3_equal else "within 1e-3·max, not bit-exact")
+              + f"; steps replayed {int(nexec.sum())}")
+        del got, ref, fwd, raw
+    k6_err = max(k6["256^3 bench"]["errs"].values())
+
+    # 14. the point train step at full size: K5 and K6 only
+    ior_pt = ior256.clone().requires_grad_(True)
+    sync()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    end_pos, _ = endpoint_render(ior_pt, pos, dirs, BUDGET, INV, 64, kernel="auto", layout="points")
+    end_pos[:, 1].sum().backward()
+    sync()
+    point_s = time.perf_counter() - t0
+    point_launches = dict(_build.launches)
+    want = {"march_points_fwd": 1, "march_points_bwd": 1}
+    if point_launches != want:
+        raise AssertionError(f"the point train step's kernel launches {point_launches}, expected {want}")
+    if not bool(torch.isfinite(ior_pt.grad).all()):
+        raise AssertionError("d_ior through the point kernels is not finite")
+    err, bound = err_scale(ior_pt.grad, g_ref)
+    if not err <= bound:
+        raise AssertionError(f"point d_ior vs plain: max err {err:.3g} above 1e-3·max|ref| = {bound:.3g}")
+    err_line, bound_line = err_scale(ior_pt.grad, g_line)
+    if not err_line <= bound_line:
+        raise AssertionError(f"point d_ior vs line: max err {err_line:.3g} above 1e-3·max|line| = {bound_line:.3g}")
+    print(f"phase 14 point train grad 256^3, {n_rays} rays, budget {BUDGET}: launches {point_launches}, "
+          f"first fwd+bwd {point_s:.3f} s; d_ior max err vs plain {err:.3g} (bound {bound:.3g}), vs line layout "
+          f"{err_line:.3g}; loss {end_pos[:, 1].sum().item():.6g}")
+    del ior_pt, end_pos, g_ref, g_line
+
+    order, _ = ml._sort_by_brick(p, pnb, (mp.BX, mp.BY, mp.BZ))
+    k5_args = (ptable, pnb, tuple(packed256.shape[:3]), p[order].contiguous(), d[order].contiguous(), rem, alive, br)
+    big = k6["256^3 bench"]
+    order, _ = ml._sort_by_brick(big["args"][2], pnb, (mp.BX, mp.BY, mp.BZ), big["args"][4] > 0)
+    k6_args = (ptable, pnb, *(a[order].contiguous() for a in big["args"][2:]))
+    gpoints = torch.randn(tuple(ptable.shape), generator=gen, device=dev)
+    ior_t = ior256.clone().requires_grad_(True)
+    times.update({
+        "k5": timed(lambda: mp.march_points_cuda(*k5_args, **k2_kw), 10),
+        "k5_plain": k5_plain_ms,
+        "k6": timed(lambda: mp.march_points_bwd_cuda(*k6_args, **big["bkw"]), 5),
+        "k6_plain": big["plain_ms"],
+        "build_points_plain": timed(lambda: mp.build_brick_table(packed256), 3),
+        "fold_points_plain": timed(lambda: mp.fold_brickmajor_grads(gpoints, packed256.shape, pnb), 3),
+        "step_points": timed(lambda: train_step(ior_t, "auto", layout="points"), 5),
+    })
+    for key, label in (("k5", "K5 march_points_fwd"), ("k5_plain", "K5 plain march (march_float, one run)"),
+                       ("k6", "K6 march_points_bwd (incl. gtable zeroing)"), ("k6_plain", "K6 plain replay (one run)"),
+                       ("build_points_plain", "point table build (plain torch)"),
+                       ("fold_points_plain", "point gradient fold (plain torch)"),
+                       ("step_points", "point train step kernel=auto, layout=points (fwd+bwd+SGD)")):
+        extra = ""
+        if key in ("k5", "k5_plain"):
+            extra = f", {steps / times[key] / 1e6:.4f} Gsteps/s"
+        elif key == "step_points":
+            extra = f", {n_rays / times[key] / 1e3:.4f} Mrays/s fwd+bwd"
+        print(f"phase 14 time {label}: {times[key]:.4f} ms{extra} {card}")
 
     src = "volumeraytracer_tpu_torch/kernels/csrc/"
     print(json.dumps({"kernels": [
@@ -466,6 +624,14 @@ def main() -> None:
          "replaces": "volumeraytracer_tpu/kernels/line_table_pallas.py:274",
          "launches": train_launches["line_table_fold"], "max_abs_err": k4_err,
          "ms": times["k4"], "plain_ms": times["k4_plain"]},
+        {"name": "march_points_fwd", "route": "cuda", "source": src + "march_points_fwd.cu",
+         "replaces": "volumeraytracer_tpu/kernels/march_pallas.py:221",
+         "launches": point_launches["march_points_fwd"], "max_abs_err": k5_err,
+         "ms": times["k5"], "plain_ms": times["k5_plain"]},
+        {"name": "march_points_bwd", "route": "cuda", "source": src + "march_points_bwd.cu",
+         "replaces": "volumeraytracer_tpu/kernels/march_bwd.py:115",
+         "launches": point_launches["march_points_bwd"], "max_abs_err": k6_err,
+         "ms": times["k6"], "plain_ms": times["k6_plain"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

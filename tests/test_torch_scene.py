@@ -75,13 +75,24 @@ def test_endpoint_render_forward_matches_jax():
     np.testing.assert_allclose(got_dir.numpy(), np.asarray(ref_dir), rtol=1e-6, atol=1e-6)
 
 
-def test_endpoint_render_backward_raises():
-    """The gradient through the line table is ported (tests/test_torch_train.py);
-    the point-table layout, whose adjoint is K6, is not and raises."""
+def test_endpoint_render_points_layout_runs():
+    """endpoint_render(layout="points") runs forward and backward and, on the
+    CPU, agrees with the line layout (both take the plain march there, which
+    ignores the layout, as JAX's "xla" branch does); an unknown layout
+    raises."""
     ior, _, pos, dirs = _scene_inputs(n=12, n_rays=4)
-    ior_t = torch.from_numpy(ior).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K6"):
-        vtt.endpoint_render(ior_t, torch.from_numpy(pos) * 0.25, torch.from_numpy(dirs), 8, 2.0, 8, layout="points")
+    out = {}
+    for layout in ("lines", "points"):
+        ior_t = torch.from_numpy(ior).requires_grad_(True)
+        ep, ed = vtt.endpoint_render(ior_t, torch.from_numpy(pos) * 0.25, torch.from_numpy(dirs), 8, 2.0, 8,
+                                     layout=layout)
+        (ep.sum() + ed.sum()).backward()
+        out[layout] = (ep.detach(), ed.detach(), ior_t.grad)
+    for a, b in zip(out["points"], out["lines"]):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
+    with pytest.raises(ValueError, match="layout"):
+        vtt.endpoint_render(torch.from_numpy(ior), torch.from_numpy(pos), torch.from_numpy(dirs), 8, 2.0, 8,
+                            layout="bricks")
 
 
 def test_readme_quick_start_matches_jax():

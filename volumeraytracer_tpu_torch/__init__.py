@@ -10,10 +10,13 @@ Ported so far: the float trace — ``RaytraceScene.trace_rays(mode="float")``
 — and training — ``endpoint_render`` with ``loss.backward()``,
 ``trace_rays(differentiable=True)`` and ``fit_field`` — through the
 line-table build kernel (K1), the forward march kernel (K2), the
-reverse-replay adjoint kernel (K3) and the gradient-fold kernel (K4).
+reverse-replay adjoint kernel (K3) and the gradient-fold kernel (K4); and
+the point-table layout of both — ``endpoint_render(layout="points")``,
+``march_pallas_diff`` — through the point-table forward march (K5) and its
+adjoint (K6).
 """
 
-from .kernels.march_bwd import march_lines_diff
+from .kernels.march_bwd import march_lines_diff, march_pallas_diff
 from .models.optimize import FitResult, endpoint_loss, fit_field
 from .models.scene import RaytraceScene
 from .parallel.shard import endpoint_render
@@ -21,5 +24,5 @@ from .types import Options, TraceResult
 
 __all__ = [
     "RaytraceScene", "TraceResult", "Options", "endpoint_render",
-    "march_lines_diff", "endpoint_loss", "fit_field", "FitResult",
+    "march_lines_diff", "march_pallas_diff", "endpoint_loss", "fit_field", "FitResult",
 ]

@@ -33,28 +33,35 @@ from typing import Optional
 _HERE = Path(__file__).resolve().parent
 SOURCES = tuple(
     _HERE / "csrc" / name
-    for name in ("line_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu")
+    for name in (
+        "line_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu",
+        "march_points_fwd.cu", "march_points_bwd.cu",
+    )
 )
 BUILD_DIR = _HERE.parent / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_MARCH_FWD = (
+    _P, _I, _I, _I, _I, _I, _I,  # table, nb, bounds
+    _P, _P, _P, _P, _P,  # state in
+    _P, _P, _P, _P, _P,  # state out
+    _I, _F, _F, _F, _F, _F, _F, _F, _I, _P,  # n, bend, step, min_bright, has_absorb, stream
+)
+_MARCH_BWD = (
+    _P, _P, _I, _I, _I,  # table, gtable, nb
+    _P, _P, _P, _P, _P,  # end pos, end dir, nexec, d_pos, d_dir
+    _P, _P, _P, _P,  # d_pos0, d_dir0, recon_pos, residual
+    _I, _I, _F, _F, _F, _F, _F, _F, _P,  # n, max_steps, bend, step, stream
+)
 _SIGNATURES = {
     "vrt_line_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "vrt_march_lines_fwd": (
-        _P, _I, _I, _I, _I, _I, _I,  # table, nb, bounds
-        _P, _P, _P, _P, _P,  # state in
-        _P, _P, _P, _P, _P,  # state out
-        _I, _F, _F, _F, _F, _F, _F, _F, _I, _P,  # n, bend, step, min_bright, has_absorb, stream
-    ),
-    "vrt_march_lines_bwd": (
-        _P, _P, _I, _I, _I,  # table, gtable, nb
-        _P, _P, _P, _P, _P,  # end pos, end dir, nexec, d_pos, d_dir
-        _P, _P, _P, _P,  # d_pos0, d_dir0, recon_pos, residual
-        _I, _I, _F, _F, _F, _F, _F, _F, _P,  # n, max_steps, bend, step, stream
-    ),
+    "vrt_march_lines_fwd": _MARCH_FWD,
+    "vrt_march_lines_bwd": _MARCH_BWD,
     "vrt_line_table_fold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "vrt_march_points_fwd": _MARCH_FWD,
+    "vrt_march_points_bwd": _MARCH_BWD,
 }
 
 #: launches of each kernel by name since the last ``clear()``

@@ -52,6 +52,37 @@ def absorption_fraction(translucency: torch.Tensor) -> torch.Tensor:
     return (BRIGHT_MAX_F - translucency.to(torch.float32)) / BRIGHT_MAX_F
 
 
+def table_inputs(packed, translucency, absorb):
+    """Check a table build's inputs and return the absorption-fraction grid
+    (``translucency``, an int64 grid, turned into it with
+    ``absorption_fraction``; pass at most one of the two)."""
+    if packed.ndim != 4 or packed.shape[-1] != 4:
+        raise ValueError(f"packed must be (X, Y, Z, 4), got {tuple(packed.shape)}")
+    if translucency is not None:
+        if absorb is not None:
+            raise ValueError("pass translucency or absorb, not both")
+        absorb = absorption_fraction(translucency)
+    return absorb
+
+
+def table_points(packed: torch.Tensor, absorb: Optional[torch.Tensor], extent) -> torch.Tensor:
+    """The (px, py, pz, TCH) rows that a brick table stores at each field
+    point of the padded point grid ``extent``: the bf16-rounded hi of
+    [dx, dy, dz, opacity, absorption], then the bf16-rounded lo of dx, dy,
+    dz; zero outside the field.  Shared by the line and the point table,
+    which therefore hold the same values at the same points."""
+    X, Y, Z, _ = packed.shape
+    px, py, pz = extent
+    vals = torch.zeros((px, py, pz, LCH), dtype=torch.float32, device=packed.device)
+    vals[:X, :Y, :Z, :4] = packed
+    if absorb is not None:
+        a = absorb[:px, :py, :pz]
+        vals[: a.shape[0], : a.shape[1], : a.shape[2], 4] = a
+    hi = vals.to(torch.bfloat16).to(torch.float32)
+    lo = (vals[..., :NLO] - hi[..., :NLO]).to(torch.bfloat16).to(torch.float32)
+    return torch.cat([hi, lo], dim=-1)
+
+
 def build_line_table(
     packed: torch.Tensor,
     translucency: Optional[torch.Tensor] = None,
@@ -61,24 +92,10 @@ def build_line_table(
     """(NB, LS, LL) line-major table and its brick grid; see the module
     docstring.  ``translucency`` (int64 grid) is turned into ``absorb``
     with ``absorption_fraction``; pass at most one of the two."""
-    if packed.ndim != 4 or packed.shape[-1] != 4:
-        raise ValueError(f"packed must be (X, Y, Z, 4), got {tuple(packed.shape)}")
-    if translucency is not None:
-        if absorb is not None:
-            raise ValueError("pass translucency or absorb, not both")
-        absorb = absorption_fraction(translucency)
+    absorb = table_inputs(packed, translucency, absorb)
     nb = line_brick_grid(packed.shape)
     nbx, nby, nbz = nb
-    X, Y, Z, _ = packed.shape
-    px, py, pz = nbx * LBX + 1, nby * LBY + 1, nbz * LBZ + 1
-    vals = torch.zeros((px, py, pz, LCH), dtype=torch.float32, device=packed.device)
-    vals[:X, :Y, :Z, :4] = packed
-    if absorb is not None:
-        a = absorb[:px, :py, :pz]
-        vals[: a.shape[0], : a.shape[1], : a.shape[2], 4] = a
-    hi = vals.to(torch.bfloat16).to(torch.float32)
-    lo = (vals[..., :NLO] - hi[..., :NLO]).to(torch.bfloat16).to(torch.float32)
-    t = torch.cat([hi, lo], dim=-1)  # (px, py, pz, TCH)
+    t = table_points(packed, absorb, (nbx * LBX + 1, nby * LBY + 1, nbz * LBZ + 1))
     # overlapping windows on x, y, z → (nbx, nby, nbz, TCH, LPX, LPY, LPZ)
     t = t.unfold(0, LPX, LBX).unfold(1, LPY, LBY).unfold(2, LPZ, LBZ)
     t = t.permute(0, 1, 2, 6, 3, 4, 5).reshape(nbx * nby * nbz, LS, NLINES)

@@ -2,9 +2,10 @@
 
 Counterpart of ``volumeraytracer_tpu/parallel/shard.py:endpoint_render``,
 differentiable with respect to ``ior``, the positions and the directions:
-the kernel path marches through ``kernels.march_bwd.march_lines_diff``
-(K1 → K2 forward, K3 → K4 backward), the plain path through the
-checkpointed ``march_float(differentiable=True)``, the JAX "xla" branch.
+the kernel path marches through ``kernels.march_bwd.march_pallas_diff``
+(line layout: K1 → K2 forward, K3 → K4 backward; point layout: K5
+forward, K6 backward), the plain path through the checkpointed
+``march_float(differentiable=True)``, the JAX "xla" branch.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels.march_bwd import march_lines_diff
+from ..kernels.march_bwd import march_pallas_diff
 from ..kernels.march_lines import use_kernels
 from ..ops.fields import build_packed_field, cropped_translucency
 from ..ops.interp import interp_linear
@@ -38,14 +39,11 @@ def endpoint_render(
     device and the plain march otherwise; "cuda" runs the kernels or
     raises; "plain" runs the plain march.  ``translucency`` is an int64
     grid holding uint32 values, or a float grid in [0, 1]; it acts on
-    termination only and gets no gradient.  ``layout="points"`` (kernels K5
-    and K6), ``soft_opacity_tau`` and ``return_transmittance`` are not
-    ported yet."""
-    if layout == "points":
-        raise NotImplementedError(
-            "layout='points' needs the point-table kernels K5/K6, not ported yet (ROADMAP queue 1, item 8)"
-        )
-    if layout not in (None, "lines"):
+    termination only and gets no gradient.  ``layout`` picks the kernel
+    path's table: "lines" (the default, K1-K4) or "points" (K5, K6); the
+    plain path ignores it, as the JAX "xla" branch does.
+    ``soft_opacity_tau`` and ``return_transmittance`` are not ported yet."""
+    if layout not in (None, "lines", "points"):
         raise ValueError(f"unknown layout {layout!r}")
     use_cuda = use_kernels(kernel, ior.device, positions.shape[-1])
 
@@ -56,7 +54,9 @@ def endpoint_render(
     pos = pos - 0.5
     bend, step = march_scales([invscale] * pos.shape[-1])
     if use_cuda:
-        res = march_lines_diff(packed, pos, dirs, budget, bend_scale=bend, step_scale=step, translucency=trc)
+        res = march_pallas_diff(
+            packed, pos, dirs, budget, bend_scale=bend, step_scale=step, translucency=trc, layout=layout or "lines",
+        )
     else:
         res = march_float(
             packed, trc, pos, dirs, budget, bend_scale=bend, step_scale=step,
