@@ -9,37 +9,45 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
 (nvcc, sm_90a), then, each phase printing a line and raising on failure:
 
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. the kernel build and its time;
+  2. the kernel build and its time, each kernel's ptxas registers and
+     spills (it fails if any kernel spills);
   3. K1 (line-table build) bit-exact against its plain version at the bench
      field (256³ lens) without and with a translucency grid, and at an odd
      shape (24, 18, 14);
   4. K2 (forward march) against the plain march on the scenes of
-     tests/test_lines.py at their tolerances;
+     tests/test_lines.py at their tolerances, and on rays along line-brick
+     faces of an x ramp (tests/test_torch_march_bwd.py) at the same ones;
   5. the main path at full size: RaytraceScene(256³ lens).trace_rays on the
      362² coherent bundle of bench.py, budget 512, kernel="auto", with the
      launch counters showing both kernels ran, checked against
      kernel="plain" and against endpoint_render's forward;
   6. physics: |v| = n at the end of a 1 → 2 index ramp;
   7. times (CUDA events): K1, K2 and their plain versions, and the forward
-     trace end to end;
+     trace end to end; K2 over the driver's ray order (sort_line_rays) and
+     over the brick-only order, in turns;
   8. K4 (gradient fold) against its plain fold on seeded gradient tables at
      the bench grid and at (24, 18, 14), within 1e-6 (and whether bit-exact);
   9. K3 (reverse-replay adjoint) against its plain replay on the scene of
-     tests/test_lines.py:126 and on the full-size bundle, within 1e-3 of the
-     largest plain value, with the replay's drift back to the start;
+     tests/test_lines.py:126, on end states past the faces of the last
+     bricks (where the clamps bite) and on the full-size bundle, within 1e-3
+     of the largest plain value, with the replay's drift back to the start;
  10. the training slice at full size: (a) endpoint_render's gradient to the
      256³ field, kernels against kernel="plain", with each of K1-K4 launched
      exactly once per step; (b) fit_field, three Adam steps on the card with
      finite, falling losses and K3/K4 launched every step; (c) the
      differentiable trace_rays, value and gradient, kernels against plain;
- 11. times (CUDA events): K3, K4 and their plain versions, and one train step
-     (value + grad + SGD update) with kernels and with kernel="plain";
+ 11. times (CUDA events): K3, K4, their plain versions and K4's library
+     yardstick (index_add_ over a precomputed index), one train step
+     (value + grad + SGD update) with kernels and with kernel="plain"; K3
+     over the driver's order and over the brick-only order, in turns;
  12. K5 (point-table forward march) against the plain march on the scenes
-     of phase 4 at their tolerances, then against the plain march and K2 at
-     full size (whether K5 equals K2 bit for bit);
+     of phase 4 at their tolerances and equal to K2 bit for bit on lens40,
+     then against the plain march and equal to K2 bit for bit at full size;
  13. K6 (point-table adjoint) against its plain replay on the phase 9
      scenes, within 1e-3 of the largest plain value, with the drift back to
-     the start and its per-ray outputs against K3's;
+     the start, and its per-ray outputs equal to K3's bit for bit (K5 and K6
+     keep the step code that K2 and K3 had before they kept a cell's
+     corners in registers, so phases 12 and 13 hold the redesign to it);
  14. the point train step at full size: endpoint_render(layout="points")
      + backward + SGD, with K5 and K6 launched once each and K1-K4 not at
      all, d_ior against the plain path's and the line path's; times of K5,
@@ -47,7 +55,10 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
 
 The line before the last is one JSON object with each kernel's launches on
 the training step of its layout (K1-K4 on the line step, K5 and K6 on the
-point step), error against its plain version and times; the last line is
+point step), error against its plain version, times, its bound (the larger
+of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
+counted from this run's shapes and executed steps) and its library
+yardstick's time where there is one; the last line is
 ``{"ok": true, "device": {...}}``.  It exits nonzero, printing no result,
 when there is no CUDA device or any phase fails.
 """
@@ -55,6 +66,7 @@ when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -65,6 +77,23 @@ BUDGET = 512
 INV = 2.0
 BEND = INV / 65536.0
 STEP = INV * (float(0x42000000) / 65536.0 / 65536.0)
+
+#: the card's peaks for the kernels' bounds (NVIDIA's H100 SXM data sheet, at
+#: 700 W): float32 operations per second outside the tensor cores, HBM bytes
+#: per second
+F32_PEAK, HBM_PEAK = 67e12, 3.35e12
+#: float32 operations of one march step (K2, K5) and of one replayed step
+#: (K3, K6), counted from the .cu sources: each add, sub, mul, div, floor,
+#: compare and max once; integer index math, and the 24 hi + lo adds made
+#: once per cell entered, left out (PERF.md)
+MARCH_OPS, REPLAY_OPS = 120, 281
+
+
+def kernel_bound(ops, nbytes):
+    """A kernel's bound: (ms, "operations" or "bytes"), the larger of its
+    float32 operations over F32_PEAK and its bytes over HBM_PEAK."""
+    t_ops, t_bytes = ops / F32_PEAK * 1e3, nbytes / HBM_PEAK * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def lens_field(n=256):
@@ -99,6 +128,30 @@ def lines_rays(n_rays, lo=3.0, hi=34.0, seed=0):
     dirs = np.stack([np.full(n_rays, 16.0, np.float32), rng.uniform(-2.0, 2.0, n_rays).astype(np.float32),
                      rng.uniform(-2.0, 2.0, n_rays).astype(np.float32)], axis=-1)
     return pos, dirs, rng
+
+
+def faces_rays(sign):
+    """tests/test_torch_march_bwd.py's rays on line-brick faces (y in 0, 10;
+    z in 0, 8) of its x ramp: along +x from the x faces 0, 10 and 20, or
+    along −x from one float below the far face 30 and from 20 and 10; two
+    more start on the far y face (y = 20, outside the field)."""
+    xs = (0.0, 10.0, 20.0) if sign > 0 else (float(np.nextafter(np.float32(30), 0)), 20.0, 10.0)
+    pos = np.array([(x, y, z) for x in xs for y in (0.0, 10.0) for z in (0.0, 8.0)]
+                   + [(xs[0], 20.0, 0.0), (xs[1], 20.0, 8.0)], np.float32)
+    return pos, np.tile(np.array([[16.0 * sign, 0.0, 0.0]], np.float32), (len(pos), 1))
+
+
+def past_far_faces():
+    """tests/test_torch_march_bwd.py's end states on and past the faces of
+    the last line bricks of the x ramp (x = 30.4 and −0.3, y = 20, z = 16),
+    where K3's brick and cell clamps decide the corners; 24 steps to replay,
+    none for two rays."""
+    ends = ((30.4, 16.0), (20.0, 16.0), (10.0, -16.0), (-0.3, -16.0))
+    pos = np.array([(x, y, z) for x, _ in ends for y in (0.0, 10.0, 20.0) for z in (0.0, 8.0, 16.0)], np.float32)
+    dirs = np.array([(u, 0.0, 0.0) for _, u in ends for _ in range(9)], np.float32)
+    nexec = np.full(len(pos), 24, np.int32)
+    nexec[[5, 20]] = 0
+    return pos, dirs, nexec
 
 
 def main() -> None:
@@ -139,10 +192,14 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln or "Compiling entry" in ln]
+    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
+             if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
     print(f"phase 2 build: {build_s:.2f} s ({_build.library_path().name})")
     for ln in ptxas:
         print(f"  ptxas: {ln}")
+    spills = [ln for ln in ptxas if "spill" in ln and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
+    if spills:
+        raise AssertionError(f"ptxas reports spills: {spills}")
 
     # 3. K1 against its plain version, bit-exact
     lens = lens_field()
@@ -204,6 +261,21 @@ def main() -> None:
     torch.testing.assert_close(got.end_position, ref.end_position, rtol=0, atol=5e-2)
     print(f"phase 4 K2 absorption: iterations within 1, light max rel err "
           f"{(got.remaining_light.double() / ref.remaining_light.double() - 1).abs().max().item():.3g}")
+    ramp = np.broadcast_to(np.linspace(1.0, 1.5, 33, dtype=np.float32)[:, None, None], (33, 23, 19))
+    packed_faces = build_packed_field(t(ramp))
+    for sign in (1.0, -1.0):
+        fpos, fdirs = (t(a) for a in faces_rays(sign))
+        got = ml.march_lines(packed_faces, fpos, fdirs, 400, bend_scale=BEND, step_scale=STEP)
+        ref = march_float(packed_faces, None, fpos, fdirs, 400, bend_scale=BEND, step_scale=STEP, chunk_steps=64)
+        sync()
+        torch.testing.assert_close(got.end_iteration, ref.end_iteration, rtol=0, atol=0)
+        torch.testing.assert_close(got.end_position, ref.end_position, rtol=0, atol=1e-4)
+        torch.testing.assert_close(got.end_direction, ref.end_direction, rtol=1e-6, atol=1e-6)
+        if not torch.equal(got.end_position[:-2, 1:], fpos[:-2, 1:]):
+            raise AssertionError("K2 on brick faces: y or z left its face")
+        print(f"phase 4 K2 on brick faces, {'+x' if sign > 0 else '-x'}: iterations exact "
+              f"({got.end_iteration.tolist()}), pos max err "
+              f"{(got.end_position - ref.end_position).abs().max().item():.3g}, y and z stay on their faces")
 
     # 5. the main path at full size, through both kernels
     pos_np, dirs_np = bench_rays()
@@ -268,36 +340,58 @@ def main() -> None:
         sync()
         return start.elapsed_time(stop) / reps
 
+    def turns(old, new, reps):
+        """Times of ``old`` and ``new`` in turns (old, new, new, old):
+        ([old, old], [new, new])."""
+        t_old, t_new = [timed(old, reps)], [timed(new, reps)]
+        t_new.append(timed(new, reps))
+        t_old.append(timed(old, reps))
+        return t_old, t_new
+
     table, nb = line_table_cuda.build_line_table_cuda(packed256)
     p0 = pos - 0.5
     d = dirs * interp_linear(ior256, p0)[..., None]
     p = p0 - 0.5
-    order, _ = ml._sort_by_brick(p, nb, (LBX, LBY, LBZ))
-    ps, ds = p[order].contiguous(), d[order].contiguous()
     rem = torch.full((n_rays,), BUDGET - 1, dtype=torch.int32, device=dev)
     alive = torch.ones((n_rays,), dtype=torch.int32, device=dev)
     br = torch.ones((n_rays,), dtype=torch.float32, device=dev)
-    k2_args = (table, nb, tuple(packed256.shape[:3]), ps, ds, rem, alive, br)
     k2_kw = dict(bend=(BEND,) * 3, step=(STEP,) * 3, min_bright=0.0, has_absorb=False)
+
+    def k2_over(order):
+        args = (table, nb, tuple(packed256.shape[:3]), p[order].contiguous(), d[order].contiguous(), rem, alive, br)
+        return lambda: ml.march_lines_cuda(*args, **k2_kw)
+
+    k2_brick, k2_cell = turns(k2_over(ml._sort_by_brick(p, nb, (LBX, LBY, LBZ))[0]),
+                              k2_over(ml.sort_line_rays(p, nb)[0]), 10)
     times = {
         "k1": timed(lambda: line_table_cuda.build_line_table_cuda(packed256), 10),
         "k1_plain": timed(lambda: build_line_table(packed256), 3),
-        "k2": timed(lambda: ml.march_lines_cuda(*k2_args, **k2_kw), 10),
+        "k2": sum(k2_cell) / 2,
+        "k2_brick_order": sum(k2_brick) / 2,
         "k2_plain": timed(lambda: march_float(packed256, None, p, d, BUDGET, bend_scale=BEND, step_scale=STEP), 2),
         "fwd": timed(lambda: scene.trace_rays(pos, dirs, kernel="auto", **trace), 5),
         "fwd_plain": timed(lambda: scene.trace_rays(pos, dirs, kernel="plain", **trace), 2),
     }
     steps = int((res.end_iteration - 1).sum())
     for key, label in (("k1", "K1 line_table_build"), ("k1_plain", "K1 plain build"),
-                       ("k2", "K2 march_lines_fwd"), ("k2_plain", "K2 plain march (march_float)"),
+                       ("k2", f"K2 march_lines_fwd, driver's order (sort_line_rays; turns {k2_cell})"),
+                       ("k2_brick_order", f"K2 march_lines_fwd, brick-only order (turns {k2_brick})"),
+                       ("k2_plain", "K2 plain march (march_float)"),
                        ("fwd", "forward trace_rays kernel=auto"), ("fwd_plain", "forward trace_rays kernel=plain")):
         extra = ""
-        if key in ("k2", "k2_plain", "fwd", "fwd_plain"):
+        if key in ("k2", "k2_brick_order", "k2_plain", "fwd", "fwd_plain"):
             ms = times[key]
             extra = f", {n_rays / ms / 1e3:.4f} Mrays/s, {steps / ms / 1e6:.4f} Gsteps/s"
         print(f"phase 7 time {label}: {times[key]:.4f} ms{extra} {card}")
 
-    del table, ps, ds, k2_args
+    # the line and point bricks that the rays pass through (sampled along the
+    # straight segments from start to end): the table bytes K2, K3, K5 and K6 need
+    k2_end = ml.march_lines(packed256, p, d, BUDGET, bend_scale=BEND, step_scale=STEP, table=table, nb=nb).end_position
+    frac = torch.linspace(0.0, 1.0, 33, device=dev)
+    path = (p[:, None, :] + frac[None, :, None] * (k2_end - p)[:, None, :]).reshape(-1, 3)
+    line_bytes = int(torch.unique(ml._brick_and_cell(path, nb, (LBX, LBY, LBZ))[0]).numel()) * table[0].numel() * 4
+    table_bytes = table.numel() * 4
+    del table, k2_end
 
     def err_scale(got, ref):
         """max |got − ref| and the bound 1e-3·max |ref|."""
@@ -359,6 +453,27 @@ def main() -> None:
               + f"; drift |recon − start| {drift:.3g}; steps replayed {int(nexec.sum())}")
         del got, ref, fwd, raw
     k3_err = max(k3["256^3 bench"]["errs"].values())
+    fpos, fdirs, fnexec = past_far_faces()
+    fw = np.random.default_rng(11).normal(size=(2, *fpos.shape))
+    table, nb = line_table_cuda.build_line_table_cuda(packed_faces)
+    fargs = (table, nb, t(fpos), t(fdirs), t(fnexec, np.int32), t(fw[0]), t(fw[1]))
+    rkw = dict(bend=(BEND,) * 3, step=(STEP,) * 3, max_steps=25)
+    got = ml.march_lines_bwd(*fargs, **rkw)
+    ref = ml._bwd_lines_plain(*fargs, **rkw)
+    sync()
+    errs = {}
+    for key, a, b in (("recon", got[3], ref[3]), ("d_pos0", got[1], ref[1]), ("d_dir0", got[2], ref[2]),
+                      ("d_packed", line_table_cuda.fold_line_grads_cuda(got[0], packed_faces.shape, nb),
+                       fold_line_grads(ref[0], packed_faces.shape, nb))):
+        err, bnd = err_scale(a, b)
+        if not err <= bnd:
+            raise AssertionError(f"K3 past the far faces: {key} max err {err:.3g} above 1e-3·max|ref| = {bnd:.3g}")
+        errs[key] = err
+    exact = all(torch.equal(a, b) for a, b in zip(got[1:5], ref[1:5]))
+    print("phase 9 K3 past the far faces (clamps biting): max err vs plain "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; per-ray outputs {'bit-exact' if exact else 'NOT bit-exact'}")
+    del table, got, ref
 
     # 10a. endpoint_render's gradient at full size: kernels against plain
     def train_step(ior, kernel, lr=1e-3, layout=None):
@@ -441,38 +556,83 @@ def main() -> None:
     # 11. times
     big = k3["256^3 bench"]
     nb256 = line_brick_grid(packed256.shape)
+    replayed = int(big["args"][4].sum())
     gfull = torch.randn((nb256[0] * nb256[1] * nb256[2], 72, 128), generator=gen, device=dev)
-    order, _ = ml._sort_by_brick(big["args"][2], nb256, (LBX, LBY, LBZ), big["args"][4] > 0)
-    k3_args = (big["args"][0], nb256, *(a[order].contiguous() for a in big["args"][2:]))
+    valid = big["args"][4] > 0
+
+    def k3_over(order):
+        args = (big["args"][0], nb256, *(a[order].contiguous() for a in big["args"][2:]))
+        return lambda: ml.march_lines_bwd_cuda(*args, **big["bkw"])
+
+    k3_brick, k3_cell = turns(k3_over(ml._sort_by_brick(big["args"][2], nb256, (LBX, LBY, LBZ), valid)[0]),
+                              k3_over(ml.sort_line_rays(big["args"][2], nb256, valid)[0]), 5)
+
+    # K4's yardstick: one index_add_ of the whole gradient table into the
+    # padded point grid, over a precomputed int32 index; the entries K4 does
+    # not fold (lanes 121-127, rows of channels 4-7) go to 2^20 spare slots
+    # past the grid, so that their adds do not queue on one address
+    ext = tuple(n * s + 1 for n, s in zip(nb256, (LBX, LBY, LBZ)))
+    n_pts, spare = ext[0] * ext[1] * ext[2] * 8, 1 << 20
+    idx = torch.arange(n_pts, device=dev).reshape(*ext, 8)
+    idx = idx.unfold(0, LBX + 1, LBX).unfold(1, LBY + 1, LBY).unfold(2, LBZ + 1, LBZ)
+    idx = idx.permute(0, 1, 2, 6, 3, 4, 5).reshape(gfull.shape[0], 72, (LBX + 1) * (LBY + 1))
+    idx = torch.where((torch.arange(72, device=dev) % 8 < 4)[None, :, None], idx, -1)
+    idx = torch.nn.functional.pad(idx, (0, 128 - idx.shape[-1]), value=-1).reshape(-1)
+    unfolded = idx < 0
+    idx[unfolded] = n_pts + torch.arange(int(unfolded.sum()), device=dev) % spare
+    idx = idx.to(torch.int32)
+    del unfolded
+    gflat = gfull.reshape(-1)
+
+    def library_fold():
+        return torch.zeros(n_pts + spare, device=dev).index_add_(0, idx, gflat)
+
+    lib = library_fold()[:n_pts].reshape(*ext, 8)[: packed256.shape[0], : packed256.shape[1], : packed256.shape[2], :4]
+    k4_ref = line_table_cuda.fold_line_grads_cuda(gfull, packed256.shape, nb256)
+    torch.testing.assert_close(lib, k4_ref, rtol=1e-5, atol=1e-5)
+    print(f"phase 11 K4 yardstick index_add_: max diff vs K4 {(lib - k4_ref).abs().max().item():.3g}")
+    del lib, k4_ref
     ior_t = ior256.clone().requires_grad_(True)
     times.update({
-        "k3": timed(lambda: ml.march_lines_bwd_cuda(*k3_args, **big["bkw"]), 5),
+        "k3": sum(k3_cell) / 2,
+        "k3_brick_order": sum(k3_brick) / 2,
         "k3_plain": big["plain_ms"],
         "k4": timed(lambda: line_table_cuda.fold_line_grads_cuda(gfull, packed256.shape, nb256), 10),
         "k4_plain": timed(lambda: fold_line_grads(gfull, packed256.shape, nb256), 3),
+        "k4_library": timed(library_fold, 10),
         "step": timed(lambda: train_step(ior_t, "auto"), 5),
         "step_plain": step_plain_ms,
     })
-    for key, label in (("k3", "K3 march_lines_bwd (incl. gtable zeroing)"), ("k3_plain", "K3 plain replay (one run)"),
+    for key, label in (("k3", f"K3 march_lines_bwd (incl. gtable zeroing), driver's order (turns {k3_cell})"),
+                       ("k3_brick_order", f"K3 march_lines_bwd (incl. gtable zeroing), brick-only order "
+                                          f"(turns {k3_brick})"),
+                       ("k3_plain", "K3 plain replay (one run)"),
                        ("k4", "K4 line_table_fold"), ("k4_plain", "K4 plain fold"),
+                       ("k4_library", "K4 yardstick: zeros + index_add_ over a precomputed index"),
                        ("step", "train step kernel=auto (fwd+bwd+SGD)"),
                        ("step_plain", "train step kernel=plain (one run)")):
         extra = f", {n_rays / times[key] / 1e3:.4f} Mrays/s fwd+bwd" if key.startswith("step") else ""
+        if key.startswith("k3") and key != "k3_plain":
+            extra = f", {replayed / times[key] / 1e6:.4f} Gsteps/s"
         print(f"phase 11 time {label}: {times[key]:.4f} ms{extra} {card}")
-    del gfull, k3_args, ior_t
+    del gfull, gflat, idx, ior_t
 
     # 12. K5 against the plain march: the phase 4 scenes, then full size and against K2
     pos40, dirs40 = (t(a) for a in lines_rays(70)[:2])
+    fields_ = ("end_position", "end_direction", "end_iteration", "remaining_light")
     for budget in (64, 300):
         got = mp.march_pallas(packed40, pos40, dirs40, budget, bend_scale=BEND, step_scale=STEP)
         ref = march_float(packed40, None, pos40, dirs40, budget, bend_scale=BEND, step_scale=STEP, chunk_steps=64)
+        k2_res = ml.march_lines(packed40, pos40, dirs40, budget, bend_scale=BEND, step_scale=STEP)
         sync()
         torch.testing.assert_close(got.end_iteration, ref.end_iteration, rtol=0, atol=0)
         torch.testing.assert_close(got.end_position, ref.end_position, rtol=0, atol=1e-4)
         torch.testing.assert_close(got.end_direction, ref.end_direction, rtol=1e-6, atol=1e-6)
+        if not all(torch.equal(getattr(got, f), getattr(k2_res, f)) for f in fields_):
+            raise AssertionError(f"K5 differs from K2 on lens40 budget {budget}")
         print(f"phase 12 K5 lens40 budget {budget}: iterations exact (min {int(got.end_iteration.min())}), "
               f"pos max err {(got.end_position - ref.end_position).abs().max().item():.3g}, "
-              f"dir max err {(got.end_direction - ref.end_direction).abs().max().item():.3g}")
+              f"dir max err {(got.end_direction - ref.end_direction).abs().max().item():.3g}; equal to K2 bit for bit")
     pos32 = t(lines_rays(16, hi=26.0, seed=3)[0])
     dirs32 = t(np.tile(np.array([[16.0, 0.5, -0.25]], np.float32), (16, 1)))
     got = mp.march_pallas(packed32a, pos32, dirs32, 500, bend_scale=BEND, step_scale=STEP, translucency=trc32,
@@ -500,11 +660,11 @@ def main() -> None:
     torch.testing.assert_close(k5_res.end_position, ref.end_position, rtol=0, atol=1e-4)
     torch.testing.assert_close(k5_res.end_direction, ref.end_direction, rtol=1e-5, atol=1e-6)
     k5_err = (k5_res.end_position - ref.end_position).abs().max().item()
-    fields_ = ("end_position", "end_direction", "end_iteration", "remaining_light")
-    k5_k2_equal = all(torch.equal(getattr(k5_res, f), getattr(k2_res, f)) for f in fields_)
-    k5_k2_diff = max((getattr(k5_res, f) - getattr(k2_res, f)).abs().max().item() for f in fields_)
+    if not all(torch.equal(getattr(k5_res, f), getattr(k2_res, f)) for f in fields_):
+        diff = max((getattr(k5_res, f) - getattr(k2_res, f)).abs().max().item() for f in fields_)
+        raise AssertionError(f"K5 differs from K2 at full size: max diff {diff:.3g}")
     print(f"phase 12 K5 256^3 bench, {n_rays} rays, budget {BUDGET}: vs plain iterations equal, pos max err "
-          f"{k5_err:.3g}; vs K2 {'bit-exact' if k5_k2_equal else f'NOT bit-exact (max diff {k5_k2_diff:.3g})'}")
+          f"{k5_err:.3g}; equal to K2 bit for bit")
     del k2_res, ref
 
     # 13. K6 against its plain replay: the phase 9 scenes; per-ray outputs against K3's
@@ -536,18 +696,14 @@ def main() -> None:
         drift = (got[3] - p0).abs().max().item()
         if name == "lens32" and not drift <= 2e-3:
             raise AssertionError(f"K6 lens32: replay drift {drift:.3g} above 2e-3")
-        k3_equal = True
         for key, a, b in zip(("d_pos0", "d_dir0", "recon"), got[1:4], k3[name]["rays"]):
-            err, bound = err_scale(a, b)
-            if not err <= bound:
-                raise AssertionError(f"K6 {name}: {key} max err vs K3 {err:.3g} above 1e-3·max|K3| = {bound:.3g}")
-            k3_equal = k3_equal and torch.equal(a, b)
+            if not torch.equal(a, b):
+                raise AssertionError(f"K6 {name}: {key} differs from K3's, max diff {(a - b).abs().max().item():.3g}")
         k6[name] = dict(errs=errs, plain_ms=start.elapsed_time(stop),
                         args=(table, nb, fwd.end_position, fwd.end_direction, nexec, wp, wd), bkw=bkw)
         print(f"phase 13 K6 {name}: max err vs plain "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-              + f"; drift |recon − start| {drift:.3g}; per-ray outputs vs K3 "
-              + ("bit-exact" if k3_equal else "within 1e-3·max, not bit-exact")
+              + f"; drift |recon − start| {drift:.3g}; per-ray outputs equal to K3's bit for bit"
               + f"; steps replayed {int(nexec.sum())}")
         del got, ref, fwd, raw
     k6_err = max(k6["256^3 bench"]["errs"].values())
@@ -578,10 +734,10 @@ def main() -> None:
           f"{err_line:.3g}; loss {end_pos[:, 1].sum().item():.6g}")
     del ior_pt, end_pos, g_ref, g_line
 
-    order, _ = ml._sort_by_brick(p, pnb, (mp.BX, mp.BY, mp.BZ))
+    order, _ = mp.sort_point_rays(p, pnb)
     k5_args = (ptable, pnb, tuple(packed256.shape[:3]), p[order].contiguous(), d[order].contiguous(), rem, alive, br)
     big = k6["256^3 bench"]
-    order, _ = ml._sort_by_brick(big["args"][2], pnb, (mp.BX, mp.BY, mp.BZ), big["args"][4] > 0)
+    order, _ = mp.sort_point_rays(big["args"][2], pnb, big["args"][4] > 0)
     k6_args = (ptable, pnb, *(a[order].contiguous() for a in big["args"][2:]))
     gpoints = torch.randn(tuple(ptable.shape), generator=gen, device=dev)
     ior_t = ior256.clone().requires_grad_(True)
@@ -606,32 +762,47 @@ def main() -> None:
             extra = f", {n_rays / times[key] / 1e3:.4f} Mrays/s fwd+bwd"
         print(f"phase 14 time {label}: {times[key]:.4f} ms{extra} {card}")
 
+    # bounds from this run's shapes and executed steps: each input read once,
+    # each output written once; a march reads its ray state (pos, dir, rem,
+    # alive, br: 36 B a ray) and writes it, a replay reads 52 B a ray (end
+    # pos and dir, nexec, d_pos, d_dir) and writes 40 (d_pos0, d_dir0, recon,
+    # residual) and the whole gradient table; both read the bricks the rays
+    # pass through
+    point_bytes = int(torch.unique(ml._brick_and_cell(path, pnb, (mp.BX, mp.BY, mp.BZ))[0]).numel()) \
+        * ptable[0].numel() * 4
+    replayed6 = int(k6["256^3 bench"]["args"][4].sum())
+    field_bytes = packed256.numel() * 4
+    bounds = {
+        "k1": kernel_bound(0, field_bytes + table_bytes),
+        "k2": kernel_bound(MARCH_OPS * steps, 72 * n_rays + line_bytes),
+        "k3": kernel_bound(REPLAY_OPS * replayed, 92 * n_rays + line_bytes + table_bytes),
+        # K4 reads the hi rows of channels 0-3 of the 121 live lanes
+        "k4": kernel_bound(0, nb256[0] * nb256[1] * nb256[2] * (LBZ + 1) * 4 * (LBX + 1) * (LBY + 1) * 4
+                           + field_bytes),
+        "k5": kernel_bound(MARCH_OPS * steps, 72 * n_rays + point_bytes),
+        "k6": kernel_bound(REPLAY_OPS * replayed6, 92 * n_rays + point_bytes + ptable.numel() * 4),
+    }
+    for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6")):
+        ms, by = bounds[key]
+        print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
+              f"{card}")
     src = "volumeraytracer_tpu_torch/kernels/csrc/"
+    rows = (
+        ("k1", "line_table_build", "line_table_build.cu", "line_table_pallas.py:108", train_launches, k1_err),
+        ("k2", "march_lines_fwd", "march_lines_fwd.cu", "march_lines.py:190", train_launches, k2_err),
+        ("k3", "march_lines_bwd", "march_lines_bwd.cu", "march_lines.py:1105", train_launches, k3_err),
+        ("k4", "line_table_fold", "line_table_fold.cu", "line_table_pallas.py:274", train_launches, k4_err),
+        ("k5", "march_points_fwd", "march_points_fwd.cu", "march_pallas.py:221", point_launches, k5_err),
+        ("k6", "march_points_bwd", "march_points_bwd.cu", "march_bwd.py:115", point_launches, k6_err),
+    )
     print(json.dumps({"kernels": [
-        {"name": "line_table_build", "route": "cuda", "source": src + "line_table_build.cu",
-         "replaces": "volumeraytracer_tpu/kernels/line_table_pallas.py:108",
-         "launches": train_launches["line_table_build"], "max_abs_err": k1_err,
-         "ms": times["k1"], "plain_ms": times["k1_plain"]},
-        {"name": "march_lines_fwd", "route": "cuda", "source": src + "march_lines_fwd.cu",
-         "replaces": "volumeraytracer_tpu/kernels/march_lines.py:190",
-         "launches": train_launches["march_lines_fwd"], "max_abs_err": k2_err,
-         "ms": times["k2"], "plain_ms": times["k2_plain"]},
-        {"name": "march_lines_bwd", "route": "cuda", "source": src + "march_lines_bwd.cu",
-         "replaces": "volumeraytracer_tpu/kernels/march_lines.py:1105",
-         "launches": train_launches["march_lines_bwd"], "max_abs_err": k3_err,
-         "ms": times["k3"], "plain_ms": times["k3_plain"]},
-        {"name": "line_table_fold", "route": "cuda", "source": src + "line_table_fold.cu",
-         "replaces": "volumeraytracer_tpu/kernels/line_table_pallas.py:274",
-         "launches": train_launches["line_table_fold"], "max_abs_err": k4_err,
-         "ms": times["k4"], "plain_ms": times["k4_plain"]},
-        {"name": "march_points_fwd", "route": "cuda", "source": src + "march_points_fwd.cu",
-         "replaces": "volumeraytracer_tpu/kernels/march_pallas.py:221",
-         "launches": point_launches["march_points_fwd"], "max_abs_err": k5_err,
-         "ms": times["k5"], "plain_ms": times["k5_plain"]},
-        {"name": "march_points_bwd", "route": "cuda", "source": src + "march_points_bwd.cu",
-         "replaces": "volumeraytracer_tpu/kernels/march_bwd.py:115",
-         "launches": point_launches["march_points_bwd"], "max_abs_err": k6_err,
-         "ms": times["k6"], "plain_ms": times["k6_plain"]},
+        {"name": name, "route": "cuda", "source": src + source,
+         "replaces": "volumeraytracer_tpu/kernels/" + replaces,
+         "launches": launched[name], "max_abs_err": err,
+         "ms": times[key], "plain_ms": times[key + "_plain"],
+         "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+         "library_ms": times.get(key + "_library")}
+        for key, name, source, replaces, launched, err in rows
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

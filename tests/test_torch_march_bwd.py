@@ -14,7 +14,9 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
+from volumeraytracer_tpu.kernels.line_table import build_line_table as jax_build_line_table
 from volumeraytracer_tpu.kernels.line_table import fold_line_grads as jax_fold
+from volumeraytracer_tpu.kernels.march_lines import _bwd_impl_lines
 from volumeraytracer_tpu.ops import march as jax_march
 from volumeraytracer_tpu.ops.fields import build_packed_field, cropped_translucency
 from volumeraytracer_tpu_torch.convert import state_from_jax
@@ -206,3 +208,111 @@ def test_kernel_wrappers_run_plain_versions_on_cpu():
                           bend=(BEND,) * 3, step=(STEP,) * 3, max_steps=3)
     assert out[-1].tolist() == [2] * n
     assert dict(_build.launches) == before
+
+
+
+def _faces_field():
+    """A 31×21×17 packed field (30×20×16 cells: whole line bricks, 3×2×2)
+    whose index rises along x only, so that the y and z channels are zero
+    and rays along x keep y and z exactly."""
+    ramp = np.linspace(1.0, 1.5, 33, dtype=np.float32)
+    return build_packed_field(jnp.asarray(np.broadcast_to(ramp[:, None, None], (33, 23, 19)).copy()))
+
+
+def _faces_rays(direction):
+    """Rays on line-brick faces (y in 0, 10; z in 0, 8).  "+x": they start
+    on the x faces 0, 10 and 20, and those from 20 leave through the far
+    face of the last brick (x = 30); "-x": they start one float below that
+    far face and on 20 and 10, and those from 10 leave through x = 0.  Two
+    more start on the far y face (y = 20, outside the field) and replay
+    nothing."""
+    xs = (0.0, 10.0, 20.0) if direction == "+x" else (float(np.nextafter(np.float32(30), 0)), 20.0, 10.0)
+    pos = np.array([(x, y, z) for x in xs for y in (0.0, 10.0) for z in (0.0, 8.0)]
+                   + [(xs[0], 20.0, 0.0), (xs[1], 20.0, 8.0)], np.float32)
+    dirs = np.tile(np.array([[16.0 if direction == "+x" else -16.0, 0.0, 0.0]], np.float32), (len(pos), 1))
+    return pos, dirs
+
+
+def _past_far_faces():
+    """End states on and past the faces of the last bricks, where the
+    brick and cell clamps of K3 (and of JAX's line adjoint kernel) decide
+    the corners: x = 30.4 and -0.3 (past the far and near x faces), 20 and
+    10 (brick faces), each with y in 0, 10, 20 and z in 0, 8, 16 (20 and 16
+    being the far y and z faces); 24 steps replayed, none for two rays."""
+    ends = ((30.4, 16.0), (20.0, 16.0), (10.0, -16.0), (-0.3, -16.0))
+    pos = np.array([(x, y, z) for x, _ in ends for y in (0.0, 10.0, 20.0) for z in (0.0, 8.0, 16.0)], np.float32)
+    dirs = np.array([(u, 0.0, 0.0) for _, u in ends for _ in range(9)], np.float32)
+    nexec = np.full(len(pos), 24, np.int32)
+    nexec[[5, 20]] = 0
+    return pos, dirs, nexec
+
+
+@pytest.mark.parametrize("case", ["+x", "-x", "past_far_faces"])
+def test_bwd_lines_on_brick_faces_matches_jax(case):
+    """K3's plain replay through march_lines_bwd (rays in sort_line_rays'
+    order) + K4's plain fold where the replay runs on brick faces and
+    through the faces of the last bricks.  "+x"/"-x": rays traced by the
+    forward, against jax.grad of JAX's XLA march at tests/test_lines.py's
+    bounds (recon within 2e-3, gradients within 1e-3 of the largest).
+    "past_far_faces": end states past those faces, where the clamps bite,
+    against JAX's line adjoint kernel (``_bwd_impl_lines``, interpret mode),
+    which clamps alike: per-ray outputs within 1e-6 and the folded gradient
+    within 1e-5 of their largest value.  In every case the same rays in a
+    random order give the same per-ray outputs bit for bit and the same
+    table up to the order of its sums."""
+    packed = _faces_field()
+    rng = np.random.default_rng(11)
+    kw = dict(bend=(BEND,) * 3, step=(STEP,) * 3)
+    if case == "past_far_faces":
+        budget = 25
+        pos, dirs, nexec_np = _past_far_faces()
+    else:
+        budget = 400
+        pos, dirs = _faces_rays(case)
+    wp = rng.normal(size=pos.shape).astype(np.float32)
+    wd = rng.normal(size=dirs.shape).astype(np.float32)
+    st = state_from_jax({"packed": np.asarray(packed), "pos": pos, "dirs": dirs, "wp": wp, "wd": wd}, "cpu")
+    table, nb = build_line_table(st["packed"])
+    assert nb == (3, 2, 2)
+
+    if case == "past_far_faces":
+        nexec = torch.from_numpy(nexec_np)
+        args = (st["pos"], st["dirs"], nexec, st["wp"], st["wd"])
+    else:
+        res, raw = march_lines(st["packed"], st["pos"], st["dirs"], budget, bend_scale=BEND, step_scale=STEP,
+                               return_state=True, table=table, nb=nb)
+        nexec = torch.clamp(budget - 1 - raw["remaining"], min=0)
+        assert nexec[-2:].tolist() == [0, 0] and bool((nexec[:-2] > 0).all())
+        end = res.end_position[:-2]
+        assert torch.equal(end[:, 1:], st["pos"][:-2, 1:])  # y and z stay on their faces
+        assert bool((end[:, 0] >= 30.0).any() if case == "+x" else (end[:, 0] < 0.0).any())
+        args = (res.end_position, res.end_direction, nexec, st["wp"], st["wd"])
+    gtable, d_pos0, d_dir0, recon, residual = march_lines_bwd(table, nb, *args, max_steps=budget, **kw)
+    assert not bool(residual.any())
+    d_packed = fold_line_grads(gtable, st["packed"].shape, nb).numpy()
+
+    if case == "past_far_faces":
+        jtable, jnb = jax_build_line_table(packed)
+        ref = _bwd_impl_lines(jtable, jnb, *(jnp.asarray(a) for a in (pos, dirs, nexec_np, wp, wd)), k_steps=8,
+                              max_windows=None, interpret=True, budget=budget, **kw)
+        for got, want in zip((d_pos0, d_dir0, recon), ref[1:4]):
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+        want = np.asarray(jax_fold(ref[0], packed.shape, jnb))
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(d_packed, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    else:
+        def loss(packed, pos, dirs):
+            r = jax_march.march_float(packed, None, pos, dirs, budget, bend_scale=BEND, step_scale=STEP,
+                                      chunk_steps=16, differentiable=True)
+            return jnp.sum(r.end_position * wp) + jnp.sum(r.end_direction * wd)
+
+        ref = jax.grad(loss, argnums=(0, 1, 2))(packed, jnp.asarray(pos), jnp.asarray(dirs))
+        np.testing.assert_allclose(recon.numpy(), pos, rtol=0, atol=2e-3)
+        _assert_grads_close([d_packed, d_pos0.numpy(), d_dir0.numpy()], [np.asarray(r) for r in ref])
+
+    perm = torch.from_numpy(np.random.default_rng(12).permutation(len(pos)))
+    gperm, *rays = march_lines_bwd(table, nb, *(a[perm] for a in args), max_steps=budget, **kw)
+    for got, want in zip(rays, (d_pos0, d_dir0, recon, residual)):
+        assert torch.equal(got, want[perm])
+    np.testing.assert_allclose(gperm.numpy(), gtable.numpy(), rtol=0, atol=1e-6 * gtable.abs().max().item())

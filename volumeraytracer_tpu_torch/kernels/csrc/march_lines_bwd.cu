@@ -27,18 +27,32 @@
 // (kernels/march_lines.py:_bwd_lines_plain) bit for bit; the gradient table
 // is summed with float atomics, in an order that changes from run to run.
 //
-// What bounds it on the H100: the dependent chain of each step (24 corner
-// loads behind an address computed from the previous step, ~200 flops) and
-// the atomics of the gradient table.  A ray spends ~10 steps in a cell, so
-// the thread keeps its 24 corner gradients in registers while the cell stays
-// the same and adds them to the table (24 atomics) only when the cell
-// changes: the TPU kernel's per-window accumulators, carried over.  Rays are
-// sorted by the brick of their end position, so neighbouring threads read
-// and add into the same few bricks, which stay in L1/L2.  The gradient table
-// is zeroed by the wrapper (0.8 GB at 256^3).  The TPU kernel's window
-// scheduler, VMEM brick residency, one-hot MXU gather/scatter and bf16 hi/lo
-// split of the gradients (to survive the MXU) are not carried over: a float32
-// atomic needs no split.
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W; measured by
+// chip_smoke.py and benchmarks/torch_probe_k2k3.py, see PERF.md).
+// A ray's replay stays ~30 steps in a cell (30.05 at the bench shape), so
+// the thread keeps the cell's state in registers while the table offset of
+// its corners stays the same: the 24 corner gradients, added to the table
+// with 24 float atomics when the cell changes (the TPU kernel's per-window
+// accumulators, carried over), and the corners' channels 0-2 (hi + lo),
+// loaded when the replay enters the cell.  The first design reloaded those
+// 48 values on every step, as scalar loads that the L1 served in ~10
+// sectors each with the rays of a warp spread over z: 3.67 ms at the bench
+// shape (256^3 lens, 362^2 rays, 511 steps each), the gtable zeroing
+// included.  Now 1.11 ms, of which the zeroing of the 0.8 GB gradient
+// table (by the wrapper) takes 0.24 ms and the kernel 0.88 ms; the rays are
+// sorted by the cell of their end position, (z, x, y) within a line brick,
+// which saves 2% over the brick-only order.  What bounds the kernel now is
+// instruction issue: a step in the same cell is 346 SASS instructions (297
+// floating point), and 67 M of them need ~0.69 ms at four warp
+// instructions per cycle per SM at 1.98 GHz; the cell-change block (119
+// instructions, 48 loads and 24 atomics) and each step's dependent chain
+// make up the rest.  Its bound, 281 float32 operations a step at
+// 67 TFLOP/s, is 0.28 ms (writing the zeroed table once would take 0.24 ms
+// at 3.35 TB/s); -fmad=false, which keeps the per-ray outputs bit for bit
+// equal to the plain version's, leaves it half that float rate.  The TPU
+// kernel's window scheduler, VMEM brick residency, one-hot MXU
+// gather/scatter and bf16 hi/lo split of the gradients (to survive the MXU)
+// are not carried over: a float32 atomic needs no split.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -96,9 +110,13 @@ march_lines_bwd_kernel(const float* __restrict__ table, float* __restrict__ gtab
   const int todo = nexec[i];
   const int steps = todo < max_steps ? todo : max_steps;
 
+  // the cell's corner gradients and its corners' channels 0-2 (hi + lo),
+  // kept in registers while the replay stays in one cell: the gradients go
+  // out and the corners come in when the table offset changes
   float acc[24];
 #pragma unroll
   for (int k = 0; k < 24; ++k) acc[k] = 0.0f;
+  float chv[8][3];
   int64_t cur = -1;
 
   for (int k = 0; k < steps; ++k) {
@@ -118,8 +136,14 @@ march_lines_bwd_kernel(const float* __restrict__ table, float* __restrict__ gtab
     if (base != cur) {
       flush(gtable, cur, acc);
       cur = base;
+      const float* t = table + base;
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          chv[o][c] = __ldg(t + corner_off(o, c)) + __ldg(t + corner_off(o, LCH + c));
+      }
     }
-    const float* t = table + base;
 
     const float fx = cx - fpx, fy = cy - fpy, fz = cz - fpz;
     const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
@@ -132,13 +156,9 @@ march_lines_bwd_kernel(const float* __restrict__ table, float* __restrict__ gtab
     const float dwy[8] = {-xz[0], -xz[1], xz[0], xz[1], -xz[2], -xz[3], xz[2], xz[3]};
     const float dwz[8] = {-xy[0], xy[0], -xy[1], xy[1], -xy[2], xy[2], -xy[3], xy[3]};
 
-    float chv[8][3];
     float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
 #pragma unroll
     for (int o = 0; o < 8; ++o) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        chv[o][c] = __ldg(t + corner_off(o, c)) + __ldg(t + corner_off(o, LCH + c));
       g0 = g0 + w[o] * chv[o][0];
       g1 = g1 + w[o] * chv[o][1];
       g2 = g2 + w[o] * chv[o][2];

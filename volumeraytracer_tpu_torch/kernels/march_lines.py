@@ -13,11 +13,12 @@ which ``march_lines_bwd_cuda`` runs for tensors on the CPU.
 
 ``march_lines`` is the counterpart of the JAX package's ``march_lines``:
 on the card it builds the table (K1) unless it is given one, sorts the
-rays by line brick so that neighbouring threads read the same bricks,
-launches K2 through ``march_lines_cuda``, restores the input order and
-turns the raw state into a ``TraceResult``.  ``march_lines_bwd`` is the
-counterpart of ``_bwd_impl_lines``: it sorts the rays by the line brick
-of their end position, launches K3 and restores the order.  The kernels
+rays by line brick and by cell within it (``sort_line_rays``) so that
+neighbouring threads read neighbouring lanes of the same bricks, launches
+K2 through ``march_lines_cuda``, restores the input order and turns the
+raw state into a ``TraceResult``.  ``march_lines_bwd`` is the counterpart
+of ``_bwd_impl_lines``: it sorts the rays in the same order by their end
+position, launches K3 and restores the order.  The kernels
 need no padding: each masks its own ragged edge.
 
 The point table's march and adjoint (K5, K6, ``march_pallas.py``) differ
@@ -37,8 +38,8 @@ from . import _build
 from .line_table import BRIGHT_MAX_F, LBX, LBY, LBZ, LCH, LL, LPY, LS, NLO, TCH, table_inputs
 from .line_table_cuda import build_line_table_cuda
 
-#: sort key of rays with nothing to march or replay: after every brick id
-DEAD_ID = 0x7FFFFFFF
+#: sort key of rays with nothing to march or replay: after every other key
+DEAD_ID = torch.iinfo(torch.int64).max
 
 #: the line table's addressing, as ``replay_plain`` takes it: the brick's
 #: extent in cells, the flat table offset of one point step along x, y and
@@ -104,29 +105,53 @@ def use_kernels(kernel: str, device: torch.device, dim: int) -> bool:
     return kernel == "auto" and on_cuda and dim == 3
 
 
-def _sort_by_brick(pos: torch.Tensor, nb, size, valid: Optional[torch.Tensor] = None):
-    """One locality sort by the id of the brick of ``size`` cells that holds
-    each position, rays where ``valid`` is False last; returns (order,
-    inverse)."""
+def _brick_and_cell(pos: torch.Tensor, nb, size):
+    """The id of the brick of ``size`` cells that holds each position, and
+    the position's cell (x, y, z) within that brick: (N,) and (N, 3) int64,
+    positions floored and clipped to the brick grid ``nb``."""
     dev = pos.device
+    size_t = torch.tensor(list(size), dtype=torch.int64, device=dev)
     extent = torch.tensor([n * s for n, s in zip(nb, size)], dtype=torch.int64, device=dev)
     cell = torch.minimum(torch.clamp(torch.floor(pos).to(torch.int64), min=0), extent - 1)
-    b = cell // torch.tensor(list(size), dtype=torch.int64, device=dev)
-    brick = (b[:, 0] * nb[1] + b[:, 1]) * nb[2] + b[:, 2]
+    b = cell // size_t
+    return (b[:, 0] * nb[1] + b[:, 1]) * nb[2] + b[:, 2], cell - b * size_t
+
+
+def _order(key: torch.Tensor, valid: Optional[torch.Tensor]):
+    """Stable ascending order of ``key``, rays where ``valid`` is False
+    last; returns (order, inverse)."""
     if valid is not None:
-        brick = torch.where(valid, brick, DEAD_ID)
-    order = torch.argsort(brick, stable=True)
+        key = torch.where(valid, key, DEAD_ID)
+    order = torch.argsort(key, stable=True)
     inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.numel(), device=dev)
+    inv[order] = torch.arange(order.numel(), device=key.device)
     return order, inv
 
 
+def _sort_by_brick(pos: torch.Tensor, nb, size, valid: Optional[torch.Tensor] = None):
+    """One locality sort by the id of the brick of ``size`` cells that holds
+    each position, rays where ``valid`` is False last; returns (order,
+    inverse).  The point drivers' order."""
+    return _order(_brick_and_cell(pos, nb, size)[0], valid)
+
+
+def sort_line_rays(pos: torch.Tensor, nb, valid: Optional[torch.Tensor] = None):
+    """The line drivers' order: by line brick, then by the cell within the
+    brick in (z, x, y) order, rays where ``valid`` is False last; returns
+    (order, inverse).  Neighbouring threads then share z and step along
+    y, which is the line table's consecutive lanes (``x*LPY + y``), so a
+    warp's corner loads cover few sectors."""
+    brick, cell = _brick_and_cell(pos, nb, (LBX, LBY, LBZ))
+    return _order(((brick * LBZ + cell[:, 2]) * LBX + cell[:, 0]) * LBY + cell[:, 1], valid)
+
+
 def march_on_table(packed, start_position, start_direction, budget, *, bend_scale, step_scale, translucency,
-                   absorb, minimum_brightness, return_state, table, nb, build, launch, size):
+                   absorb, minimum_brightness, return_state, table, nb, build, launch, sort):
     """The forward march driver of both layouts: ``march_lines``'s contract
     with the layout's table ``build`` (called as ``build(packed,
-    absorb=...)``), forward kernel wrapper ``launch`` and brick ``size`` in
-    cells.  On CPU tensors it runs the plain march, which takes the integer
+    absorb=...)``), forward kernel wrapper ``launch`` and ray order ``sort``
+    (called as ``sort(pos, nb)``, returning (order, inverse)).  On CPU
+    tensors it runs the plain march, which takes the integer
     ``translucency`` and not the float ``absorb``."""
     if packed.ndim != 4 or packed.shape[-1] != 4:
         raise ValueError(f"the march needs a 3-D packed field (X, Y, Z, 4), got {tuple(packed.shape)}")
@@ -160,7 +185,7 @@ def march_on_table(packed, start_position, start_direction, budget, *, bend_scal
     alive = torch.ones((n,), dtype=torch.int32, device=dev)
     rem = torch.full((n,), budget - 1, dtype=torch.int32, device=dev)
     br = torch.ones((n,), dtype=torch.float32, device=dev)
-    order, inv = _sort_by_brick(pos, nb, size)
+    order, inv = sort(pos, nb)
     outs = launch(
         table, nb, tuple(int(s) for s in packed.shape[:3]),
         pos[order].contiguous(), dirs[order].contiguous(), rem, alive, br,
@@ -216,7 +241,7 @@ def march_lines(
         packed, start_position, start_direction, budget, bend_scale=bend_scale, step_scale=step_scale,
         translucency=translucency, absorb=absorb, minimum_brightness=minimum_brightness,
         return_state=return_state, table=table, nb=nb,
-        build=build_line_table_cuda, launch=march_lines_cuda, size=(LBX, LBY, LBZ),
+        build=build_line_table_cuda, launch=march_lines_cuda, sort=sort_line_rays,
     )
 
 
@@ -368,13 +393,14 @@ def _bwd_lines_plain(table, nb, end_pos, end_dir, nexec, d_pos, d_dir, *, bend, 
                         bend=bend, step=step, max_steps=max_steps)
 
 
-def sorted_replay(launch, size, table, nb, end_pos, end_dir, nexec, d_pos, d_dir, *, bend, step, max_steps):
-    """The adjoint driver of both layouts: sorts the rays by the brick of
-    ``size`` cells that holds their end position (rays with nothing to
-    replay last), runs the adjoint wrapper ``launch`` and restores the
-    order.  Returns (gtable, d_pos0, d_dir0, recon_pos, residual)."""
+def sorted_replay(launch, sort, table, nb, end_pos, end_dir, nexec, d_pos, d_dir, *, bend, step, max_steps):
+    """The adjoint driver of both layouts: puts the rays in the layout's
+    order ``sort`` of their end positions (called as ``sort(end_pos, nb,
+    valid)``; rays with nothing to replay last), runs the adjoint wrapper
+    ``launch`` and restores the order.  Returns (gtable, d_pos0, d_dir0,
+    recon_pos, residual)."""
     nexec = nexec.to(torch.int32)
-    order, inv = _sort_by_brick(end_pos, nb, size, nexec > 0)
+    order, inv = sort(end_pos, nb, nexec > 0)
     gtable, *rays = launch(
         table, nb, *(t[order].to(torch.float32).contiguous() for t in (end_pos, end_dir)),
         nexec[order].contiguous(),
@@ -387,10 +413,10 @@ def sorted_replay(launch, size, table, nb, end_pos, end_dir, nexec, d_pos, d_dir
 def march_lines_bwd(table, nb, end_pos, end_dir, nexec, d_pos, d_dir, *, bend, step, max_steps):
     """Reverse replay of ``nexec`` executed steps per ray from the end state
     (end_pos, end_dir) with the cotangents (d_pos, d_dir), over the line
-    table the forward marched.  Sorts the rays by the line brick of their
-    end position, runs K3 (its plain version on the CPU) and restores the
-    order.  Returns (gtable, d_pos0, d_dir0, recon_pos, residual);
-    ``residual`` = nexec − replayed is positive only where ``max_steps``
-    cut the replay."""
-    return sorted_replay(march_lines_bwd_cuda, (LBX, LBY, LBZ), table, nb, end_pos, end_dir, nexec, d_pos, d_dir,
+    table the forward marched.  Sorts the rays by the line cell of their
+    end position (``sort_line_rays``), runs K3 (its plain version on the
+    CPU) and restores the order.  Returns (gtable, d_pos0, d_dir0,
+    recon_pos, residual); ``residual`` = nexec − replayed is positive only
+    where ``max_steps`` cut the replay."""
+    return sorted_replay(march_lines_bwd_cuda, sort_line_rays, table, nb, end_pos, end_dir, nexec, d_pos, d_dir,
                          bend=bend, step=step, max_steps=max_steps)

@@ -36,7 +36,7 @@ import torch
 
 from .line_table import LCH, NLO, TCH, _overlap_add, table_inputs, table_points
 from .march_lines import (
-    DEAD_ID, launch_march, launch_replay, march_lines, march_on_table, replay_plain, sorted_replay,
+    _sort_by_brick, launch_march, launch_replay, march_lines, march_on_table, replay_plain, sorted_replay,
 )
 
 #: brick extent in cells
@@ -98,6 +98,14 @@ def fold_brickmajor_grads(gtable: torch.Tensor, packed_shape, nb) -> torch.Tenso
     return g[:X, :Y, :Z].contiguous()
 
 
+def sort_point_rays(pos: torch.Tensor, nb, valid: Optional[torch.Tensor] = None):
+    """The point drivers' order: by point brick alone, rays where ``valid``
+    is False last; returns (order, inverse).  The point table keeps z on
+    consecutive lanes, which the bench rays' input order already follows
+    within a brick (K5 ran slower over rays sorted by cell, PERF.md)."""
+    return _sort_by_brick(pos, nb, (BX, BY, BZ), valid)
+
+
 def march_points_cuda(table: torch.Tensor, nb: Tuple[int, int, int], bounds: Tuple[int, int, int], pos, dirs, rem,
                       alive, br, **kw):
     """Launch K5 on CUDA tensors: table (NB, 8, 1408) f32, pos/dirs (N, 3)
@@ -147,7 +155,7 @@ def march_pallas(
     if layout != "points":
         raise ValueError(f"unknown layout {layout!r}")
     return march_on_table(packed, start_position, start_direction, budget, **kw,
-                          build=build_brick_table, launch=march_points_cuda, size=(BX, BY, BZ))
+                          build=build_brick_table, launch=march_points_cuda, sort=sort_point_rays)
 
 
 def _bwd_points_plain(table, nb, end_pos, end_dir, nexec, d_pos, d_dir, *, bend, step, max_steps):
@@ -175,5 +183,5 @@ def march_points_bwd(table, nb, end_pos, end_dir, nexec, d_pos, d_dir, *, bend, 
     (rays with nothing to replay last), runs K6 (its plain version on the
     CPU) and restores the order.  Returns (gtable, d_pos0, d_dir0,
     recon_pos, residual), as ``march_lines_bwd`` does."""
-    return sorted_replay(march_points_bwd_cuda, (BX, BY, BZ), table, nb, end_pos, end_dir, nexec, d_pos, d_dir,
+    return sorted_replay(march_points_bwd_cuda, sort_point_rays, table, nb, end_pos, end_dir, nexec, d_pos, d_dir,
                          bend=bend, step=step, max_steps=max_steps)
