@@ -9,8 +9,8 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
 (nvcc, sm_90a), then, each phase printing a line and raising on failure:
 
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. the kernel build and its time, each kernel's ptxas registers and
-     spills (it fails if any kernel spills);
+  2. the kernel build and its time, each kernel's ptxas registers, shared
+     memory and spills (it fails if any kernel spills);
   3. K1 (line-table build) bit-exact against its plain version at the bench
      field (256³ lens) without and with a translucency grid, and at an odd
      shape (24, 18, 14);
@@ -25,8 +25,10 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
   7. times (CUDA events): K1, K2 and their plain versions, and the forward
      trace end to end; K2 over the driver's ray order (sort_line_rays) and
      over the brick-only order, in turns;
-  8. K4 (gradient fold) against its plain fold on seeded gradient tables at
-     the bench grid and at (24, 18, 14), within 1e-6 (and whether bit-exact);
+  8. K4 (gradient fold) equal to its plain fold bit for bit on seeded
+     gradient tables at the bench grid, at (24, 18, 14), where the last
+     bricks own their far faces (21, 21, 17) and on axes one brick wide
+     (11, 31, 9) and (9, 29, 7);
   9. K3 (reverse-replay adjoint) against its plain replay on the scene of
      tests/test_lines.py:126, on end states past the faces of the last
      bricks (where the clamps bite) and on the full-size bundle, within 1e-3
@@ -44,10 +46,14 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      of phase 4 at their tolerances and equal to K2 bit for bit on lens40,
      then against the plain march and equal to K2 bit for bit at full size;
  13. K6 (point-table adjoint) against its plain replay on the phase 9
-     scenes, within 1e-3 of the largest plain value, with the drift back to
-     the start, and its per-ray outputs equal to K3's bit for bit (K5 and K6
-     keep the step code that K2 and K3 had before they kept a cell's
-     corners in registers, so phases 12 and 13 hold the redesign to it);
+     scenes, its per-ray outputs equal to the plain replay's and to K3's bit
+     for bit and its folded gradient within 1e-3 of the largest plain value,
+     with the drift back to the start; then on end states past the faces of
+     the last point bricks (where the clamps bite), per-ray outputs equal to
+     the plain replay's bit for bit (K5 keeps the step code that K2 had
+     before it kept a cell's corners in registers, so phase 12 holds K2's
+     redesign to it; K6 and K3 are both redesigned, so the plain replay is
+     phase 13's oracle as well);
  14. the point train step at full size: endpoint_render(layout="points")
      + backward + SGD, with K5 and K6 launched once each and K1-K4 not at
      all, d_ior against the plain path's and the line path's; times of K5,
@@ -66,7 +72,6 @@ when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import json
-import re
 import subprocess
 import sys
 import time
@@ -154,6 +159,19 @@ def past_far_faces():
     return pos, dirs, nexec
 
 
+def past_far_point_faces():
+    """tests/test_torch_points_bwd.py's end states on and past the faces of
+    the last point bricks of the x ramp (x = 32.4 and −0.3, y = 24, z = 16),
+    where K6's brick and cell clamps decide the corners; 24 steps to replay,
+    none for two rays."""
+    ends = ((32.4, 16.0), (24.0, 16.0), (8.0, -16.0), (-0.3, -16.0))
+    pos = np.array([(x, y, z) for x, _ in ends for y in (0.0, 8.0, 24.0) for z in (0.0, 8.0, 16.0)], np.float32)
+    dirs = np.array([(u, 0.0, 0.0) for _, u in ends for _ in range(9)], np.float32)
+    nexec = np.full(len(pos), 24, np.int32)
+    nexec[[5, 20]] = 0
+    return pos, dirs, nexec
+
+
 def main() -> None:
     import torch
 
@@ -170,6 +188,7 @@ def main() -> None:
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field, cropped_translucency
     from volumeraytracer_tpu_torch.ops.interp import interp_linear
     from volumeraytracer_tpu_torch.ops.march import march_float
+    from volumeraytracer_tpu_torch.probes.probe_k4k6 import ptxas_by_kernel
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
@@ -192,12 +211,11 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
+    ptxas = ptxas_by_kernel(_build.build_log)
     print(f"phase 2 build: {build_s:.2f} s ({_build.library_path().name})")
-    for ln in ptxas:
-        print(f"  ptxas: {ln}")
-    spills = [ln for ln in ptxas if "spill" in ln and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
+    for name, info in ptxas.items():
+        print(f"phase 2 ptxas {name}: " + ", ".join(f"{k} {v}" for k, v in info.items()))
+    spills = {name: info for name, info in ptxas.items() if info.get("spill_stores") or info.get("spill_loads")}
     if spills:
         raise AssertionError(f"ptxas reports spills: {spills}")
 
@@ -398,19 +416,19 @@ def main() -> None:
         return (got - ref).abs().max().item(), 1e-3 * ref.abs().max().item()
 
     # 8. K4 against its plain fold
-    k4_err = 0.0
     gen = torch.Generator(device=dev).manual_seed(8)
-    for name, shape in (("256^3", tuple(packed256.shape)), ("24x18x14", (22, 16, 12, 4))):
+    for name, shape in (("256^3", tuple(packed256.shape)), ("24x18x14", (22, 16, 12, 4)),
+                        ("21x21x17, far faces owned", (21, 21, 17, 4)), ("11x31x9, one brick wide", (11, 31, 9, 4)),
+                        ("9x29x7, one brick wide, cropped", (9, 29, 7, 4))):
         nb = line_brick_grid(shape)
         gtable = torch.randn((nb[0] * nb[1] * nb[2], 72, 128), generator=gen, device=dev)
         got = line_table_cuda.fold_line_grads_cuda(gtable, shape, nb)
         ref = fold_line_grads(gtable, shape, nb)
         sync()
-        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
-        err = (got - ref).abs().max().item()
-        k4_err = max(k4_err, err)
-        print(f"phase 8 K4 {name}: grad {tuple(got.shape)} max err {err:.3g} "
-              f"({'bit-exact' if torch.equal(got, ref) else 'within 1e-6'})")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K4 {name}: differs from the plain fold, max {(got - ref).abs().max().item():.3g}")
+        print(f"phase 8 K4 {name}: grad {tuple(got.shape)} on bricks {nb}, bit-exact")
+    k4_err = 0.0  # bit-exact on every shape
     del gtable, got, ref
 
     # 9. K3 against its plain replay: the tests/test_lines.py:126 scene, then full size
@@ -696,17 +714,41 @@ def main() -> None:
         drift = (got[3] - p0).abs().max().item()
         if name == "lens32" and not drift <= 2e-3:
             raise AssertionError(f"K6 lens32: replay drift {drift:.3g} above 2e-3")
-        for key, a, b in zip(("d_pos0", "d_dir0", "recon"), got[1:4], k3[name]["rays"]):
+        for key, a, b, c in zip(("d_pos0", "d_dir0", "recon"), got[1:4], k3[name]["rays"], ref[1:4]):
+            if not torch.equal(a, c):
+                raise AssertionError(f"K6 {name}: {key} differs from the plain replay's, max diff "
+                                     f"{(a - c).abs().max().item():.3g}")
             if not torch.equal(a, b):
                 raise AssertionError(f"K6 {name}: {key} differs from K3's, max diff {(a - b).abs().max().item():.3g}")
         k6[name] = dict(errs=errs, plain_ms=start.elapsed_time(stop),
                         args=(table, nb, fwd.end_position, fwd.end_direction, nexec, wp, wd), bkw=bkw)
         print(f"phase 13 K6 {name}: max err vs plain "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-              + f"; drift |recon − start| {drift:.3g}; per-ray outputs equal to K3's bit for bit"
+              + f"; drift |recon − start| {drift:.3g}; per-ray outputs equal to the plain replay's and K3's bit for bit"
               + f"; steps replayed {int(nexec.sum())}")
         del got, ref, fwd, raw
     k6_err = max(k6["256^3 bench"]["errs"].values())
+    fpos, fdirs, fnexec = past_far_point_faces()
+    fw = np.random.default_rng(11).normal(size=(2, *fpos.shape))
+    table, nb = mp.build_brick_table(packed_faces)
+    fargs = (table, nb, t(fpos), t(fdirs), t(fnexec, np.int32), t(fw[0]), t(fw[1]))
+    got = mp.march_points_bwd(*fargs, **rkw)
+    ref = mp._bwd_points_plain(*fargs, **rkw)
+    sync()
+    if bool(got[4].any()) or bool(ref[4].any()):
+        raise AssertionError("K6 past the far faces: the replay was cut (residual > 0)")
+    for key, a, b in zip(("d_pos0", "d_dir0", "recon"), got[1:4], ref[1:4]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K6 past the far faces: {key} differs from the plain replay's, max diff "
+                                 f"{(a - b).abs().max().item():.3g}")
+    err, bnd = err_scale(mp.fold_brickmajor_grads(got[0], packed_faces.shape, nb),
+                         mp.fold_brickmajor_grads(ref[0], packed_faces.shape, nb))
+    if not err <= bnd:
+        raise AssertionError(f"K6 past the far faces: d_packed max err {err:.3g} above 1e-3·max|ref| = {bnd:.3g}")
+    print(f"phase 13 K6 past the far faces (clamps biting, bricks {nb}): per-ray outputs equal to the plain "
+          f"replay's bit for bit; d_packed max err {err:.3g}; crossed x = 32: "
+          f"{bool(((got[3][:, 0] < 32.0) & (t(fpos)[:, 0] > 32.0)).any())}")
+    del table, got, ref
 
     # 14. the point train step at full size: K5 and K6 only
     ior_pt = ior256.clone().requires_grad_(True)

@@ -107,11 +107,17 @@ def test_bwd_lines_plain_matches_jax_grads():
     _assert_grads_close([d_packed.numpy(), d_pos0.numpy(), d_dir0.numpy()], ref)
 
 
-@pytest.mark.parametrize("shape", [(24, 18, 14), (32, 32, 32)], ids=["24x18x14", "32cube"])
+@pytest.mark.parametrize(
+    "shape", [(24, 18, 14), (32, 32, 32), (23, 23, 19), (13, 33, 11), (11, 31, 9)],
+    ids=["24x18x14", "32cube", "far-faces-21x21x17", "one-brick-wide-11x31x9", "one-brick-cropped-9x29x7"],
+)
 def test_fold_matches_jax(shape):
     """K4's plain version against JAX's fold on a seeded gradient table whose
     support is the rows and lanes the adjoint writes
-    (tests/test_line_table_pallas.py:49-64, rtol/atol 1e-6)."""
+    (tests/test_line_table_pallas.py:49-64, rtol/atol 1e-6).  The packed
+    field is ``shape`` less 2: cropped last bricks, last bricks that own
+    their far faces (21×21×17: 2×2×2 whole bricks), and axes one brick wide
+    (11×31×9 owns every far face; 9×29×7 is cropped in x and z)."""
     packed_shape = tuple(s - 2 for s in shape) + (4,)
     nb = line_brick_grid(packed_shape)
     rng = np.random.default_rng(7)

@@ -124,6 +124,64 @@ def test_bwd_points_table_matches_jax_interpret():
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * max(1.0, np.abs(want).max()))
 
 
+def _past_far_point_faces():
+    """A 31×21×17 packed field whose index rises along x only (30×20×16
+    cells; point bricks 4×3×1, whose far faces x = 32 and y = 24 lie past
+    the field's) and end states on and past the faces of the last point
+    bricks, where the brick and cell clamps of K6 (and of JAX's point
+    adjoint kernel) decide the corners: x = 32.4 and -0.3 (past the far and
+    near x faces), 24 and 8 (brick faces), each with y in 0, 8, 24 and z in
+    0, 8, 16 (24 and 16 being the far y and z faces); 24 steps replayed
+    along x, none for two rays."""
+    ramp = np.linspace(1.0, 1.5, 33, dtype=np.float32)
+    packed = build_packed_field(jnp.asarray(np.broadcast_to(ramp[:, None, None], (33, 23, 19)).copy()))
+    ends = ((32.4, 16.0), (24.0, 16.0), (8.0, -16.0), (-0.3, -16.0))
+    pos = np.array([(x, y, z) for x, _ in ends for y in (0.0, 8.0, 24.0) for z in (0.0, 8.0, 16.0)], np.float32)
+    dirs = np.array([(u, 0.0, 0.0) for _, u in ends for _ in range(9)], np.float32)
+    nexec = np.full(len(pos), 24, np.int32)
+    nexec[[5, 20]] = 0
+    return packed, pos, dirs, nexec
+
+
+def test_bwd_points_past_far_faces_matches_jax_interpret():
+    """K6's plain replay (through march_points_bwd, rays in sort_point_rays'
+    order) from end states past the faces of the last point bricks, where
+    the clamps bite, against JAX's point adjoint kernel (``_bwd_impl``,
+    interpret mode), which clamps alike: per-ray outputs within 1e-6 and the
+    gradient table within 1e-5 of their largest value; the same rays in a
+    random order give the same per-ray outputs bit for bit and the same
+    table up to the order of its sums.  The mirror of K3's case in
+    tests/test_torch_march_bwd.py."""
+    packed, pos, dirs, nexec = _past_far_point_faces()
+    rng = np.random.default_rng(11)
+    wp = rng.normal(size=pos.shape).astype(np.float32)
+    wd = rng.normal(size=dirs.shape).astype(np.float32)
+    st = state_from_jax({"packed": np.asarray(packed), "pos": pos, "dirs": dirs, "wp": wp, "wd": wd}, "cpu")
+    table, nb = mp.build_brick_table(st["packed"])
+    assert nb == (4, 3, 1)
+    kw = dict(bend=(BEND,) * 3, step=(STEP,) * 3, max_steps=25)
+    args = (st["pos"], st["dirs"], torch.from_numpy(nexec), st["wp"], st["wd"])
+    gtable, d_pos0, d_dir0, recon, residual = mp.march_points_bwd(table, nb, *args, **kw)
+    assert not bool(residual.any())
+    assert bool((recon[:, 0] < 32.0).any() & (recon[:, 0] > 31.0).any())  # the replay crosses x = 32
+
+    jtable, jnb = jax_build_brick_table(packed)
+    ref = jax_bwd_impl(jtable, jnb, *(jnp.asarray(a) for a in (pos, dirs, nexec, wp, wd)), bend=(BEND,) * 3,
+                       step=(STEP,) * 3, k_steps=8, max_windows=None, interpret=True, budget=25)
+    for got, want in zip((d_pos0, d_dir0, recon), ref[1:4]):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max())
+    want = np.asarray(ref[0])
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(gtable.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+    perm = torch.from_numpy(np.random.default_rng(12).permutation(len(pos)))
+    gperm, *rays = mp.march_points_bwd(table, nb, *(a[perm] for a in args), **kw)
+    for got, want in zip(rays, (d_pos0, d_dir0, recon, residual)):
+        assert torch.equal(got, want[perm])
+    np.testing.assert_allclose(gperm.numpy(), gtable.numpy(), rtol=0, atol=1e-6 * gtable.abs().max().item())
+
+
 def test_march_points_diff_finite_differences():
     """tests/test_pallas_bwd.py:90-123 with layout="points": directional
     finite differences of sum(end_position) along random field (eps 4) and

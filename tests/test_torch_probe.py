@@ -1,0 +1,112 @@
+"""The probes' host-side parts on the CPU: the point table's two ray orders
+against numpy lexsorts, the readers of cuobjdump's SASS listing and of
+ptxas' report on small listings of the same form, and the K4 sweep's
+variants of the fold's source."""
+
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from volumeraytracer_tpu_torch.kernels import march_pallas as mp
+from volumeraytracer_tpu_torch.probes import probe_k4k6 as probe
+
+SASS = """
+        Function : _ZN12_GLOBAL__N_122line_table_fold_kernelEPKfP6float4iiiiii
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                 /* 0x000fe40000000f00 */
+        /*0010*/                   LDGSTS.E.BYPASS.128 [R2], desc[UR4][R4.64] ;     /* 0x0 */
+        /*0020*/                   LDGDEPBAR ;                 /* 0x0 */
+        /*0030*/                   DEPBAR.LE SB0, 0x1 ;                 /* 0x0 */
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;                 /* 0x0 */
+        /*0050*/                   LDS R4, [R3] ;                 /* 0x0 */
+        /*0060*/                   STG.E.128 desc[UR4][R6.64], R8 ;                 /* 0x0 */
+        /*0070*/               @P0 BRA 0x10 ;                 /* 0x0 */
+        /*0080*/                   EXIT ;                 /* 0x0 */
+        Function : _ZN12_GLOBAL__N_123march_points_bwd_kernelEPKfPfiii
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                 /* 0x0 */
+        /*0010*/                   FADD R2, R2, R3 ;                 /* 0x0 */
+        /*0020*/                   ISETP.NE.AND.EX P0, PT, R4, R5, PT, P1 ;                 /* 0x0 */
+        /*0030*/              @!P0 BRA 0x70 ;                 /* 0x0 */
+        /*0040*/                   REDG.E.ADD.F32.FTZ.RN.STRONG.GPU desc[UR4][R2.64], R6 ;   /* 0x0 */
+        /*0050*/                   LDG.E.CONSTANT R6, desc[UR4][R2.64] ;                 /* 0x0 */
+        /*0060*/                   LDG.E.CONSTANT R7, desc[UR4][R2.64+0x4] ;                 /* 0x0 */
+        /*0070*/                   FMUL R2, R2, R3 ;                 /* 0x0 */
+        /*0080*/               @P2 BRA 0x10 ;                 /* 0x0 */
+        /*0090*/                   EXIT ;                 /* 0x0 */
+        Function : _ZN12_GLOBAL__N_113unrelated_kernelEv
+        /*0000*/                   EXIT ;                 /* 0x0 */
+"""
+
+PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122line_table_fold_kernelEPKfP6float4iiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122line_table_fold_kernelEPKfP6float4iiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123march_points_bwd_kernelEPKfPfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123march_points_bwd_kernelEPKfPfiii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 96 registers, 1024 bytes smem, 480 bytes cmem[0]
+"""
+
+
+def test_point_orders_against_numpy():
+    """The brick-only order is sort_point_rays'; the cell order sorts by
+    point brick, then by cell in (x, y, z) order; invalid rays go last in
+    input order, ties keep their input order."""
+    shape = (31, 21, 17, 4)
+    nb = mp.brick_grid(shape)
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(-1.5, np.array(shape[:3]) + 0.5, (300, 3)).astype(np.float32)
+    pos[-30:] = pos[:30]
+    valid = rng.random(len(pos)) < 0.8
+    brick_order, cell_order = probe.point_orders(torch.from_numpy(pos), nb, torch.from_numpy(valid))
+    assert torch.equal(brick_order, mp.sort_point_rays(torch.from_numpy(pos), nb, torch.from_numpy(valid))[0])
+    size = np.array([mp.BX, mp.BY, mp.BZ])
+    cell = np.minimum(np.maximum(np.floor(pos).astype(np.int64), 0), np.array(nb) * size - 1)
+    b, local = cell // size, cell % size
+    brick = (b[:, 0] * nb[1] + b[:, 1]) * nb[2] + b[:, 2]
+    keys = np.stack([~valid, np.where(valid, brick, 0), *(np.where(valid, local[:, k], 0) for k in range(3))])
+    np.testing.assert_array_equal(cell_order.numpy(), np.lexsort(keys[::-1]))
+
+
+def test_sass_readers():
+    """Functions by kernel, opcode families, loops and the replay's
+    cell-change block (its loads and Hopper's REDG atomics)."""
+    funcs = probe.sass_functions(SASS)
+    assert set(funcs) == {"line_table_fold", "march_points_bwd"}
+    fold = funcs["line_table_fold"]
+    assert probe.opcode_counts(fold) == {"total": 9, "LDGSTS": 1, "STG": 1, "LDS": 1, "BAR": 1, "LDGDEPBAR": 1,
+                                         "DEPBAR": 1}
+    assert probe.sass_loops(fold) == [{"head": "0x10", "total": 7, "LDGSTS": 1, "STG": 1, "LDS": 1, "BAR": 1,
+                                       "LDGDEPBAR": 1, "DEPBAR": 1}]
+    assert probe.cell_change_block(funcs["march_points_bwd"]) == {
+        "loop": 8, "cell_change_block": 3, "same_cell_step": 5, "block_loads": 2, "block_atomics": 1}
+
+
+def test_ptxas_reader():
+    assert probe.ptxas_by_kernel(PTXAS) == {
+        "line_table_fold": {"spill_stores": 0, "spill_loads": 0, "registers": 48, "smem_bytes": 0},
+        "march_points_bwd": {"spill_stores": 4, "spill_loads": 4, "registers": 96, "smem_bytes": 1024},
+    }
+
+
+def test_k4_sweep_variant_source():
+    """The K4 sweep's variants change the fold's ring depth and blocks an SM
+    and nothing else, and export its occupancy; the first variant is the
+    source's own."""
+    from pathlib import Path
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.probes import sweep_k4
+
+    src = (Path(_build.__file__).parent / "csrc" / "line_table_fold.cu").read_text()
+    own = tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) for name in ("NSTAGE", "MIN_BLOCKS"))
+    assert sweep_k4.VARIANTS[0] == own
+    v = sweep_k4.variant_source(src, 4, 1)
+    assert "constexpr int NSTAGE = 4;" in v and "constexpr int MIN_BLOCKS = 1;" in v
+    assert v.endswith(sweep_k4.EXPORT) and sweep_k4.OCCUPANCY + "}  // namespace" in v
+    assert sweep_k4.variant_source(src, *own) == src.rsplit("}  // namespace", 1)[0] + sweep_k4.OCCUPANCY \
+        + "}  // namespace" + src.rsplit("}  // namespace", 1)[1] + sweep_k4.EXPORT
+    with pytest.raises(ValueError, match="NSTAGE"):
+        sweep_k4.variant_source(src.replace("constexpr int NSTAGE", "constexpr int RING"), 2, 2)

@@ -3,6 +3,8 @@ endpoint_render to the index field, RaytraceScene.trace_rays(
 differentiable=True) and fit_field — against the JAX package on the CPU
 (its "xla" march, which is what the JAX package runs there)."""
 
+import inspect
+
 import numpy as np
 import pytest
 
@@ -146,8 +148,14 @@ def test_fit_field_api():
     pos, dirs, _, _ = _bundle(4, 2.0, 4.0, seed=1)
     res = optimize.fit_field(
         ior, pos, dirs, pos + 3.0, budget=16, chunk_steps=8, steps=2, smoothness=0.1,
-        optimizer=lambda params: torch.optim.SGD(params, lr=1e-3),
+        optimizer=lambda params: torch.optim.SGD(params, lr=1e-3), device="cpu",
     )
     assert np.isfinite(res.losses).all() and res.losses.shape == (2,) and bool((res.ior > 1.0).all())
     with pytest.raises(NotImplementedError, match="checkpoint_dir"):
         optimize.fit_field(ior, pos, dirs, pos, budget=16, steps=1, checkpoint_dir="ckpt")
+
+
+def test_fit_field_runs_on_the_card_by_default():
+    """fit_field's entry point runs on the card unless the caller asks for
+    the CPU, as the tests here do."""
+    assert inspect.signature(optimize.fit_field).parameters["device"].default == "cuda"

@@ -30,19 +30,28 @@
 // same forward; the gradient table is summed with float atomics, in an order
 // that changes from run to run.
 //
-// What bounds it on the H100: the dependent chain of each step (48 corner
-// loads behind an address computed from the previous step, ~200 flops) and
-// the atomics of the gradient table.  A ray spends ~10 steps in a cell, so
-// the thread keeps its 24 corner gradients in registers while the cell stays
-// the same and adds them to the table (24 atomics) only when the cell
-// changes: the TPU kernel's per-window accumulators and the roll-fold of its
-// flush (:151-175), done by addressing.  Rays are sorted by the point brick
-// of their end position, so neighbouring threads read and add into the same
-// few bricks, which stay in L1/L2.  The gradient table is zeroed by the
-// wrapper (0.74 GB at 256^3).  The TPU kernel's window scheduler, VMEM brick
-// residency, lane-rolled corner copies, one-hot MXU gather/scatter and bf16
-// hi/lo split of the gradients (to survive the MXU) are not carried over: a
-// float32 atomic needs no split.
+// What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W; measured by
+// chip_smoke.py and volumeraytracer_tpu_torch/probes/probe_k4k6.py, see
+// PERF.md).  A ray's replay stays ~30 steps in a cell (30.05 at the bench
+// shape), so the thread keeps the cell's state in registers while the table
+// offset of its corners stays the same: the 24 corner gradients, added to
+// the table with 24 float atomics when the cell changes (the TPU kernel's
+// per-window accumulators and the roll-fold of its flush, :151-175, done by
+// addressing), and the corners' channels 0-2 (hi + lo), loaded when the
+// replay enters the cell.  The cache is keyed on the table offset, not on
+// floor(p): past the faces of the last bricks the brick and cell clamps give
+// clamped and unclamped positions the same offset.  The first design loaded
+// those 48 values on every step: a 419-instruction step, 1.30 ms at the
+// bench shape (256^3 lens, 362^2 rays, 511 steps each) with the zeroing.
+// Now the step that stays in its cell is 343 instructions and the block that
+// enters a cell 130 (48 loads, 24 atomics); 1.08 ms, of which the wrapper's
+// zeroing of the 0.74 GB gradient table takes 0.23 ms and the kernel 0.89
+// ms, bound by instruction issue like K3.  Rays are sorted by the point
+// brick of their end position; a (brick, cell) order is within 1% of it.
+// The TPU kernel's window scheduler, VMEM brick residency, lane-rolled
+// corner copies, one-hot MXU gather/scatter and bf16 hi/lo split of the
+// gradients (to survive the MXU) are not carried over: a float32 atomic
+// needs no split.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,9 +108,13 @@ march_points_bwd_kernel(const float* __restrict__ table, float* __restrict__ gta
   const int todo = nexec[i];
   const int steps = todo < max_steps ? todo : max_steps;
 
+  // the cell's corner gradients and its corners' channels 0-2 (hi + lo),
+  // kept in registers while the replay stays in one cell: the gradients go
+  // out and the corners come in when the table offset changes
   float acc[24];
 #pragma unroll
   for (int k = 0; k < 24; ++k) acc[k] = 0.0f;
+  float chv[8][3];
   int64_t cur = -1;
 
   for (int k = 0; k < steps; ++k) {
@@ -122,8 +135,14 @@ march_points_bwd_kernel(const float* __restrict__ table, float* __restrict__ gta
     if (base != cur) {
       flush(gtable, cur, acc);
       cur = base;
+      const float* t = table + base;
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          chv[o][c] = __ldg(t + corner_off(o, c)) + __ldg(t + corner_off(o, LCH + c));
+      }
     }
-    const float* t = table + base;
 
     const float fx = cx - fpx, fy = cy - fpy, fz = cz - fpz;
     const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
@@ -136,13 +155,9 @@ march_points_bwd_kernel(const float* __restrict__ table, float* __restrict__ gta
     const float dwy[8] = {-xz[0], -xz[1], xz[0], xz[1], -xz[2], -xz[3], xz[2], xz[3]};
     const float dwz[8] = {-xy[0], xy[0], -xy[1], xy[1], -xy[2], xy[2], -xy[3], xy[3]};
 
-    float chv[8][3];
     float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
 #pragma unroll
     for (int o = 0; o < 8; ++o) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        chv[o][c] = __ldg(t + corner_off(o, c)) + __ldg(t + corner_off(o, LCH + c));
       g0 = g0 + w[o] * chv[o][0];
       g1 = g1 + w[o] * chv[o][1];
       g2 = g2 + w[o] * chv[o][2];

@@ -102,7 +102,8 @@ def sort_point_rays(pos: torch.Tensor, nb, valid: Optional[torch.Tensor] = None)
     """The point drivers' order: by point brick alone, rays where ``valid``
     is False last; returns (order, inverse).  The point table keeps z on
     consecutive lanes, which the bench rays' input order already follows
-    within a brick (K5 ran slower over rays sorted by cell, PERF.md)."""
+    within a brick (K5 ran slower over rays sorted by cell, and K6 within
+    1% of its time over the brick order, PERF.md)."""
     return _sort_by_brick(pos, nb, (BX, BY, BZ), valid)
 
 

@@ -81,10 +81,10 @@ def fit_field(
     checkpoint_dir=None,
     log_every: int = 0,
     logger=None,
-    device="cpu",
+    device="cuda",
 ) -> FitResult:
-    """Fit an index field on ``device`` so that rays land on ``targets``
-    (per-ray endpoints, (N, dim)).
+    """Fit an index field on ``device`` (the card unless the caller asks for
+    another) so that rays land on ``targets`` (per-ray endpoints, (N, dim)).
 
     ``optimizer``: a callable that takes the parameter list and returns a
     ``torch.optim.Optimizer``; ``None`` is ``torch.optim.Adam`` at
