@@ -43,17 +43,21 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      (value + grad + SGD update) with kernels and with kernel="plain"; K3
      over the driver's order and over the brick-only order, in turns;
  12. K5 (point-table forward march) against the plain march on the scenes
-     of phase 4 at their tolerances and equal to K2 bit for bit on lens40,
-     then against the plain march and equal to K2 bit for bit at full size;
+     of phase 4 at their tolerances and equal to K2 bit for bit on lens40;
+     on rays along point-brick faces (x = 0, 8 and z = 0, 16 of a y ramp,
+     along +y and −y, through brick faces and the far y face), iterations
+     exact against the plain march and equal to K2 bit for bit; then
+     against the plain march and equal to K2 bit for bit at full size;
  13. K6 (point-table adjoint) against its plain replay on the phase 9
      scenes, its per-ray outputs equal to the plain replay's and to K3's bit
      for bit and its folded gradient within 1e-3 of the largest plain value,
      with the drift back to the start; then on end states past the faces of
      the last point bricks (where the clamps bite), per-ray outputs equal to
-     the plain replay's bit for bit (K5 keeps the step code that K2 had
-     before it kept a cell's corners in registers, so phase 12 holds K2's
-     redesign to it; K6 and K3 are both redesigned, so the plain replay is
-     phase 13's oracle as well);
+     the plain replay's bit for bit (K2, K3, K5 and K6 all keep a cell's
+     corners in registers now, so what holds them is the plain march and
+     the plain replay, each pair's equality, and the parent-versus-change
+     digests of the probes, volumeraytracer_tpu_torch/probes/probe_k4k6.py
+     for K4-K6);
  14. the point train step at full size: endpoint_render(layout="points")
      + backward + SGD, with K5 and K6 launched once each and K1-K4 not at
      all, d_ior against the plain path's and the line path's; times of K5,
@@ -144,6 +148,18 @@ def faces_rays(sign):
     pos = np.array([(x, y, z) for x in xs for y in (0.0, 10.0) for z in (0.0, 8.0)]
                    + [(xs[0], 20.0, 0.0), (xs[1], 20.0, 8.0)], np.float32)
     return pos, np.tile(np.array([[16.0 * sign, 0.0, 0.0]], np.float32), (len(pos), 1))
+
+
+def point_faces_rays(sign):
+    """tests/test_torch_points.py's rays along point-brick faces (x in 0, 8;
+    z in 0, 16) of its y ramp (16 x 32 x 32 cells): along +y from the y
+    faces 0, 8 and 16, or along −y from one float below the far face 32 and
+    from 24 and 16; two more start on the far x face (x = 16, outside the
+    field)."""
+    ys = (0.0, 8.0, 16.0) if sign > 0 else (float(np.nextafter(np.float32(32), 0)), 24.0, 16.0)
+    pos = np.array([(x, y, z) for y in ys for x in (0.0, 8.0) for z in (0.0, 16.0)]
+                   + [(16.0, ys[0], 0.0), (16.0, ys[1], 16.0)], np.float32)
+    return pos, np.tile(np.array([[0.0, 16.0 * sign, 0.0]], np.float32), (len(pos), 1))
 
 
 def past_far_faces():
@@ -635,7 +651,8 @@ def main() -> None:
         print(f"phase 11 time {label}: {times[key]:.4f} ms{extra} {card}")
     del gfull, gflat, idx, ior_t
 
-    # 12. K5 against the plain march: the phase 4 scenes, then full size and against K2
+    # 12. K5 against the plain march: the phase 4 scenes, point-brick faces,
+    # then full size; and against K2
     pos40, dirs40 = (t(a) for a in lines_rays(70)[:2])
     fields_ = ("end_position", "end_direction", "end_iteration", "remaining_light")
     for budget in (64, 300):
@@ -664,6 +681,25 @@ def main() -> None:
     torch.testing.assert_close(got.end_position, ref.end_position, rtol=0, atol=5e-2)
     print(f"phase 12 K5 absorption: iterations within 1, light max rel err "
           f"{(got.remaining_light.double() / ref.remaining_light.double() - 1).abs().max().item():.3g}")
+    yramp = np.broadcast_to(np.linspace(1.0, 1.5, 35, dtype=np.float32)[None, :, None], (19, 35, 35))
+    packed_pfaces = build_packed_field(t(yramp))
+    for sign in (1.0, -1.0):
+        fpos, fdirs = (t(a) for a in point_faces_rays(sign))
+        got = mp.march_pallas(packed_pfaces, fpos, fdirs, 400, bend_scale=BEND, step_scale=STEP)
+        ref = march_float(packed_pfaces, None, fpos, fdirs, 400, bend_scale=BEND, step_scale=STEP, chunk_steps=64)
+        k2_res = ml.march_lines(packed_pfaces, fpos, fdirs, 400, bend_scale=BEND, step_scale=STEP)
+        sync()
+        torch.testing.assert_close(got.end_iteration, ref.end_iteration, rtol=0, atol=0)
+        torch.testing.assert_close(got.end_position, ref.end_position, rtol=0, atol=1e-4)
+        torch.testing.assert_close(got.end_direction, ref.end_direction, rtol=1e-6, atol=1e-6)
+        if not torch.equal(got.end_position[:-2][:, [0, 2]], fpos[:-2][:, [0, 2]]):
+            raise AssertionError("K5 on point-brick faces: x or z left its face")
+        if not all(torch.equal(getattr(got, f), getattr(k2_res, f)) for f in fields_):
+            raise AssertionError(f"K5 differs from K2 on point-brick faces, {'+y' if sign > 0 else '-y'}")
+        print(f"phase 12 K5 on point-brick faces, {'+y' if sign > 0 else '-y'}: iterations exact "
+              f"({got.end_iteration.tolist()}), pos max err "
+              f"{(got.end_position - ref.end_position).abs().max().item():.3g}, x and z stay on their faces; "
+              f"equal to K2 bit for bit")
     ptable, pnb = mp.build_brick_table(packed256)
     fkw = dict(bend_scale=BEND, step_scale=STEP)
     k5_res = mp.march_pallas(packed256, p, d, BUDGET, table=ptable, nb=pnb, **fkw)

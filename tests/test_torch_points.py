@@ -110,6 +110,45 @@ def test_march_pallas_points_matches_jax_interpret():
     assert bool((got.end_iteration < 300).any())
 
 
+def _point_faces_rays(sign):
+    """Rays along point-brick faces (x in 0, 8; z in 0, 16) of a y ramp
+    whose packed field is 16 × 32 × 32 cells: along +y from the y faces 0, 8
+    and 16, or along −y from one float below the far face 32 and from 24 and
+    16; two more start on the far x face (x = 16, outside the field)."""
+    ys = (0.0, 8.0, 16.0) if sign > 0 else (float(np.nextafter(np.float32(32), 0)), 24.0, 16.0)
+    pos = np.array([(x, y, z) for y in ys for x in (0.0, 8.0) for z in (0.0, 16.0)]
+                   + [(16.0, ys[0], 0.0), (16.0, ys[1], 16.0)], np.float32)
+    return pos, np.tile(np.array([[0.0, 16.0 * sign, 0.0]], np.float32), (len(pos), 1))
+
+
+def test_march_pallas_points_on_brick_faces_matches_jax():
+    """The point-brick face case of chip_smoke.py phase 12: rays along
+    point-brick faces in both directions, through brick faces and out of
+    the far y face, where K5's brick and cell clamps and its cell cache
+    meet.  The plain march (K5's oracle there) against JAX's point kernel
+    in interpret mode: iterations exact, pos atol 1e-4, dir 1e-6; x and z
+    stay on their faces."""
+    ramp = np.broadcast_to(np.linspace(1.0, 1.5, 35, dtype=np.float32)[None, :, None], (19, 35, 35))
+    packed = build_packed_field(jnp.asarray(ramp))
+    pos, dirs = (np.concatenate(a) for a in zip(_point_faces_rays(1.0), _point_faces_rays(-1.0)))
+    # the rays of many bricks share one tile of the TPU kernel, which steps
+    # one brick's rays a window: they need ~1100 windows, past its default
+    # cap (2·budget + 64), where it would leave rays unmarched
+    ref = jax_mp.march_pallas(packed, jnp.asarray(pos), jnp.asarray(dirs), 400, bend_scale=BEND, step_scale=STEP,
+                              k_steps=8, interpret=True, max_windows=2000)
+    assert int(np.asarray(ref.windows_used).max()) < 2000
+    st = state_from_jax({"packed": np.asarray(packed), "pos": pos, "dirs": dirs}, "cpu")
+    got = mp.march_pallas(st["packed"], st["pos"], st["dirs"], 400, bend_scale=BEND, step_scale=STEP)
+    np.testing.assert_array_equal(got.end_iteration.numpy(), np.asarray(ref.end_iteration).astype(np.int64))
+    np.testing.assert_allclose(got.end_position.numpy(), np.asarray(ref.end_position), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.end_direction.numpy(), np.asarray(ref.end_direction), rtol=1e-6, atol=1e-6)
+    inside = pos[:, 0] < 16.0
+    np.testing.assert_array_equal(got.end_position.numpy()[inside][:, [0, 2]], pos[inside][:, [0, 2]])
+    # every ray inside the field crossed a point-brick face along y
+    crossed = np.floor(got.end_position.numpy()[inside, 1] / 8) != np.floor(pos[inside, 1] / 8)
+    assert crossed.all() and (got.end_iteration.numpy()[~inside] == 1).all()
+
+
 def test_march_pallas_points_absorption_matches_jax():
     """tests/test_pallas.py:131-189 against JAX's XLA march (the point
     kernel's own reference there): the dark exit fires, iterations within

@@ -2,6 +2,7 @@
 mode="float") and endpoint_render's forward — against the JAX package, plus
 the port's API contract on the CPU."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -41,12 +42,35 @@ def _scene_inputs(n=40, n_rays=256, seed=0):
     return ior, tr, pos, dirs
 
 
+def _where_worst(name, a, b, tol):
+    """Which check, its largest difference, the ray where it occurs and
+    both values there, and how many rays are outside ``tol`` = (rtol,
+    atol)."""
+    diff = np.abs(a.astype(np.float64) - b.astype(np.float64)).reshape(len(a), -1)
+    ray = int(diff.max(-1).argmax())
+    rtol, atol = tol
+    outside = int((diff > atol + rtol * np.abs(b.astype(np.float64)).reshape(len(b), -1)).any(-1).sum())
+    return (f"{name}: largest |got - ref| {diff[ray].max():.6g} at ray {ray} (got {a[ray].tolist()}, "
+            f"ref {b[ray].tolist()}); {outside} of {len(a)} rays outside rtol {rtol:g}, atol {atol:g}")
+
+
 def _assert_trace_close(got, ref):
-    """tests/test_lines.py tolerances for the float march."""
-    np.testing.assert_array_equal(got.end_iteration.numpy(), np.asarray(ref.end_iteration).astype(np.int64))
-    np.testing.assert_array_equal(got.remaining_light.numpy(), np.asarray(ref.remaining_light).astype(np.int64))
-    np.testing.assert_allclose(got.end_position.numpy(), np.asarray(ref.end_position), rtol=0, atol=1e-4)
-    np.testing.assert_allclose(got.end_direction.numpy(), np.asarray(ref.end_direction), rtol=1e-6, atol=1e-6)
+    """tests/test_lines.py tolerances for the float march: iterations and
+    remaining light exact, positions within 1e-4, directions within 1e-6
+    relative and absolute.  A failure names the check, its largest
+    difference and the ray where it occurs."""
+    checks = (
+        ("end_iteration", got.end_iteration.numpy(), np.asarray(ref.end_iteration).astype(np.int64), None),
+        ("remaining_light", got.remaining_light.numpy(), np.asarray(ref.remaining_light).astype(np.int64), None),
+        ("end_position", got.end_position.numpy(), np.asarray(ref.end_position), (0, 1e-4)),
+        ("end_direction", got.end_direction.numpy(), np.asarray(ref.end_direction), (1e-6, 1e-6)),
+    )
+    for name, a, b, tol in checks:
+        msg = _where_worst(name, a, b, tol or (0, 0))
+        if tol is None:
+            np.testing.assert_array_equal(a, b, err_msg=msg)
+        else:
+            np.testing.assert_allclose(a, b, rtol=tol[0], atol=tol[1], err_msg=msg)
 
 
 @pytest.mark.parametrize("with_tr", [False, True], ids=["no_tr", "opaque_plane"])
@@ -61,6 +85,24 @@ def test_trace_rays_float_matches_jax(with_tr):
     _assert_trace_close(got, ref)
     assert got.windows_used is None and got.path is None
     assert (got.end_iteration < 300).any() == with_tr
+
+
+@pytest.mark.parametrize("field, ray", [("end_iteration", 3), ("end_position", 17), ("end_direction", 250)])
+def test_trace_parity_failure_names_check_and_ray(field, ray):
+    """A result outside the tolerance by one ray fails with a message that
+    names the check, the largest difference and that ray."""
+    rng = np.random.default_rng(ray)
+    ref = vtt.TraceResult(
+        end_position=torch.from_numpy(rng.uniform(0, 40, (256, 3)).astype(np.float32)),
+        end_direction=torch.from_numpy(rng.uniform(-16, 16, (256, 3)).astype(np.float32)),
+        end_iteration=torch.full((256,), 300, dtype=torch.int64),
+        remaining_light=torch.full((256,), 0xFFFFFFFF, dtype=torch.int64),
+    )
+    _assert_trace_close(ref, ref)
+    value = getattr(ref, field).clone()
+    value[ray] += 2 if field == "end_iteration" else 1e-3
+    with pytest.raises(AssertionError, match=rf"{field}: largest \|got - ref\| .* at ray {ray} .*1 of 256 rays"):
+        _assert_trace_close(dataclasses.replace(ref, **{field: value}), ref)
 
 
 def test_endpoint_render_forward_matches_jax():

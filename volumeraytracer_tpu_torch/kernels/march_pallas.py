@@ -102,8 +102,9 @@ def sort_point_rays(pos: torch.Tensor, nb, valid: Optional[torch.Tensor] = None)
     """The point drivers' order: by point brick alone, rays where ``valid``
     is False last; returns (order, inverse).  The point table keeps z on
     consecutive lanes, which the bench rays' input order already follows
-    within a brick (K5 ran slower over rays sorted by cell, and K6 within
-    1% of its time over the brick order, PERF.md)."""
+    within a brick; K5 and K6, which keep a cell's corners in registers,
+    run within their spread of this time over a (brick, cell) order
+    (PERF.md)."""
     return _sort_by_brick(pos, nb, (BX, BY, BZ), valid)
 
 

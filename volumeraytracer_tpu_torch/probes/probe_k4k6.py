@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time two versions of the port's K4 (line-table gradient fold) and K6
-(point-table adjoint) in turns on one GPU, beside the other kernels and the
-line and point train steps, at the bench shape of ``chip_smoke.py``.
+"""Time two versions of the port's K4 (line-table gradient fold), K5
+(point-table forward march) and K6 (point-table adjoint) in turns on one
+GPU, beside the other kernels and the line and point train steps, at the
+bench shape of ``chip_smoke.py``.
 
     python3 -m volumeraytracer_tpu_torch.probes.probe_k4k6 --parent DIR [--out FILE.json]
 
@@ -16,24 +17,25 @@ kernels and times them with CUDA events.  Each child records:
   and a copy-only ceiling: ``copy_`` of the 36 hi rows of channels 0-3
   that it reads, timed alone and reported as a rate, not as a library
   call for the same function;
-- K6 over the point drivers' order (point brick alone) and over a (point
-  brick, cell) order, in turns, and the zeroing of its gradient table,
-  which its wrapper does;
-- K1, K2 (cell order), K3 (cell order) and K5 (brick order);
+- K5 and K6, each over the point drivers' order (point brick alone) and
+  over a (point brick, cell) order, in turns, and the zeroing of K6's
+  gradient table, which its wrapper does;
+- K1, K2 (cell order) and K3 (cell order);
 - the line and the point train step (``endpoint_render`` + backward +
   SGD), each ending in a device sync;
-- the SM clock read while K4 and while K6 run;
+- the SM clock read while K4, K5 and K6 run;
 - the instruction counts of its library (``cuobjdump -sass``): K4's loops
-  and memory instructions, K6's same-cell step and cell-change block;
+  and memory instructions; the same-cell step and the cell-change block of
+  K2, K5 and K6;
 - the registers, shared memory and spills that ptxas reports (the child
   that builds a version's library has them).
 
-It fails unless K4's output and K6's per-ray outputs are the same, bit
-for bit, in every child.  A fifth child, of this checkout, profiles both
-train steps with ``torch.profiler`` (device time by kernel over three
-steps after two warm-up steps, and the device's busy share).  The summary
-goes to stdout and, with ``--out``, as JSON to that file.  Needs one CUDA
-device.
+It fails unless K4's output and K5's and K6's per-ray outputs are the
+same, bit for bit, in every child and, for K5 and K6, in both orders.  A
+fifth child, of this checkout, profiles both train steps with
+``torch.profiler`` (device time by kernel over three steps after two
+warm-up steps, and the device's busy share).  The summary goes to stdout
+and, with ``--out``, as JSON to that file.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -257,7 +259,8 @@ def child(root: Path, profiled: bool) -> dict:
                                           capture_output=True, text=True, check=True).stdout)
     out["sass"] = {"line_table_fold": {"kernel": opcode_counts(funcs.get("line_table_fold", [])),
                                        "loops": sass_loops(funcs.get("line_table_fold", []))},
-                   "march_points_bwd": cell_change_block(funcs.get("march_points_bwd", []))}
+                   **{k: cell_change_block(funcs.get(k, []))
+                      for k in ("march_lines_fwd", "march_points_fwd", "march_points_bwd")}}
 
     def timed(fn, reps, warm=1):
         for _ in range(warm):
@@ -328,11 +331,22 @@ def child(root: Path, profiled: bool) -> dict:
     out["k3"] = timed(lambda: ml.march_lines_bwd_cuda(*k3_args, **bkw), 5)
     del table, k2_args, k3_args, fwd, raw
 
-    # K5 and K6 on the point table
+    # K5 and K6 on the point table, each over the brick and the cell order
     ptable, pnb = mp.build_brick_table(packed)
-    order, _ = mp.sort_point_rays(p, pnb)
-    k5_args = (ptable, pnb, tuple(packed.shape[:3]), p[order].contiguous(), d[order].contiguous(), rem, alive, br)
-    out["k5"] = timed(lambda: mp.march_points_cuda(*k5_args, **fkw), 10)
+
+    def k5_over(order):
+        args = (ptable, pnb, tuple(packed.shape[:3]), p[order].contiguous(), d[order].contiguous(), rem, alive, br)
+        return lambda: mp.march_points_cuda(*args, **fkw)
+
+    def restored(order, outs):
+        inv_o = torch.argsort(order)
+        return _digest(*(r[inv_o] for r in outs))
+
+    brick_order, cell_order = point_orders(p, pnb)
+    out["k5_brick_order"], out["k5_cell_order"] = turns(k5_over(brick_order), k5_over(cell_order), 10)
+    out["k5_digest"] = restored(brick_order, k5_over(brick_order)())
+    out["k5_digest_cell_order"] = restored(cell_order, k5_over(cell_order)())
+    out["clock_during_k5"] = _clock(torch, k5_over(brick_order), 1000)
     fwd, raw = mp.march_pallas(packed, p, d, budget, bend_scale=bend, step_scale=step, return_state=True,
                                table=ptable, nb=pnb)
     nexec = torch.clamp(budget - 1 - raw["remaining"], min=0).to(torch.int32)
@@ -345,13 +359,11 @@ def child(root: Path, profiled: bool) -> dict:
 
     brick_order, cell_order = point_orders(fwd.end_position, pnb, nexec > 0)
     out["k6_brick_order"], out["k6_cell_order"] = turns(k6_over(brick_order), k6_over(cell_order), 5)
-    for label, o in (("k6_digest", brick_order), ("k6_digest_cell_order", cell_order)):
-        rays = k6_over(o)()[1:]
-        inv_o = torch.argsort(o)
-        out[label] = _digest(*(r[inv_o] for r in rays))
+    out["k6_digest"] = restored(brick_order, k6_over(brick_order)()[1:])
+    out["k6_digest_cell_order"] = restored(cell_order, k6_over(cell_order)()[1:])
     out["gtable_zeroing"] = timed(lambda: torch.zeros_like(ptable), 10)
     out["clock_during_k6"] = _clock(torch, k6_over(brick_order), 400)
-    del ptable, k5_args, fwd, raw, end
+    del ptable, fwd, raw, end
 
     def train_step(x, layout=None):
         x.grad = None
@@ -398,12 +410,12 @@ def main() -> None:
 
     runs = [run_child("parent", args.parent), run_child("change", REPO), run_child("change", REPO),
             run_child("parent", args.parent)]
-    for key in ("k4_digest", "k6_digest"):
-        seen = {r[key] for r in runs} | ({r["k6_digest_cell_order"] for r in runs} if key == "k6_digest" else set())
+    for key in ("k4_digest", "k5_digest", "k6_digest"):
+        seen = {r[k] for r in runs for k in (key, key + "_cell_order") if k in r}
         if len(seen) != 1:
             raise SystemExit(f"probe_k4k6: {key} differs between the versions or orders: {sorted(seen)}")
-    print(f"K4's output and K6's per-ray outputs equal across versions, runs and orders (digests "
-          f"{runs[0]['k4_digest']}, {runs[0]['k6_digest']}) [{smi}]")
+    print(f"K4's output and K5's and K6's per-ray outputs equal across versions, runs and orders (digests "
+          f"{runs[0]['k4_digest']}, {runs[0]['k5_digest']}, {runs[0]['k6_digest']}) [{smi}]")
     profiled = run_child("change, profiled", REPO, "--profile")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
