@@ -10,7 +10,8 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
 
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. the kernel build and its time, each kernel's ptxas registers, shared
-     memory and spills (it fails if any kernel spills);
+     memory and spills (it fails if any kernel spills or is missing from
+     ptxas' report);
   3. K1 (line-table build) bit-exact against its plain version at the bench
      field (256³ lens) without and with a translucency grid, and at an odd
      shape (24, 18, 14);
@@ -61,14 +62,26 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
  14. the point train step at full size: endpoint_render(layout="points")
      + backward + SGD, with K5 and K6 launched once each and K1-K4 not at
      all, d_ior against the plain path's and the line path's; times of K5,
-     K6, the plain point build and fold and the point train step.
+     K6, the plain point build and fold and the point train step;
+ 15. the fixed-point path, trace_rays' default mode: (a) F1 (the uint32
+     16.16 march) equal to the plain fixed march bit for bit on the phase 4
+     scenes at 16.16 positions, without and with translucency and minimum
+     brightness, and with a recorded path on a small batch; (b) the ramp
+     anchor of tests/test_scaling.py (1000×10×10, two counter-propagating
+     rays, budget 10^6) through trace_rays(mode="fixed") and dir_fixed=True:
+     one F1 launch each, iterations within 46718 ± 100, |v| = n at the end,
+     equal to kernel="plain" bit for bit; (c) the fixed main path at full
+     size, trace_rays(mode="fixed") on the bench bundle as 16.16 positions,
+     with exactly one F1 launch, equal to kernel="plain" bit for bit; (d)
+     times of F1, the plain fixed march and the fixed trace end to end.
 
 The line before the last is one JSON object with each kernel's launches on
-the training step of its layout (K1-K4 on the line step, K5 and K6 on the
-point step), error against its plain version, times, its bound (the larger
-of its float32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s,
-counted from this run's shapes and executed steps) and its library
-yardstick's time where there is one; the last line is
+the main path of its slice (K1-K4 on the line training step, K5 and K6 on
+the point training step, F1 on the fixed trace), error against its plain
+version, times, its bound (the larger of its float32 operations over 67
+TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
+executed steps) and its library yardstick's time where there is one; the
+last line is
 ``{"ok": true, "device": {...}}``.  It exits nonzero, printing no result,
 when there is no CUDA device or any phase fails.
 """
@@ -96,6 +109,12 @@ F32_PEAK, HBM_PEAK = 67e12, 3.35e12
 #: compare and max once; integer index math, and the 24 hi + lo adds made
 #: once per cell entered, left out (PERF.md)
 MARCH_OPS, REPLAY_OPS = 120, 281
+#: float32 operations of one step of the fixed march (F1), counted from
+#: csrc/march_fixed.cu the same way (its header lists them)
+MARCH_FIXED_OPS = 104
+#: the ramp anchor of tests/test_scaling.py: traversal steps, and the |v|
+#: ratio's tolerance for float and for int16 8.8 directions
+ANCHOR_STEPS, ANCHOR_TOL, ANCHOR_TOL_DIR16 = 46718, 3e-5, 1e-5 + 1.0 / 256
 
 
 def kernel_bound(ops, nbytes):
@@ -188,6 +207,29 @@ def past_far_point_faces():
     return pos, dirs, nexec
 
 
+def ramp_ior(x=1000, yz=10):
+    """tests/test_scaling.py's bar: n = 1 on the first 10 layers, 2 on the
+    last 10, 1 + i/(x − 21) between, computed in float32."""
+    ior = np.empty((x, yz, yz), np.float32)
+    ior[:10], ior[-10:] = 1.0, 2.0
+    for i in range(10, x - 10):
+        ior[i] = 1.0 + np.float32(i) / np.float32(x - 21)
+    return ior
+
+
+def ior_at(ior, pos_fix):
+    """The index at uint32 16.16 positions, trilinear in float64 (the host
+    interpolator of tests/test_scaling.py)."""
+    pos = np.asarray(pos_fix, np.int64)
+    base, frac = pos >> 16, (pos & 0xFFFF) / 65536.0
+    out = np.zeros(len(pos))
+    for o in range(8):
+        bits = ((o >> 2) & 1, (o >> 1) & 1, o & 1)
+        w = np.prod([frac[:, a] if b else 1.0 - frac[:, a] for a, b in enumerate(bits)], axis=0)
+        out += w * ior[tuple(base[:, a] + bits[a] for a in range(3))].astype(np.float64)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -196,15 +238,16 @@ def main() -> None:
 
     from volumeraytracer_tpu_torch import RaytraceScene, endpoint_render, fit_field
     from volumeraytracer_tpu_torch.kernels import _build, line_table_cuda
+    from volumeraytracer_tpu_torch.kernels import march_fixed as mf
     from volumeraytracer_tpu_torch.kernels import march_lines as ml
     from volumeraytracer_tpu_torch.kernels import march_pallas as mp
     from volumeraytracer_tpu_torch.kernels.line_table import (
         LBX, LBY, LBZ, absorption_fraction, build_line_table, fold_line_grads, line_brick_grid,
     )
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field, cropped_translucency
-    from volumeraytracer_tpu_torch.ops.interp import interp_linear
-    from volumeraytracer_tpu_torch.ops.march import march_float
-    from volumeraytracer_tpu_torch.probes.probe_k4k6 import ptxas_by_kernel
+    from volumeraytracer_tpu_torch.ops.interp import interp_fixed, interp_linear
+    from volumeraytracer_tpu_torch.ops.march import march_fixed, march_float
+    from volumeraytracer_tpu_torch.probes.probe_k4k6 import KERNELS, ptxas_by_kernel
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
@@ -234,6 +277,8 @@ def main() -> None:
     spills = {name: info for name, info in ptxas.items() if info.get("spill_stores") or info.get("spill_loads")}
     if spills:
         raise AssertionError(f"ptxas reports spills: {spills}")
+    if set(ptxas) != set(KERNELS):
+        raise AssertionError(f"ptxas reported {sorted(ptxas)}, not the kernels {sorted(KERNELS)}")
 
     # 3. K1 against its plain version, bit-exact
     lens = lens_field()
@@ -840,6 +885,142 @@ def main() -> None:
             extra = f", {n_rays / times[key] / 1e3:.4f} Mrays/s fwd+bwd"
         print(f"phase 14 time {label}: {times[key]:.4f} ms{extra} {card}")
 
+    # 15. the fixed path: F1 against the plain fixed march bit for bit
+    fields_fixed = fields_ + ("path",)
+
+    def same(got, ref):
+        """Names of the TraceResult fields where got and ref differ."""
+        return [f for f in fields_fixed if not (getattr(got, f) is None and getattr(ref, f) is None)
+                and not torch.equal(getattr(got, f), getattr(ref, f))]
+
+    pos40f, dirs40f = lines_rays(70)[:2]
+    p40 = t(np.round(pos40f * 65536.0).astype(np.int64) - 0x10000, np.int64)
+    d40 = t(dirs40f)
+    lens40 = build_packed_field(t(ior40))
+    trc40 = cropped_translucency(t(tr40, np.int64))
+    p32 = t(np.round(lines_rays(16, hi=26.0, seed=3)[0] * 65536.0).astype(np.int64) - 0x10000, np.int64)
+    for name, packed, tr, pf, df, budget, mb, rec in (
+        ("lens40", lens40, None, p40, d40, 300, 0, False),
+        ("lens40 + opaque plane", packed40, trc40, p40, d40, 300, 0, False),
+        ("absorber + minimum_brightness", packed32a, trc32, p32, dirs32, 500, minb, False),
+        ("lens40 + opaque plane, trace_path", packed40, trc40, p40[:16], d40[:16], 300, 0, True),
+    ):
+        kw = dict(invscale=[INV] * 3, minimum_brightness=mb, chunk_steps=64, record_path=rec)
+        got = mf.march_fixed(packed, tr, pf, df, budget, **kw)
+        ref = march_fixed(packed, tr, pf, df, budget, **kw)
+        sync()
+        diff = same(got, ref)
+        if diff:
+            raise AssertionError(f"F1 differs from the plain fixed march on {name}: {diff}")
+        it = got.end_iteration
+        print(f"phase 15a F1 {name}, {len(pf)} rays, budget {budget}: equal to the plain fixed march bit for bit"
+              f"{' (paths ' + str(tuple(got.path.shape)) + ' included)' if rec else ''}; iterations "
+              f"{int(it.min())}-{int(it.max())}")
+    del got, ref
+
+    ramp = ramp_ior()
+    rscene = RaytraceScene(ramp, device=dev)
+    r_pos = np.array([[0x10000, 0x40000, 0x40000], [0x10000 * 1000 - 0x30000, 0x40000, 0x40000]], np.uint32)
+    for name, r_dirs, kw, tol in (
+        ("mode='fixed'", np.array([[16.0, 0, 0], [-16.0, 0, 0]], np.float32), {}, ANCHOR_TOL),
+        ("dir_fixed=True", np.array([[0x1000, 0, 0], [-0x1000, 0, 0]], np.int16), {"dir_fixed": True},
+         ANCHOR_TOL_DIR16),
+    ):
+        trace_kw = dict(invscale=[INV] * 3, iterations=1_000_000, **kw)
+        sync()
+        _build.launches.clear()
+        got = rscene.trace_rays(r_pos, r_dirs, **trace_kw)
+        sync()
+        anchor_launches = dict(_build.launches)
+        if anchor_launches != {"march_fixed": 1}:
+            raise AssertionError(f"the fixed ramp trace's launches {anchor_launches}, expected one of F1")
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = rscene.trace_rays(r_pos, r_dirs, kernel="plain", **trace_kw)
+        stop.record()
+        sync()
+        diff = same(got, ref)
+        if diff:
+            raise AssertionError(f"F1 differs from the plain fixed march on the ramp, {name}: {diff}")
+        iters = got.end_iteration.cpu().numpy()
+        if not (np.abs(iters - ANCHOR_STEPS) <= 100).all():
+            raise AssertionError(f"ramp {name}: iterations {iters.tolist()} not within {ANCHOR_STEPS} ± 100")
+        n_end = ior_at(ramp, got.end_position.cpu().numpy())
+        ratio = got.end_direction[:, 0].double().cpu().numpy() / r_dirs[:, 0].astype(np.float64)
+        if not (np.abs(ratio - n_end) <= tol).all():
+            raise AssertionError(f"ramp {name}: |v| ratio {ratio.tolist()} vs n {n_end.tolist()} beyond {tol}")
+        print(f"phase 15b ramp anchor, {name}: iterations {iters.tolist()} ({ANCHOR_STEPS} ± 100), |v| ratio "
+              f"{ratio.tolist()} vs n {n_end.tolist()} (tol {tol:.3g}); launches {anchor_launches}; equal to "
+              f"kernel='plain' bit for bit (plain {start.elapsed_time(stop) / 1e3:.2f} s)")
+    del rscene
+
+    # 15c. the fixed main path at full size: trace_rays(mode="fixed") on the
+    # bench bundle as 16.16 positions, through F1 alone
+    pos_fix = t(np.round(pos_np.astype(np.float64) * 65536.0).astype(np.int64), np.int64)
+    fixed_kw = dict(invscale=[INV] * 3, iterations=BUDGET, mode="fixed")
+    sync()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    fres = scene.trace_rays(pos_fix, dirs, **fixed_kw)
+    sync()
+    fixed_first_s = time.perf_counter() - t0
+    fixed_launches = dict(_build.launches)
+    if fixed_launches != {"march_fixed": 1}:
+        raise AssertionError(f"the fixed trace's kernel launches {fixed_launches}, expected one of F1")
+    if tuple(fres.end_position.shape) != (n_rays, 3) or not bool(torch.isfinite(fres.end_direction).all()):
+        raise AssertionError("the fixed trace's end state has the wrong shape or non-finite directions")
+    if not bool(((fres.end_iteration >= 1) & (fres.end_iteration <= BUDGET)).all()):
+        raise AssertionError("fixed end_iteration out of [1, budget]")
+    fplain = scene.trace_rays(pos_fix, dirs, kernel="plain", **fixed_kw)
+    sync()
+    diff = same(fres, fplain)
+    if diff:
+        raise AssertionError(f"the fixed trace through F1 differs from kernel='plain' at full size: {diff}")
+    f1_err = float((fres.end_position - fplain.end_position).abs().max().item())
+    fixed_steps = int((fres.end_iteration - 1).sum())
+    # the float trace of the same rays, for scale: the two modes agree to
+    # within the 16.16 rounding of their steps
+    float_gap = ((fres.end_position.double() / 65536.0 - res.end_position.double()).abs().max().item())
+    print(f"phase 15c fixed slice 256^3, {n_rays} rays, budget {BUDGET}: launches {fixed_launches}, first call "
+          f"{fixed_first_s:.3f} s; equal to kernel='plain' bit for bit; {fixed_steps} steps; max |fixed − float| "
+          f"end position {float_gap:.4g} voxels")
+    del fplain
+
+    # 15d. times: F1 alone, the plain fixed march, the fixed trace end to end
+    fp0 = (pos_fix - 0x8000) & 0xFFFFFFFF
+    fd = dirs * interp_fixed(ior256[..., None], fp0)
+    fp = ((fp0 - 0x8000) & 0xFFFFFFFF).contiguous()
+    fd_work = (fd * 65536.0).contiguous()
+    f1_args = (packed256, None, fp, fd_work, BUDGET)
+    f1_kw = dict(invscale=[INV] * 3, min_bright=0)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    march_fixed(packed256, None, fp, fd, BUDGET, invscale=[INV] * 3)
+    stop.record()
+    sync()
+    times.update({
+        "f1": timed(lambda: mf.march_fixed_cuda(*f1_args, **f1_kw), 10),
+        "f1_plain": start.elapsed_time(stop),
+        "fixed_fwd": timed(lambda: scene.trace_rays(pos_fix, dirs, **fixed_kw), 5),
+        "fixed_fwd_plain": timed(lambda: scene.trace_rays(pos_fix, dirs, kernel="plain", **fixed_kw), 1, warm=0),
+    })
+    for key, label in (("f1", "F1 march_fixed"), ("f1_plain", "F1 plain fixed march (one run)"),
+                       ("fixed_fwd", "fixed trace_rays kernel=auto"),
+                       ("fixed_fwd_plain", "fixed trace_rays kernel=plain (one run)")):
+        print(f"phase 15d time {label}: {times[key]:.4f} ms, {n_rays / times[key] / 1e3:.4f} Mrays/s, "
+              f"{fixed_steps / times[key] / 1e6:.4f} Gsteps/s {card}")
+    # the packed-field voxels F1's rays read (the corners of the cells along
+    # the straight segments from start to end, one sample a voxel)
+    fs, fe = fp.double() / 65536.0, fres.end_position.double() / 65536.0 - 1.0
+    frac17 = torch.linspace(0.0, 1.0, 17, device=dev, dtype=torch.float64)
+    cells = torch.floor(fs[:, None, :] + frac17[None, :, None] * (fe - fs)[:, None, :]).to(torch.int64).reshape(-1, 3)
+    gx, gy, gz = packed256.shape[:3]
+    corner = torch.tensor([[(o >> 2) & 1, (o >> 1) & 1, o & 1] for o in range(8)], device=dev)
+    cells = (cells[:, None, :] + corner).reshape(-1, 3)
+    cells = torch.minimum(torch.clamp(cells, min=0), torch.tensor([gx - 1, gy - 1, gz - 1], device=dev))
+    f1_field_bytes = int(torch.unique((cells[:, 0] * gy + cells[:, 1]) * gz + cells[:, 2]).numel()) * 16
+    del cells, fs, fe
+
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,
     # alive, br: 36 B a ray) and writes it, a replay reads 52 B a ray (end
@@ -859,23 +1040,32 @@ def main() -> None:
                            + field_bytes),
         "k5": kernel_bound(MARCH_OPS * steps, 72 * n_rays + point_bytes),
         "k6": kernel_bound(REPLAY_OPS * replayed6, 92 * n_rays + point_bytes + ptable.numel() * 4),
+        # F1 reads 36 B a ray (int64 pos, f32 dir) and writes 56 (pos, dir,
+        # int64 remaining, int32 alive, int64 brightness), and the voxels
+        # of the packed field its rays read, 16 B each
+        "f1": kernel_bound(MARCH_FIXED_OPS * fixed_steps, 92 * n_rays + f1_field_bytes),
     }
-    for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6")):
+    for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
+                       ("f1", "F1")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
+    print(f"bound F1 counted: {MARCH_FIXED_OPS} × {fixed_steps} float32 operations, {92 * n_rays} B of ray state "
+          f"and {f1_field_bytes} B of packed-field voxels ({(92 * n_rays + f1_field_bytes) / HBM_PEAK * 1e3:.4f} ms "
+          f"at {HBM_PEAK / 1e12:.2f} TB/s)")
     src = "volumeraytracer_tpu_torch/kernels/csrc/"
     rows = (
-        ("k1", "line_table_build", "line_table_build.cu", "line_table_pallas.py:108", train_launches, k1_err),
-        ("k2", "march_lines_fwd", "march_lines_fwd.cu", "march_lines.py:190", train_launches, k2_err),
-        ("k3", "march_lines_bwd", "march_lines_bwd.cu", "march_lines.py:1105", train_launches, k3_err),
-        ("k4", "line_table_fold", "line_table_fold.cu", "line_table_pallas.py:274", train_launches, k4_err),
-        ("k5", "march_points_fwd", "march_points_fwd.cu", "march_pallas.py:221", point_launches, k5_err),
-        ("k6", "march_points_bwd", "march_points_bwd.cu", "march_bwd.py:115", point_launches, k6_err),
+        ("k1", "line_table_build", "line_table_build.cu", "kernels/line_table_pallas.py:108", train_launches, k1_err),
+        ("k2", "march_lines_fwd", "march_lines_fwd.cu", "kernels/march_lines.py:190", train_launches, k2_err),
+        ("k3", "march_lines_bwd", "march_lines_bwd.cu", "kernels/march_lines.py:1105", train_launches, k3_err),
+        ("k4", "line_table_fold", "line_table_fold.cu", "kernels/line_table_pallas.py:274", train_launches, k4_err),
+        ("k5", "march_points_fwd", "march_points_fwd.cu", "kernels/march_pallas.py:221", point_launches, k5_err),
+        ("k6", "march_points_bwd", "march_points_bwd.cu", "kernels/march_bwd.py:115", point_launches, k6_err),
+        ("f1", "march_fixed", "march_fixed.cu", "ops/march.py:286", fixed_launches, f1_err),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
-         "replaces": "volumeraytracer_tpu/kernels/" + replaces,
+         "replaces": "volumeraytracer_tpu/" + replaces,
          "launches": launched[name], "max_abs_err": err,
          "ms": times[key], "plain_ms": times[key + "_plain"],
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1],

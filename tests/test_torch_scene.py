@@ -181,13 +181,18 @@ def test_cuda_kernel_on_cpu_tensors_raises(entry):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"mode": "fixed"}, {"mode": "float", "trace_path": True}, {"mode": "float", "kernel": "native"}],
+    "kw", [{"mode": "fixed", "kernel": "native"}, {"mode": "float", "trace_path": True},
+           {"mode": "float", "kernel": "native"}],
     ids=["fixed", "trace_path", "native"],
 )
 def test_unported_trace_options_raise(kw):
+    """What is still unported raises: kernel="native" in either mode (the
+    fixed path itself is ported, tests/test_torch_fixed.py), and the float
+    trace_path."""
     scene = vtt.RaytraceScene(np.ones((6, 6, 6), np.float32), device="cpu")
     with pytest.raises(NotImplementedError):
-        scene.trace_rays([[2.0, 2.0, 2.0]], [[16.0, 0.0, 0.0]], **kw)
+        scene.trace_rays([[0x20000, 0x20000, 0x20000]] if kw["mode"] == "fixed" else [[2.0, 2.0, 2.0]],
+                         [[16.0, 0.0, 0.0]], **kw)
 
 
 def test_import_leaves_jax_out():

@@ -35,7 +35,7 @@ SOURCES = tuple(
     _HERE / "csrc" / name
     for name in (
         "line_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu",
-        "march_points_fwd.cu", "march_points_bwd.cu",
+        "march_points_fwd.cu", "march_points_bwd.cu", "march_fixed.cu",
     )
 )
 BUILD_DIR = _HERE.parent / "_build"
@@ -43,6 +43,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _U = ctypes.c_longlong, ctypes.c_uint
 _MARCH_FWD = (
     _P, _I, _I, _I, _I, _I, _I,  # table, nb, bounds
     _P, _P, _P, _P, _P,  # state in
@@ -62,6 +63,11 @@ _SIGNATURES = {
     "vrt_line_table_fold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vrt_march_points_fwd": _MARCH_FWD,
     "vrt_march_points_bwd": _MARCH_BWD,
+    "vrt_march_fixed": (
+        _P, _I, _I, _I, _P,  # packed, bounds, translucency (or null)
+        _P, _P, _P, _P, _P, _P, _P,  # pos, dir in; pos, dir, rem, alive, brightness out
+        _P, _L, _I, _U, _F, _F, _F, _U, _P,  # path (or null), path_len, n, budget, invscale, min_bright, stream
+    ),
 }
 
 #: launches of each kernel by name since the last ``clear()``

@@ -1,21 +1,29 @@
-"""RaytraceScene — build-once / trace-many scene API, float path.
+"""RaytraceScene — build-once / trace-many scene API.
 
 Counterpart of ``volumeraytracer_tpu/models/scene.py``: the constructor
 preprocesses the field once (log-index → smoothed gradients → opacity
-packing) on the given device, and ``trace_rays(mode="float")`` marches a
-ray batch.
+packing) on the given device, and ``trace_rays`` marches a ray batch in one
+of two modes:
+
+  * ``mode="fixed"`` (the default, as in the JAX package) — uint32 16.16
+    positions (int64 tensors holding them), the reference's own
+    semantics, with ``dir_fixed=True`` for int16 8.8 directions and
+    ``trace_path=True`` for the path of positions;
+  * ``mode="float"`` — float32 voxel positions, differentiable.
 
 Dispatch follows the tensors' device, never what is installed.  On a CUDA
-device ``kernel="auto"`` runs the CUDA kernels (table build K1, march K2)
-for 3-D volumes and the plain torch march for 2-D; ``"plain"`` runs the
-plain march; ``"cuda"`` runs the kernels or raises.  On the CPU ``"auto"``
-and ``"plain"`` run the plain march and ``"cuda"`` raises.
+device ``kernel="auto"`` runs the CUDA kernels for 3-D volumes (the
+fixed march F1; for the float march the table build K1 and the march K2)
+and the plain torch march for 2-D; ``"plain"`` runs the plain march;
+``"cuda"`` runs the kernels or raises.  On the CPU ``"auto"`` and
+``"plain"`` run the plain march and ``"cuda"`` raises.
 ``Options.minimum_device_rays`` is not consulted.  With
-``differentiable=True`` the end positions and directions carry gradients
-to the start positions and directions (and to ``ior`` when the scene was
-built from a tensor that requires grad): the kernel path through the
-adjoint kernels (K3 replay, K4 fold), the plain path through the
-checkpointed plain march.
+``differentiable=True`` the float trace's end positions and directions
+carry gradients to the start positions and directions (and to ``ior`` when
+the scene was built from a tensor that requires grad): the kernel path
+through the adjoint kernels (K3 replay, K4 fold), the plain path through
+the checkpointed plain march.  A fixed trace is not differentiable and,
+as in the JAX package, ignores ``differentiable``.
 """
 
 from __future__ import annotations
@@ -25,12 +33,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels import march_fixed as fixed_kernel
 from ..kernels.march_bwd import march_lines_diff
 from ..kernels.march_lines import march_lines, use_kernels
+from ..ops import march as march_ops
 from ..ops.fields import build_packed_field, cropped_translucency
-from ..ops.interp import interp_linear
-from ..ops.march import march_float, march_scales
-from ..types import Options, TraceResult
+from ..ops.interp import interp_fixed, interp_linear
+from ..types import (
+    DIR_UNIT_FIXED, FIX_HALF, FIX_ONE, UINT32_MASK, Options, RayInstance, RaySceneInstance, TraceResult,
+)
 
 
 def as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -38,6 +49,20 @@ def as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.array(x), device=device).to(dtype)
+
+
+def as_fixed(x, device) -> torch.Tensor:
+    """16.16 positions → int64 tensor on ``device`` holding their uint32
+    values: numpy input is converted to uint32 as the JAX package converts
+    it, tensors are masked to 32 bits."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64) & UINT32_MASK
+    return torch.from_numpy(np.asarray(x, np.uint32).astype(np.int64)).to(device)
+
+
+def to_host(x) -> np.ndarray:
+    """Array-like or tensor (on any device) → numpy array."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class RaytraceScene:
@@ -74,6 +99,22 @@ class RaytraceScene:
         self.translucency_cropped = None if translucency is None else cropped_translucency(translucency)
         self.diff_bounds = tuple(int(s) for s in self.packed.shape[:-1])
 
+    @classmethod
+    def from_instance(cls, inst: RaySceneInstance, options: Optional[Options] = None, *, device="cuda"):
+        """The scene of a ``RaySceneInstance`` (host arrays), on ``device``:
+        the card unless the caller asks for the CPU."""
+        ior = np.asarray(inst.ior, np.float32).reshape(inst.bounds)
+        tr = np.asarray(inst.translucency, np.uint32).reshape(inst.bounds)
+        return cls(ior, tr, options, device=device)
+
+    def _validate_fixed(self, pos: torch.Tensor) -> None:
+        """Every 16.16 start coordinate must lie in [1, bound) voxels."""
+        bounds = torch.tensor(self.bounds, dtype=torch.int64, device=pos.device)
+        bad = ((pos < FIX_ONE) | (pos + 1 >= bounds * FIX_ONE)).any(-1)
+        if bool(bad.any()):
+            i = int(torch.nonzero(bad)[0, 0])
+            raise ValueError(f"ray {i}: {(pos[i].double() / FIX_ONE).tolist()} is not in 0 to {self.bounds}")
+
     def trace_rays(
         self,
         start_position,
@@ -93,21 +134,31 @@ class RaytraceScene:
     ) -> TraceResult:
         """Trace a batch of rays.
 
-        start_position, start_direction: (N, dim) float voxel positions in
-        the uncropped grid frame and float directions (speed s ⇒ about
-        s·invscale²·0x42000000/0x100000000 voxels per step at n = 1).
-        invscale: per-axis float scale.  Only ``mode="float"`` is ported.
+        start_position: (N, dim) uint32 16.16 positions (``mode="fixed"``:
+        numpy uint32, or int64 tensors holding them) or float voxel
+        positions (``mode="float"``), in the uncropped grid frame.
+        start_direction: (N, dim) float directions (speed s ⇒ about
+        s·invscale²·0x42000000/0x100000000 voxels per step at n = 1), or
+        with ``dir_fixed=True`` (fixed mode only) int16 8.8 values; the end
+        direction is then an int16 tensor.  invscale: per-axis float
+        scale.  ``trace_path`` (fixed mode only): ``path`` holds the start
+        position and the position after each of
+        ``ceil(iterations / chunk) · chunk`` steps, back-filled with the end
+        position.
         """
-        if mode == "fixed" or dir_fixed:
-            raise NotImplementedError("mode='fixed' is not ported yet (queue 1, item 9 of ROADMAP.md)")
-        if mode != "float":
+        if mode not in ("fixed", "float"):
             raise ValueError(f"unknown mode {mode!r}")
         if kernel == "native":
             raise NotImplementedError("kernel='native' is not ported yet (queue 1, item 7 of ROADMAP.md)")
-        if trace_path:
-            raise NotImplementedError("trace_path is not ported yet (queue 1, item 4 of ROADMAP.md)")
         if soft_opacity_tau is not None:
+            if mode != "float":
+                raise ValueError("soft_opacity_tau requires mode='float'")
             raise NotImplementedError("soft_opacity_tau is not ported yet (queue 1, item 4 of ROADMAP.md)")
+        if mode == "float":
+            if dir_fixed:
+                raise ValueError("dir_fixed requires mode='fixed'")
+            if trace_path:
+                raise NotImplementedError("trace_path is not ported yet (queue 1, item 4 of ROADMAP.md)")
         use_cuda = use_kernels(kernel, self.device, self.dim)
         sp_shape, sd_shape = np.shape(start_position), np.shape(start_direction)
         if sp_shape[-1:] != (self.dim,) or sd_shape[-1:] != (self.dim,):
@@ -122,7 +173,19 @@ class RaytraceScene:
         if invscale is None:
             invscale = np.ones(self.dim, np.float32)
         invscale = np.broadcast_to(np.asarray(invscale, np.float32), (self.dim,))
-        bend, step = march_scales(invscale)
+        chunk_steps = chunk_steps or self.options.chunk_steps
+
+        if mode == "fixed":
+            pos = as_fixed(start_position, self.device).reshape(-1, self.dim)
+            self._validate_fixed(pos)
+            march = dict(invscale=invscale, iterations=iterations, minimum_brightness=minimum_brightness,
+                         trace_path=trace_path, chunk_steps=chunk_steps, use_cuda=use_cuda)
+            if dir_fixed:
+                return self._trace_fixed_dir_quantized(pos, start_direction, normalize_length, **march)
+            dirs = as_tensor(start_direction, torch.float32, self.device).reshape(-1, self.dim)
+            return self._trace_fixed(pos, dirs, normalize_length, **march)
+
+        bend, step = march_ops.march_scales(invscale)
         pos = as_tensor(start_position, torch.float32, self.device).reshape(-1, self.dim)
         dirs = as_tensor(start_direction, torch.float32, self.device).reshape(-1, self.dim)
 
@@ -140,10 +203,10 @@ class RaytraceScene:
                 translucency=self.translucency_cropped, minimum_brightness=minimum_brightness,
             )
         else:
-            res = march_float(
+            res = march_ops.march_float(
                 self.packed, self.translucency_cropped, p, dirs, iterations,
                 bend_scale=bend, step_scale=step, minimum_brightness=minimum_brightness,
-                chunk_steps=chunk_steps or self.options.chunk_steps, differentiable=differentiable,
+                chunk_steps=chunk_steps, differentiable=differentiable,
             )
         return TraceResult(
             end_position=res.end_position + 1.0,
@@ -151,3 +214,77 @@ class RaytraceScene:
             end_iteration=res.end_iteration,
             remaining_light=res.remaining_light,
         )
+
+    def _trace_fixed(self, pos, dirs, normalize_length, *, invscale, iterations, minimum_brightness, trace_path,
+                     chunk_steps, use_cuda) -> TraceResult:
+        """The fixed march from 16.16 start positions ``pos`` (int64, scene
+        frame) and float directions ``dirs``: −0x8000, sample n there for
+        |v| = n, −0x8000 again (or −0x10000 without normalising): net −1
+        voxel into the packed frame; +0x10000 on the way out, paths too."""
+        if normalize_length:
+            p = (pos - FIX_HALF) & UINT32_MASK
+            dirs = dirs * interp_fixed(self.ior[..., None], p)
+            p = (p - FIX_HALF) & UINT32_MASK
+        else:
+            p = (pos - FIX_ONE) & UINT32_MASK
+        march = fixed_kernel.march_fixed if use_cuda else march_ops.march_fixed
+        res = march(
+            self.packed, self.translucency_cropped, p, dirs, iterations, invscale=invscale,
+            minimum_brightness=minimum_brightness, chunk_steps=chunk_steps, record_path=trace_path,
+        )
+        return TraceResult(
+            end_position=(res.end_position + FIX_ONE) & UINT32_MASK,
+            end_direction=res.end_direction,
+            end_iteration=res.end_iteration,
+            remaining_light=res.remaining_light,
+            path=None if res.path is None else (res.path + FIX_ONE) & UINT32_MASK,
+        )
+
+    def _trace_fixed_dir_quantized(self, pos, start_direction, normalize_length, **march) -> TraceResult:
+        """The fixed march with int16 8.8 directions, as the JAX package runs
+        it: float input directions are quantised to 8.8 at entry; |v| = n is
+        the integer ``divRoundClosest(dir · round(n · 0x10000), 0x10000)``
+        (round half away from zero) on the host, with its int16 overflow
+        check; the working direction is the 8.8 value · 0x100; the end
+        direction is rounded back to int16 8.8."""
+        d = to_host(start_direction).reshape(-1, self.dim)
+        if not np.issubdtype(d.dtype, np.integer):
+            d = np.round(np.asarray(d, np.float64) * DIR_UNIT_FIXED)
+        d = d.astype(np.int64)
+        if d.max() > 0x7FFF or d.min() < -0x8000:
+            raise ValueError("start_direction exceeds dir_t (int16 8.8) range")
+        if normalize_length:
+            n_here = interp_fixed(self.ior[..., None], (pos - FIX_HALF) & UINT32_MASK)[..., 0]
+            ior16 = np.round(to_host(n_here).astype(np.float64) * FIX_ONE).astype(np.int64)
+            num = d * ior16[:, None]
+            tmp = np.sign(num) * ((np.abs(num) + FIX_ONE // 2) // FIX_ONE)
+            if tmp.max() > 0x7FFF or tmp.min() < -0x8000:
+                raise ValueError(f"Normalize length failed: -32768<={int(tmp.max())}<=32767")
+            d = tmp
+        # the 8.8 value / 0x100 is exact in float32, and the march's prescale
+        # 0x10000 then gives the working direction 8.8 · 0x100 exactly
+        dirs = torch.from_numpy(d.astype(np.float32) / np.float32(DIR_UNIT_FIXED)).to(self.device)
+        res = self._trace_fixed(pos, dirs, False, **march)
+        res.end_direction = torch.round(res.end_direction * DIR_UNIT_FIXED).to(torch.int32).to(torch.int16)
+        return res
+
+    def get_ior(self, position) -> torch.Tensor:
+        """Interpolated index at float voxel positions, (N,) float32."""
+        return interp_linear(self.ior, as_tensor(position, torch.float32, self.device).reshape(-1, self.dim))
+
+
+def trace_rays_instance(scene_inst: RaySceneInstance, ray_inst: RayInstance, options: Optional[Options] = None,
+                        mode: str = "fixed", *, device="cuda") -> TraceResult:
+    """Replay a scene and ray batch from their instances on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    scene = RaytraceScene.from_instance(scene_inst, options, device=device)
+    return scene.trace_rays(
+        ray_inst.start_position,
+        ray_inst.start_direction,
+        invscale=ray_inst.invscale,
+        iterations=ray_inst.iterations,
+        minimum_brightness=ray_inst.minimum_brightness,
+        trace_path=ray_inst.trace_path,
+        normalize_length=ray_inst.normalize_length,
+        mode=mode,
+    )

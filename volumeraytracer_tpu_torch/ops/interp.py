@@ -1,10 +1,10 @@
 """Multilinear interpolation over channels-last voxel grids.
 
 Counterpart of ``volumeraytracer_tpu/ops/interp.py`` (``gather_corners``,
-``interp_linear``, ``_weights_product``), with the corners in the same
-order: ``itertools.product((0, 1), repeat=dim)``, axis 0 toggling slowest.
-The corner sum is taken corner by corner in that order, as the forward
-march kernel takes it.
+``interp_linear``, ``interp_fixed``, ``_weights_product``), with the
+corners in the same order: ``itertools.product((0, 1), repeat=dim)``, axis
+0 toggling slowest.  The corner sum is taken corner by corner in that
+order, as the march kernels take it.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import itertools
 from typing import Sequence
 
 import torch
+
+from ..types import FIX_ONE
 
 
 def _flat_strides(shape: Sequence[int]) -> list:
@@ -23,11 +25,9 @@ def _flat_strides(shape: Sequence[int]) -> list:
     return strides
 
 
-def gather_corners(field_flat: torch.Tensor, base_idx: torch.Tensor, spatial_shape) -> torch.Tensor:
-    """The 2^dim corner rows around integer corner ``base_idx``.
-
-    field_flat: (prod(spatial), C); base_idx: (..., dim) integer voxel
-    coordinates.  Returns (..., 2^dim, C)."""
+def _corner_index(base_idx: torch.Tensor, spatial_shape) -> torch.Tensor:
+    """Flat row index of each of the 2^dim corners around integer corner
+    ``base_idx`` (..., dim): (..., 2^dim) int64."""
     dim = base_idx.shape[-1]
     strides = _flat_strides(spatial_shape)
     offsets = torch.tensor(
@@ -36,8 +36,15 @@ def gather_corners(field_flat: torch.Tensor, base_idx: torch.Tensor, spatial_sha
     )
     stride_t = torch.tensor(strides, dtype=torch.int64, device=base_idx.device)
     flat_base = (base_idx.to(torch.int64) * stride_t).sum(-1)
-    idx = flat_base[..., None] + offsets
-    return field_flat[idx]
+    return flat_base[..., None] + offsets
+
+
+def gather_corners(field_flat: torch.Tensor, base_idx: torch.Tensor, spatial_shape) -> torch.Tensor:
+    """The 2^dim corner rows around integer corner ``base_idx``.
+
+    field_flat: (prod(spatial), C); base_idx: (..., dim) integer voxel
+    coordinates.  Returns (..., 2^dim, C)."""
+    return field_flat[_corner_index(base_idx, spatial_shape)]
 
 
 def _weights_product(frac: torch.Tensor) -> torch.Tensor:
@@ -54,6 +61,16 @@ def _weights_product(frac: torch.Tensor) -> torch.Tensor:
     return torch.stack(ws, dim=-1)
 
 
+def _corner_sum(corners: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
+    """Sum of the (..., 2^dim, C) corners weighted by ``frac`` (..., dim),
+    corner by corner in product order."""
+    w = _weights_product(frac.to(corners.dtype))
+    out = corners[..., 0, :] * w[..., 0, None]
+    for o in range(1, corners.shape[-2]):
+        out = out + corners[..., o, :] * w[..., o, None]
+    return out
+
+
 def interp_linear(field: torch.Tensor, pos_vox: torch.Tensor) -> torch.Tensor:
     """Multilinear interpolation of a channels-last field at float voxel
     positions: corners ``floor(pos)`` and ``floor(pos)+1``, weights from
@@ -67,12 +84,38 @@ def interp_linear(field: torch.Tensor, pos_vox: torch.Tensor) -> torch.Tensor:
         field = field[..., None]
     spatial = field.shape[:-1]
     base = torch.floor(pos_vox)
-    frac = pos_vox - base
     hi = torch.tensor([s - 2 for s in spatial], dtype=torch.int64, device=pos_vox.device)
     base_i = torch.minimum(torch.clamp(base.to(torch.int64), min=0), hi)
     corners = gather_corners(field.reshape(-1, field.shape[-1]), base_i, spatial)
-    w = _weights_product(frac.to(field.dtype))
-    out = corners[..., 0, :] * w[..., 0, None]
-    for o in range(1, corners.shape[-2]):
-        out = out + corners[..., o, :] * w[..., o, None]
+    out = _corner_sum(corners, pos_vox - base)
     return out[..., 0] if squeeze else out
+
+
+def interp_fixed(field: torch.Tensor, pos_fix: torch.Tensor) -> torch.Tensor:
+    """Interpolate a channels-last float field at 16.16 fixed-point positions
+    (int64 tensors holding uint32 values): corner ``pos >> 16``, weights
+    ``(pos & 0xFFFF) / 0x10000`` in float32.
+
+    The corners are read as the JAX package reads them, with no clamp: one
+    flat int32 row index per corner, ``Σ corner · stride``, taken as
+    ``jnp.take`` takes it (an index in [−rows, 0) counts from the end, one
+    outside [−rows, rows) reads NaN).  So a corner one past the end of a
+    minor axis reads the first voxel of the next row, and one past the end
+    of axis 0 reads NaN.  The march's live rays have every corner inside
+    the grid; rays that have left it (wrapped uint32 positions, ``pos >> 16``
+    near 65535) read whatever the index gives and are masked by the caller.
+    A trace's |v| = n start sample is taken half a voxel below the start,
+    so a start in the last half voxel of an axis reads past that axis's end
+    exactly as in the JAX package.
+
+    field: (*spatial, C); pos_fix: (..., dim) int64.  Returns (..., C)."""
+    spatial = field.shape[:-1]
+    flat = field.reshape(-1, field.shape[-1])
+    rows = flat.shape[0]
+    idx = _corner_index(pos_fix >> 16, spatial)
+    idx = ((idx + 0x80000000) & 0xFFFFFFFF) - 0x80000000  # int32 wrap, as JAX computes it
+    inside = (idx >= -rows) & (idx < rows)
+    idx = torch.where(idx < 0, idx + rows, idx).clamp(0, rows - 1)
+    corners = torch.where(inside[..., None], flat[idx], float("nan"))
+    frac = (pos_fix & 0xFFFF).to(torch.float32) / float(FIX_ONE)
+    return _corner_sum(corners, frac)

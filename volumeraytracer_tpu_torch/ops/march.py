@@ -1,9 +1,9 @@
-"""Batched float ray march in plain torch.
+"""Batched float and fixed-point ray marches in plain torch.
 
-Counterpart of the float path of ``volumeraytracer_tpu/ops/march.py``
-(``_float_step``, ``_run_while``, ``_init_remaining``, ``march_float``,
-``_finish``).  Every ray advances in lock-step under a per-ray alive mask;
-per step:
+Counterpart of ``volumeraytracer_tpu/ops/march.py`` (``_float_step``,
+``_fixed_step``, ``_run_while``, ``_run_scan``'s path recording,
+``_init_remaining``, ``march_float``, ``march_fixed``, ``_finish``).  Every
+ray advances in lock-step under a per-ray alive mask; per step:
 
     brightness -= min(brightness, 0xFFFFFFFF − translucency[voxel])
     interp      = multilinear(packed, pos)                 # dim+1 channels
@@ -11,13 +11,19 @@ per step:
     dir        += interp[:dim] · bend_scale
     pos        += dir · step_scale / |dir|²
 
-It is the CPU path of the port and the plain version of the forward march
-kernel (``kernels/march_lines.py``).  Sums of squares are written out
-axis by axis so that the kernel can take them in the same order.  With
-``differentiable=True`` the march runs in checkpointed chunks (autograd
-keeps each chunk's start state and recomputes the chunk in the backward),
-the counterpart of the JAX package's scan of remat'd chunks: the CPU path
-of training and the oracle of the adjoint kernels.
+The fixed march keeps uint32 16.16 positions (in int64, masked to 32 bits
+so that a ray leaving on the low side wraps to a huge position and fails
+the bounds test, as in the JAX package), bends by ``interp · invscale``
+and adds ``round(dir · invscale · 0x42000000 / |dir|²)``.
+
+They are the CPU path of the port and the plain versions of the forward
+march kernels (``kernels/march_lines.py``, ``kernels/march_fixed.py``).
+Sums of squares are written out axis by axis so that the kernels can take
+them in the same order.  With ``differentiable=True`` the float march runs
+in checkpointed chunks (autograd keeps each chunk's start state and
+recomputes the chunk in the backward), the counterpart of the JAX
+package's scan of remat'd chunks: the CPU path of training and the oracle
+of the adjoint kernels.
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..types import BRIGHTNESS_MAX, FIX_ONE, STEP_CONST, TraceResult
-from .interp import interp_linear
+from ..types import BRIGHTNESS_MAX, DIR_PRESCALE_FLOAT, FIX_ONE, STEP_CONST, UINT32_MASK, TraceResult
+from .interp import interp_fixed, interp_linear
 
 
 def march_scales(invscale) -> tuple:
@@ -40,8 +46,19 @@ def march_scales(invscale) -> tuple:
     return inv / float(FIX_ONE), inv * (STEP_CONST / float(FIX_ONE) / float(FIX_ONE))
 
 
+def _grid(packed: torch.Tensor):
+    """(bounds − 1, row-major strides) of the packed field's grid, as int64
+    tensors on its device."""
+    bounds = list(packed.shape[:-1])
+    strides = [1] * len(bounds)
+    for i in range(len(bounds) - 2, -1, -1):
+        strides[i] = strides[i + 1] * bounds[i + 1]
+    return (torch.tensor([b - 1 for b in bounds], dtype=torch.int64, device=packed.device),
+            torch.tensor(strides, dtype=torch.int64, device=packed.device))
+
+
 class MarchState(NamedTuple):
-    pos: torch.Tensor  # (N, dim) float32 voxels
+    pos: torch.Tensor  # (N, dim) float32 voxels, or int64 16.16 (fixed march)
     direction: torch.Tensor  # (N, dim) float32 working direction
     remaining: torch.Tensor  # (N,) int64 remaining iteration budget
     brightness: torch.Tensor  # (N,) int64 holding uint32 values
@@ -93,6 +110,55 @@ def _float_step(
     )
 
 
+def _fixed_step(
+    state: MarchState,
+    packed: torch.Tensor,
+    translucency: Optional[torch.Tensor],
+    bounds_m1: torch.Tensor,
+    strides: torch.Tensor,
+    invscale: torch.Tensor,
+    minimum_brightness: int,
+) -> MarchState:
+    """One predicated step of the uint32 16.16 march, in the JAX package's
+    order.  A ray is in bounds while ``(pos >> 16) < bounds - 1`` on every
+    axis; the translucency index is clamped only for rays that are not
+    (their brightness is not updated)."""
+    pos, direction, remaining, brightness, alive = state
+    dim = pos.shape[-1]
+    cell = pos >> 16
+    cond = alive & (remaining > 0) & (cell < bounds_m1).all(-1)
+
+    if translucency is not None:
+        vox = torch.minimum(cell, bounds_m1)
+        tr = translucency.reshape(-1)[(vox * strides).sum(-1)]
+        absorb = torch.minimum(brightness, BRIGHTNESS_MAX - tr)
+        brightness = torch.where(cond, brightness - absorb, brightness)
+        dark = brightness < minimum_brightness
+    else:
+        dark = torch.zeros_like(alive)
+
+    interp = interp_fixed(packed, pos)
+    opaque = interp[..., dim] > 0.0
+    step_ok = cond & ~dark & ~opaque
+    remaining = torch.where(step_ok, remaining - 1, remaining)
+
+    new_dir = direction + interp[..., :dim] * invscale
+    len2 = new_dir[..., 0] * new_dir[..., 0]
+    for a in range(1, dim):
+        len2 = len2 + new_dir[..., a] * new_dir[..., a]
+    # a true division: a Python number over a tensor would be a reciprocal
+    # and a product, rounded twice
+    ilen = (torch.full_like(len2, STEP_CONST) / len2)[..., None]
+    delta = torch.round(new_dir * invscale * ilen).to(torch.int64)
+    new_pos = (pos + delta) & UINT32_MASK
+
+    ok = step_ok[..., None]
+    return MarchState(
+        torch.where(ok, new_pos, pos), torch.where(ok, new_dir, direction),
+        remaining, brightness, step_ok,
+    )
+
+
 def _run_while(step_fn, state: MarchState, budget: int, chunk_steps: int, remat: bool = False) -> MarchState:
     """Run chunks of ``chunk_steps`` steps while any ray is alive (one host
     sync per chunk).  ``remat``: autograd saves only each chunk's start
@@ -115,6 +181,25 @@ def _run_while(step_fn, state: MarchState, budget: int, chunk_steps: int, remat:
     return state
 
 
+def path_steps(budget: int, chunk_steps: int) -> int:
+    """Steps a recorded march runs: whole chunks of ``chunk_steps`` (at most
+    ``budget``) up to ``budget``, as the JAX package's scan runs them."""
+    chunk_steps = max(1, min(chunk_steps, budget))
+    return -(-budget // chunk_steps) * chunk_steps
+
+
+def _run_record(step_fn, state: MarchState, steps: int):
+    """Run exactly ``steps`` steps with no early exit and record the
+    position before the first and after every step: (end state, (N, 1 +
+    steps, dim) path).  A dead ray's step is the identity, so the path is
+    back-filled with the end position."""
+    path = [state.pos]
+    for _ in range(steps):
+        state = step_fn(state)
+        path.append(state.pos)
+    return state, torch.stack(path, dim=1)
+
+
 def march_float_state(
     packed: torch.Tensor,
     translucency: Optional[torch.Tensor],
@@ -131,10 +216,6 @@ def march_float_state(
     """The march's raw end state (see ``march_float``)."""
     device = packed.device
     n, dim = start_position.shape
-    bounds = list(packed.shape[:-1])
-    strides = [1] * dim
-    for i in range(dim - 2, -1, -1):
-        strides[i] = strides[i + 1] * bounds[i + 1]
     state = MarchState(
         pos=start_position.to(torch.float32),
         direction=start_direction.to(torch.float32),
@@ -147,8 +228,7 @@ def march_float_state(
     def vec(v):
         return torch.as_tensor(v, dtype=torch.float32).to(device).expand(dim)
 
-    bounds_m1 = torch.tensor([b - 1 for b in bounds], dtype=torch.int64, device=device)
-    strides_t = torch.tensor(strides, dtype=torch.int64, device=device)
+    bounds_m1, strides_t = _grid(packed)
     bend, step = vec(bend_scale), vec(step_scale)
 
     def step_fn(s):
@@ -197,13 +277,61 @@ def march_float(
     return _finish(state, budget)
 
 
-def _finish(state: MarchState, budget: int) -> TraceResult:
+def march_fixed(
+    packed: torch.Tensor,
+    translucency: Optional[torch.Tensor],
+    start_position: torch.Tensor,
+    start_direction: torch.Tensor,
+    budget: int,
+    *,
+    invscale,
+    minimum_brightness: int = 0,
+    chunk_steps: int = 256,
+    record_path: bool = False,
+) -> TraceResult:
+    """The fixed-point march over the cropped grid of ``packed``.
+
+    start_position: (N, dim) int64 holding uint32 16.16 positions in the
+    packed frame (the caller applies the −0x10000 shift); start_direction:
+    (N, dim) float32 direction (|v| = n applied by the caller), marched as
+    ``start_direction · DIR_PRESCALE_FLOAT`` and divided back at the end.
+    ``record_path``: run ``path_steps(budget, chunk_steps)`` steps with no
+    early exit and return the (N, 1 + steps, dim) path of positions, the
+    start first (the JAX package's ``_run_scan``); otherwise run chunks of
+    ``chunk_steps`` while a ray is alive.  The JAX package's
+    ``per_ray_budget`` has no caller on the ported path and is left out."""
+    device = packed.device
+    n, dim = start_position.shape
+    state = MarchState(
+        pos=start_position.to(torch.int64) & UINT32_MASK,
+        direction=start_direction.to(torch.float32) * DIR_PRESCALE_FLOAT,
+        # the reference consumes one budget slot for the start path entry
+        remaining=torch.full((n,), budget - 1, dtype=torch.int64, device=device),
+        brightness=torch.full((n,), BRIGHTNESS_MAX, dtype=torch.int64, device=device),
+        alive=torch.ones((n,), dtype=torch.bool, device=device),
+    )
+    bounds_m1, strides_t = _grid(packed)
+    inv = torch.tensor(np.broadcast_to(np.asarray(invscale, np.float32), (dim,)), device=device)
+
+    def step_fn(s):
+        return _fixed_step(s, packed, translucency, bounds_m1, strides_t, inv, minimum_brightness)
+
+    if record_path:
+        state, path = _run_record(step_fn, state, path_steps(budget, chunk_steps))
+    else:
+        state, path = _run_while(step_fn, state, budget, chunk_steps), None
+    return _finish(state, budget, DIR_PRESCALE_FLOAT, path)
+
+
+def _finish(state: MarchState, budget: int, dir_prescale: float = 1.0, path=None) -> TraceResult:
     """end_iteration = budget − remaining; rays still alive when the driver
-    stops have consumed their whole budget."""
+    stops have consumed their whole budget.  The end direction is divided
+    by the march's ``dir_prescale``."""
     end_remaining = torch.where(state.alive, torch.zeros_like(state.remaining), state.remaining)
     return TraceResult(
         end_position=state.pos,
-        end_direction=state.direction,
+        end_direction=state.direction / float(dir_prescale),
         end_iteration=budget - end_remaining,
         remaining_light=state.brightness,
+        path=path,
     )

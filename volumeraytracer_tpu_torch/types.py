@@ -3,9 +3,9 @@
 Counterpart of ``volumeraytracer_tpu/types.py``: the same physical scale
 constants (so both packages integrate the same ODE), the same ``Options``,
 and ``TraceResult`` as a dataclass of tensors.  Values that are uint32 in
-the JAX package (iteration counts, remaining light, translucency) are held
-in int64 tensors with the same values: torch has no uint32 arithmetic on
-the CPU.
+the JAX package (iteration counts, remaining light, translucency, 16.16
+positions and paths of the fixed march) are held in int64 tensors with the
+same values: torch has no uint32 arithmetic on the CPU.
 """
 
 from __future__ import annotations
@@ -18,6 +18,14 @@ import torch
 
 #: one voxel in 16.16 fixed-point position units
 FIX_ONE = 0x10000
+#: half a voxel in 16.16 units: the two shifts of the |v| = n start
+FIX_HALF = 0x8000
+#: one unit of the int16 8.8 fixed-point directions (``dir_fixed=True``)
+DIR_UNIT_FIXED = 0x100
+#: the fixed march's working direction is the float direction times this
+DIR_PRESCALE_FLOAT = float(0x10000)
+#: the uint32 range, as the port masks int64 values that hold uint32 ones
+UINT32_MASK = 0xFFFFFFFF
 #: scale applied to log(ior) when building the log-index field
 IORLOG_UNIT = float(0x420000)
 #: divisor folded into the gradient-stamp weight
@@ -55,11 +63,11 @@ class TraceResult:
     ``windows_used`` is always ``None``: the port has no window scheduler.
     """
 
-    end_position: torch.Tensor  # (N, dim) float32 voxels
-    end_direction: torch.Tensor  # (N, dim) float32
+    end_position: torch.Tensor  # (N, dim) float32 voxels, or int64 16.16 (mode="fixed")
+    end_direction: torch.Tensor  # (N, dim) float32, or int16 8.8 (dir_fixed=True)
     end_iteration: torch.Tensor  # (N,) int64 holding uint32 values
     remaining_light: torch.Tensor  # (N,) int64 holding uint32 values
-    path: Optional[torch.Tensor] = None
+    path: Optional[torch.Tensor] = None  # (N, 1 + steps, dim) int64 16.16 (mode="fixed")
     windows_used: Optional[torch.Tensor] = None
     transmittance: Optional[torch.Tensor] = None
 
