@@ -73,15 +73,33 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      equal to kernel="plain" bit for bit; (c) the fixed main path at full
      size, trace_rays(mode="fixed") on the bench bundle as 16.16 positions,
      with exactly one F1 launch, equal to kernel="plain" bit for bit; (d)
-     times of F1, the plain fixed march and the fixed trace end to end.
+     times of F1, the plain fixed march and the fixed trace end to end;
+ 16. the float path's recorded trace and soft termination: (a) the
+     recording K2 (march_lines_fwd_path) against the plain recorded march on
+     the phase 4 scenes (lens40 without and with its translucency, rays
+     along line-brick faces): iterations exact, path within 1e-4, the start
+     in row 0, back-filled rows equal to the end position bit for bit, and
+     the end state equal to the unrecorded K2's bit for bit; (b) the main
+     path at full size, trace_rays(mode="float", trace_path=True) on the
+     bench bundle, with exactly one K1 and one recording-K2 launch, checked
+     against kernel="plain" and its end state against phase 5's; (c) the
+     differentiable recorded trace at full size, K1, the recording K2, K3
+     and K4 once each, per-ray gradients equal to the non-recording run's
+     bit for bit and d_ior within 1e-3 of its largest value; (d) soft
+     termination on the card (tests/test_autodiff.py's 20^3 wall): no
+     kernel launched, transmittance and its gradient equal to the CPU's
+     within 1e-5, and kernel="cuda" raising; (e) times of the recording K2
+     and K2 in turns, the plain recorded march and the recorded trace end
+     to end.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
-the point training step, F1 on the fixed trace), error against its plain
+the point training step, F1 on the fixed trace, the recording K2 on the
+recorded float trace), error against its plain
 version, times, its bound (the larger of its float32 operations over 67
 TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
-executed steps) and its library yardstick's time where there is one; the
-last line is
+executed steps; the recording K2's bytes include its path) and its library
+yardstick's time where there is one; the last line is
 ``{"ok": true, "device": {...}}``.  It exits nonzero, printing no result,
 when there is no CUDA device or any phase fails.
 """
@@ -1021,6 +1039,166 @@ def main() -> None:
     f1_field_bytes = int(torch.unique((cells[:, 0] * gy + cells[:, 1]) * gz + cells[:, 2]).numel()) * 16
     del cells, fs, fe
 
+    # 16a. the recording K2 against the plain recorded march on the phase 4
+    # scenes; its end state against the unrecorded K2's
+    def check_path(name, got, ref_path, start, budget):
+        """The recorded path's contract: (N, budget + 1, 3), within 1e-4 of
+        the plain recorded march's first budget + 1 rows, the start in row
+        0, rows from end_iteration on (after the last executed step) equal
+        to the end position bit for bit.  Returns the path's max error."""
+        path = got.path
+        if tuple(path.shape) != (start.shape[0], budget + 1, 3):
+            raise AssertionError(f"{name}: path shape {tuple(path.shape)}")
+        err = (path - ref_path[:, : budget + 1]).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"{name}: path max err {err:.3g} above 1e-4")
+        if not torch.equal(path[:, 0], start):
+            raise AssertionError(f"{name}: row 0 is not the start position")
+        tail = torch.arange(budget + 1, device=dev)[None, :] >= got.end_iteration[:, None]
+        if not torch.equal(path[tail], got.end_position[:, None, :].expand_as(path)[tail]):
+            raise AssertionError(f"{name}: back-filled rows differ from the end position")
+        return err
+
+    for name, packed, tr, fpos, fdirs, budget in (
+        ("lens40", packed40, None, pos40, dirs40, 64),
+        ("lens40", packed40, None, pos40, dirs40, 300),
+        ("lens40 + translucency", packed40, trc40, pos40, dirs40, 300),
+        *(("brick faces " + ("+x" if sign > 0 else "-x"), packed_faces, None, *(t(a) for a in faces_rays(sign)), 400)
+          for sign in (1.0, -1.0)),
+    ):
+        kw = dict(bend_scale=BEND, step_scale=STEP)
+        got = ml.march_lines(packed, fpos, fdirs, budget, translucency=tr, record_path=True, **kw)
+        unrec = ml.march_lines(packed, fpos, fdirs, budget, translucency=tr, **kw)
+        ref = march_float(packed, tr, fpos, fdirs, budget, chunk_steps=64, record_path=True, **kw)
+        sync()
+        torch.testing.assert_close(got.end_iteration, ref.end_iteration, rtol=0, atol=0)
+        err = check_path(f"recording K2 {name} budget {budget}", got, ref.path, fpos, budget)
+        if not all(torch.equal(getattr(got, f), getattr(unrec, f)) for f in fields_):
+            raise AssertionError(f"recording K2 {name} budget {budget}: end state differs from K2's")
+        print(f"phase 16a recording K2 {name}, budget {budget}: iterations exact "
+              f"({int(got.end_iteration.min())}-{int(got.end_iteration.max())}), path {tuple(got.path.shape)} max err "
+              f"{err:.3g}, back-fill exact; end state equal to K2's bit for bit")
+    del got, unrec, ref
+
+    # 16b. the recorded float trace at full size: K1 and the recording K2
+    sync()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    pres = scene.trace_rays(pos, dirs, kernel="auto", trace_path=True, **trace)
+    sync()
+    path_first_s = time.perf_counter() - t0
+    path_launches = dict(_build.launches)
+    if path_launches != {"line_table_build": 1, "march_lines_fwd_path": 1}:
+        raise AssertionError(f"the recorded trace's kernel launches {path_launches}, expected one of K1 and of "
+                             f"the recording K2")
+    if not all(torch.equal(getattr(pres, f), getattr(res, f)) for f in fields_):
+        raise AssertionError("the recorded trace's end state differs from the unrecorded trace's (phase 5)")
+    if not bool(torch.isfinite(pres.path).all()):
+        raise AssertionError("the recorded path has non-finite values")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    pplain = scene.trace_rays(pos, dirs, kernel="plain", trace_path=True, **trace)
+    stop.record()
+    sync()
+    path_fwd_plain_ms = start.elapsed_time(stop)
+    torch.testing.assert_close(pres.end_iteration, pplain.end_iteration, rtol=0, atol=0)
+    k2p_err = check_path("recorded trace 256^3", pres, pplain.path, pos, BUDGET)
+    print(f"phase 16b recorded trace 256^3, {n_rays} rays, budget {BUDGET}: launches {path_launches}, first call "
+          f"{path_first_s:.3f} s; path {tuple(pres.path.shape)} ({pres.path.numel() * 4 / 1e6:.1f} MB) max err vs "
+          f"plain {k2p_err:.3g}, back-fill exact; end state equal to the unrecorded trace's bit for bit")
+    del pres, pplain
+
+    # 16c. the differentiable recorded trace at full size: K1-K4 once each,
+    # gradients as without the path
+    diff = {}
+    for record in (False, True):
+        ior_r = ior256.clone().requires_grad_(True)
+        rp, rd = pos.clone().requires_grad_(True), dirs.clone().requires_grad_(True)
+        sync()
+        _build.launches.clear()
+        rres = RaytraceScene(ior_r, device=dev).trace_rays(rp, rd, kernel="auto", differentiable=True,
+                                                          trace_path=record, **trace)
+        (rres.end_position[:, 1].sum() + rres.end_direction[:, 2].sum()).backward()
+        sync()
+        diff[record] = (dict(_build.launches), ior_r.grad, rp.grad, rd.grad, rres.path)
+    want = {"line_table_build": 1, "march_lines_fwd_path": 1, "march_lines_bwd": 1, "line_table_fold": 1}
+    if diff[True][0] != want:
+        raise AssertionError(f"the differentiable recorded trace's launches {diff[True][0]}, expected {want}")
+    if diff[True][4] is None or diff[True][4].requires_grad:
+        raise AssertionError("the differentiable recorded trace's path is missing or carries a gradient")
+    for key, a, b in (("d_pos", diff[True][2], diff[False][2]), ("d_dir", diff[True][3], diff[False][3])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"recorded trace {key} differs from the non-recording run's, max "
+                                 f"{(a - b).abs().max().item():.3g}")
+    err, bound = err_scale(diff[True][1], diff[False][1])
+    if not (bool(torch.isfinite(diff[True][1]).all()) and err <= bound):
+        raise AssertionError(f"recorded trace d_ior vs the non-recording run: max err {err:.3g} above {bound:.3g}")
+    print(f"phase 16c differentiable recorded trace 256^3: launches {diff[True][0]}; d_pos, d_dir equal to the "
+          f"non-recording run's bit for bit; d_ior max err {err:.3g} (bound {bound:.3g})")
+    del diff, rres, ior_r, rp, rd
+
+    # 16d. soft termination on the card: the plain march, no kernel
+    wall = np.ones((20, 20, 20), np.float32)
+    wall_tr = np.ones((20, 20, 20), np.float32)
+    wall_tr[8:12] = 0.501
+    soft_pos = np.array([[3.0, 10.0, 10.0], [3.0, 8.5, 11.0]], np.float32)
+    soft_dirs = np.array([[4.0, 0.0, 0.0], [4.0, 0.0, 0.5]], np.float32)
+    soft = {}
+    for where in ("cuda", "cpu"):
+        move = (lambda a: t(a)) if where == "cuda" else (lambda a: torch.from_numpy(a))
+        tr_soft = move(wall_tr).requires_grad_(True)
+        sync()
+        _build.launches.clear()
+        _, _, trans = endpoint_render(move(wall), move(soft_pos), move(soft_dirs), 256, 1.0, 16,
+                                      translucency=tr_soft, soft_opacity_tau=256.0, return_transmittance=True)
+        trans.sum().backward()
+        sync()
+        soft[where] = (dict(_build.launches), trans.detach().cpu(), tr_soft.grad.cpu())
+    if soft["cuda"][0]:
+        raise AssertionError(f"soft termination launched kernels: {soft['cuda'][0]}")
+    torch.testing.assert_close(soft["cuda"][1], soft["cpu"][1], rtol=1e-5, atol=0)
+    g_cpu = soft["cpu"][2]
+    soft_gerr = (soft["cuda"][2] - g_cpu).abs().max().item()
+    if not soft_gerr <= 1e-5 * g_cpu.abs().max().item():
+        raise AssertionError(f"soft termination d_translucency on the card vs the CPU: max err {soft_gerr:.3g}")
+    try:
+        endpoint_render(t(wall), t(soft_pos), t(soft_dirs), 256, 1.0, 16, kernel="cuda", soft_opacity_tau=256.0)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("kernel='cuda' with soft_opacity_tau did not raise")
+    print(f"phase 16d soft termination on the card (20^3 wall): no kernel launched; transmittance "
+          f"{soft['cuda'][1].tolist()} vs CPU {soft['cpu'][1].tolist()}; d_translucency max err vs CPU "
+          f"{soft_gerr:.3g}; kernel='cuda' raises")
+
+    # 16e. times: the recording K2 and K2 in turns over the driver's order,
+    # the plain recorded march, the recorded trace end to end
+    table, nb = line_table_cuda.build_line_table_cuda(packed256)
+    order, _ = ml.sort_line_rays(p, nb)
+    k2_args = (table, nb, tuple(packed256.shape[:3]), p[order].contiguous(), d[order].contiguous(), rem, alive, br)
+    k2_unrec, k2_rec = turns(lambda: ml.march_lines_cuda(*k2_args, **k2_kw),
+                             lambda: ml.march_lines_cuda(*k2_args, path_row=order, path_len=BUDGET + 1, **k2_kw), 10)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    march_float(packed256, None, p, d, BUDGET, bend_scale=BEND, step_scale=STEP, record_path=True)
+    stop.record()
+    sync()
+    times.update({
+        "k2p": sum(k2_rec) / 2,
+        "k2p_plain": start.elapsed_time(stop),
+        "k2_in_turns": sum(k2_unrec) / 2,
+        "path_fwd": timed(lambda: scene.trace_rays(pos, dirs, kernel="auto", trace_path=True, **trace), 5),
+        "path_fwd_plain": path_fwd_plain_ms,
+    })
+    del table
+    for key, label in (("k2p", f"recording K2 march_lines_fwd_path (turns {k2_rec})"),
+                       ("k2_in_turns", f"K2 march_lines_fwd in the same turns ({k2_unrec})"),
+                       ("k2p_plain", "recording K2 plain recorded march (march_float, one run)"),
+                       ("path_fwd", "recorded trace_rays kernel=auto, trace_path=True"),
+                       ("path_fwd_plain", "recorded trace_rays kernel=plain, trace_path=True (one run)")):
+        print(f"phase 16e time {label}: {times[key]:.4f} ms, {n_rays / times[key] / 1e3:.4f} Mrays/s, "
+              f"{steps / times[key] / 1e6:.4f} Gsteps/s {card}")
+
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,
     # alive, br: 36 B a ray) and writes it, a replay reads 52 B a ray (end
@@ -1044,9 +1222,12 @@ def main() -> None:
         # int64 remaining, int32 alive, int64 brightness), and the voxels
         # of the packed field its rays read, 16 B each
         "f1": kernel_bound(MARCH_FIXED_OPS * fixed_steps, 92 * n_rays + f1_field_bytes),
+        # the recording K2: K2's, plus each ray's int64 path row read and
+        # its (budget + 1) × 3 float32 path written
+        "k2p": kernel_bound(MARCH_OPS * steps, 80 * n_rays + line_bytes + n_rays * (BUDGET + 1) * 12),
     }
     for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
-                       ("f1", "F1")):
+                       ("f1", "F1"), ("k2p", "recording K2")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
@@ -1062,6 +1243,7 @@ def main() -> None:
         ("k5", "march_points_fwd", "march_points_fwd.cu", "kernels/march_pallas.py:221", point_launches, k5_err),
         ("k6", "march_points_bwd", "march_points_bwd.cu", "kernels/march_bwd.py:115", point_launches, k6_err),
         ("f1", "march_fixed", "march_fixed.cu", "ops/march.py:286", fixed_launches, f1_err),
+        ("k2p", "march_lines_fwd_path", "march_lines_fwd.cu", "kernels/march_lines.py:190", path_launches, k2p_err),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,

@@ -128,8 +128,20 @@ def test_march_lines_matches_jax_kernel(name):
 
 
 def test_unported_march_options_raise():
+    """The march options that raised until they were ported now run on the
+    plain march: record_path gives the (N, 1 + steps, 3) path, start first
+    and back-filled with the end position; soft_opacity_tau gives a
+    transmittance in (0, 1] and leaves the end state as it was."""
     packed, _, pos, dirs, _, _ = _case("64")
     st = _port_inputs(packed, None, pos, dirs)
-    for kw in ({"record_path": True}, {"soft_opacity_tau": 256.0}):
-        with pytest.raises(NotImplementedError):
-            march_float(st["packed"], None, st["pos"], st["dirs"], 8, bend_scale=BEND, step_scale=STEP, **kw)
+    kw = dict(bend_scale=BEND, step_scale=STEP, chunk_steps=4)
+    plain = march_float(st["packed"], None, st["pos"], st["dirs"], 8, **kw)
+    rec = march_float(st["packed"], None, st["pos"], st["dirs"], 8, record_path=True, **kw)
+    assert tuple(rec.path.shape) == (len(pos), 9, 3)
+    assert torch.equal(rec.path[:, 0], st["pos"]) and torch.equal(rec.path[:, -1], plain.end_position)
+    soft = march_float(st["packed"], None, st["pos"], st["dirs"], 8, soft_opacity_tau=256.0, **kw)
+    assert soft.transmittance.shape == (len(pos),)
+    assert bool(((soft.transmittance > 0) & (soft.transmittance <= 1)).all())
+    for res in (rec, soft):
+        assert torch.equal(res.end_position, plain.end_position)
+        assert torch.equal(res.end_iteration, plain.end_iteration)

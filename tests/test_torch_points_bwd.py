@@ -321,16 +321,20 @@ def test_k6_wrapper_runs_plain_replay_on_cpu():
 
 
 def test_march_pallas_diff_options():
-    """record_path needs the line layout (JAX asserts it) and is not ported
-    there; an unknown layout raises; march_lines_diff is the line layout."""
+    """record_path needs the line layout (JAX asserts it), where it records
+    the (N, budget + 1, 3) path; an unknown layout raises; march_lines_diff
+    is the line layout."""
     packed = torch.from_numpy(np.array(build_packed_field(jnp.asarray(_lens(12)))))
     pos, dirs, _ = _rays(2, hi=8.0)
     args = (packed, torch.from_numpy(pos), torch.from_numpy(dirs), 16)
     kw = dict(bend_scale=BEND, step_scale=STEP)
     with pytest.raises(ValueError, match="record_path"):
         vtt.march_pallas_diff(*args, record_path=True, **kw)
-    with pytest.raises(NotImplementedError, match="record_path"):
-        vtt.march_pallas_diff(*args, record_path=True, layout="lines", **kw)
+    with pytest.raises(ValueError, match="record_path"):
+        mp.march_pallas(*args, record_path=True, **kw)
+    res = vtt.march_pallas_diff(*args, record_path=True, layout="lines", **kw)
+    assert tuple(res.path.shape) == (2, 17, 3) and not res.path.requires_grad
+    assert torch.equal(res.path[:, 0], args[1]) and torch.equal(res.path[:, -1], res.end_position)
     with pytest.raises(ValueError, match="layout"):
         vtt.march_pallas_diff(*args, layout="bricks", **kw)
     assert vtt.march_lines_diff.keywords == {"layout": "lines"}

@@ -91,6 +91,23 @@ def test_ptxas_reader():
     }
 
 
+def test_ptxas_reader_tells_the_recording_k2_from_k2():
+    """K2's two instantiations are two entries of ptxas' report: the
+    recording K2's name also holds K2's, and takes its own."""
+    log = "".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(k)}{k}EPKfiiifff' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for _ZN12_GLOBAL__N_1{len(k)}{k}EPKfiiifff\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, 600 bytes cmem[0]\n"
+        for k, regs in (("march_lines_fwd_kernel", 80), ("march_lines_fwd_path_kernel", 88))
+    )
+    assert probe.ptxas_by_kernel(log) == {
+        "march_lines_fwd": {"spill_stores": 0, "spill_loads": 0, "registers": 80, "smem_bytes": 0},
+        "march_lines_fwd_path": {"spill_stores": 0, "spill_loads": 0, "registers": 88, "smem_bytes": 0},
+    }
+    assert {"march_lines_fwd", "march_lines_fwd_path"} <= set(probe.KERNELS)
+
+
 def test_k4_sweep_variant_source():
     """The K4 sweep's variants change the fold's ring depth and blocks an SM
     and nothing else, and export its occupancy; the first variant is the

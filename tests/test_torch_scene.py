@@ -181,16 +181,18 @@ def test_cuda_kernel_on_cpu_tensors_raises(entry):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"mode": "fixed", "kernel": "native"}, {"mode": "float", "trace_path": True},
+    "kw", [{"mode": "fixed", "kernel": "native"}, {"mode": "float", "options": vtt.Options(write_instance=True)},
            {"mode": "float", "kernel": "native"}],
-    ids=["fixed", "trace_path", "native"],
+    ids=["fixed", "write_instance", "native"],
 )
 def test_unported_trace_options_raise(kw):
     """What is still unported raises: kernel="native" in either mode (the
-    fixed path itself is ported, tests/test_torch_fixed.py), and the float
-    trace_path."""
-    scene = vtt.RaytraceScene(np.ones((6, 6, 6), np.float32), device="cpu")
+    fixed path itself is ported, tests/test_torch_fixed.py, and the float
+    trace_path, tests/test_torch_path.py), and Options.write_instance."""
+    kw = dict(kw)
+    options = kw.pop("options", None)
     with pytest.raises(NotImplementedError):
+        scene = vtt.RaytraceScene(np.ones((6, 6, 6), np.float32), options=options, device="cpu")
         scene.trace_rays([[0x20000, 0x20000, 0x20000]] if kw["mode"] == "fixed" else [[2.0, 2.0, 2.0]],
                          [[16.0, 0.0, 0.0]], **kw)
 

@@ -9,7 +9,10 @@ It imports torch and numpy only, never jax.
 Ported so far: the fixed-point trace, the default mode —
 ``RaytraceScene.trace_rays(mode="fixed")`` with ``dir_fixed`` and
 ``trace_path``, ``trace_rays_instance`` — through the fixed march kernel
-(F1); the float trace — ``RaytraceScene.trace_rays(mode="float")`` — and
+(F1); the float trace — ``RaytraceScene.trace_rays(mode="float")``, with
+``trace_path`` through a second instantiation of the forward march kernel
+that records each ray's path, and soft termination
+(``soft_opacity_tau``), which runs on the plain march — and
 training — ``endpoint_render`` with ``loss.backward()``,
 ``trace_rays(differentiable=True)`` and ``fit_field`` — through the
 line-table build kernel (K1), the forward march kernel (K2), the

@@ -50,6 +50,9 @@ _MARCH_FWD = (
     _P, _P, _P, _P, _P,  # state out
     _I, _F, _F, _F, _F, _F, _F, _F, _I, _P,  # n, bend, step, min_bright, has_absorb, stream
 )
+#: the recording K2: the forward march's arguments with the path, its rows,
+#: its length and its row stride before n
+_MARCH_FWD_PATH = _MARCH_FWD[:17] + (_P, _P, _I, _I) + _MARCH_FWD[17:]
 _MARCH_BWD = (
     _P, _P, _I, _I, _I,  # table, gtable, nb
     _P, _P, _P, _P, _P,  # end pos, end dir, nexec, d_pos, d_dir
@@ -59,6 +62,7 @@ _MARCH_BWD = (
 _SIGNATURES = {
     "vrt_line_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vrt_march_lines_fwd": _MARCH_FWD,
+    "vrt_march_lines_fwd_path": _MARCH_FWD_PATH,
     "vrt_march_lines_bwd": _MARCH_BWD,
     "vrt_line_table_fold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vrt_march_points_fwd": _MARCH_FWD,

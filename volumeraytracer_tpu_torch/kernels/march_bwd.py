@@ -14,8 +14,11 @@ VJP's contracts in one place:
     channel and the absorption get no gradient;
   * a replay that did not finish (``max_steps`` below a ray's nexec)
     poisons every returned gradient with NaN;
-  * a missing cotangent (a loss on positions only) counts as zeros:
-    autograd hands the backward zeros for an output the loss did not use.
+  * a missing cotangent (a loss on positions only) counts as zeros;
+  * a recorded path (``record_path=True``, line layout) comes from the
+    recording forward kernel and carries no gradient, as the JAX
+    package's stop-gradient ``PathRecording``; the end state, and so the
+    replay, are the unrecorded march's.
 
 On CUDA tensors it runs the kernels; on CPU tensors their plain versions,
 as the JAX package's interpret mode does.  Which one runs is decided by the
@@ -45,14 +48,14 @@ _LAYOUTS = {
 
 class _MarchDiff(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, packed, pos, dirs, translucency, budget, bend, step, min_bright, max_steps, layout):
+    def forward(ctx, packed, pos, dirs, translucency, budget, bend, step, min_bright, max_steps, layout, record_path):
         build, replay, fold = _LAYOUTS[layout]
         absorb = None if translucency is None else absorption_fraction(translucency).contiguous()
         table, nb = build(packed.contiguous(), absorb=absorb)
         res, raw = march_pallas(
             packed, pos, dirs, budget, bend_scale=bend, step_scale=step,
             translucency=translucency, minimum_brightness=min_bright, return_state=True,
-            table=table, nb=nb, layout=layout,
+            table=table, nb=nb, layout=layout, record_path=record_path,
         )
         nexec = torch.clamp(budget - 1 - raw["remaining"].to(torch.int32), min=0)
         ctx.table, ctx.nb = table, nb
@@ -60,13 +63,20 @@ class _MarchDiff(torch.autograd.Function):
         ctx.replay, ctx.fold = replay, fold
         ctx.bend, ctx.step, ctx.max_steps = bend, step, max_steps
         ctx.save_for_backward(res.end_position, res.end_direction, nexec)
-        ctx.mark_non_differentiable(res.end_iteration, res.remaining_light)
-        return res.end_position, res.end_direction, res.end_iteration, res.remaining_light
+        ctx.mark_non_differentiable(
+            res.end_iteration, res.remaining_light, *(() if res.path is None else (res.path,))
+        )
+        # no zero-filled stand-ins for unused cotangents (the path's would
+        # be the size of the path): the backward fills in the two it needs
+        ctx.set_materialize_grads(False)
+        return res.end_position, res.end_direction, res.end_iteration, res.remaining_light, res.path
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, d_pos, d_dir, _d_iter, _d_light):
+    def backward(ctx, d_pos, d_dir, _d_iter, _d_light, _d_path):
         end_pos, end_dir, nexec = ctx.saved_tensors
+        d_pos = torch.zeros_like(end_pos) if d_pos is None else d_pos
+        d_dir = torch.zeros_like(end_dir) if d_dir is None else d_dir
         gtable, d_pos0, d_dir0, _, residual = ctx.replay(
             ctx.table, ctx.nb, end_pos, end_dir, nexec, d_pos, d_dir,
             bend=ctx.bend, step=ctx.step, max_steps=ctx.max_steps,
@@ -75,7 +85,7 @@ class _MarchDiff(torch.autograd.Function):
         d_packed = ctx.fold(gtable, ctx.packed_shape, ctx.nb)
         # a cut replay left adjoints half propagated: make that loud
         poison = torch.where(residual.any(), float("nan"), 1.0)
-        return d_packed * poison, d_pos0 * poison, d_dir0 * poison, None, None, None, None, None, None, None
+        return d_packed * poison, d_pos0 * poison, d_dir0 * poison, None, None, None, None, None, None, None, None
 
 
 def march_pallas_diff(
@@ -100,21 +110,22 @@ def march_pallas_diff(
     termination only.  ``layout``: "points" (K5 → K6, the JAX default) or
     "lines" (K1 → K2 → K3 → K4).  ``max_steps`` caps each ray's replay
     (default ``budget``: never cut), the counterpart of the JAX
-    ``max_windows``."""
+    ``max_windows``.  ``record_path`` (line layout only): ``path`` is
+    ``march_lines``' (N, budget + 1, 3) path from the recording forward
+    (the recording K2 on the card), without a gradient; the end positions
+    and directions keep theirs."""
     if layout not in _LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
-    if record_path:
-        if layout != "lines":
-            raise ValueError("record_path requires layout='lines'")
-        raise NotImplementedError("record_path is not ported yet (ROADMAP queue 1, item 4)")
+    if record_path and layout != "lines":
+        raise ValueError("record_path requires layout='lines'")
     bend = tuple(float(v) for v in torch.as_tensor(bend_scale, dtype=torch.float32).expand(3))
     step = tuple(float(v) for v in torch.as_tensor(step_scale, dtype=torch.float32).expand(3))
-    end_pos, end_dir, end_iter, light = _MarchDiff.apply(
+    end_pos, end_dir, end_iter, light, path = _MarchDiff.apply(
         packed, start_position, start_direction, translucency, int(budget), bend, step,
-        int(minimum_brightness), int(budget if max_steps is None else max_steps), layout,
+        int(minimum_brightness), int(budget if max_steps is None else max_steps), layout, bool(record_path),
     )
     return TraceResult(
-        end_position=end_pos, end_direction=end_dir, end_iteration=end_iter, remaining_light=light,
+        end_position=end_pos, end_direction=end_dir, end_iteration=end_iter, remaining_light=light, path=path,
     )
 
 

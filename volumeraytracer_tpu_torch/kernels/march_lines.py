@@ -2,9 +2,12 @@
 adjoint, their wrappers and the functions that call them.
 
 The forward kernel (``csrc/march_lines_fwd.cu``) replaces the TPU kernel
-``volumeraytracer_tpu/kernels/march_lines.py:_march_kernel_lines``, the
-adjoint kernel (``csrc/march_lines_bwd.cu``) its ``_bwd_kernel_lines``;
-each source file says what bounds it on the H100 and how its design
+``volumeraytracer_tpu/kernels/march_lines.py:_march_kernel_lines`` in two
+instantiations of one body: ``march_lines_fwd`` and, for
+``record_path=True``, ``march_lines_fwd_path``, which also writes each
+ray's path of positions (the TPU kernel's record branch).  The adjoint
+kernel (``csrc/march_lines_bwd.cu``) replaces its ``_bwd_kernel_lines``.
+Each source file says what bounds it on the H100 and how its design
 answers that.  K2's plain version is ``ops.march.march_float`` with
 ``opaque_when_positive=True``, the spec the JAX package's own kernel tests
 use; ``march_lines`` runs it for tensors on the CPU.  K3's plain version is
@@ -16,10 +19,12 @@ on the card it builds the table (K1) unless it is given one, sorts the
 rays by line brick and by cell within it (``sort_line_rays``) so that
 neighbouring threads read neighbouring lanes of the same bricks, launches
 K2 through ``march_lines_cuda``, restores the input order and turns the
-raw state into a ``TraceResult``.  ``march_lines_bwd`` is the counterpart
-of ``_bwd_impl_lines``: it sorts the rays in the same order by their end
-position, launches K3 and restores the order.  The kernels
-need no padding: each masks its own ragged edge.
+raw state into a ``TraceResult``.  The recording K2 writes each ray's path
+at the ray's input index, so the path needs no reordering.
+``march_lines_bwd`` is the counterpart of ``_bwd_impl_lines``: it sorts
+the rays in the same order by their end position, launches K3 and
+restores the order.  The kernels need no padding of the ray batch: each
+masks its own ragged edge.
 
 The point table's march and adjoint (K5, K6, ``march_pallas.py``) differ
 from these only in the table's addressing, so the drivers, the launch and
@@ -41,6 +46,11 @@ from .line_table_cuda import build_line_table_cuda
 #: sort key of rays with nothing to march or replay: after every other key
 DEAD_ID = torch.iinfo(torch.int64).max
 
+#: the recording K2's path rows are allocated in multiples of this many
+#: (96 B), so that each ray's row starts on a 32-byte sector and the
+#: kernel's runs of 24 rows cover whole sectors
+PATH_ROW_ALIGN = 8
+
 #: the line table's addressing, as ``replay_plain`` takes it: the brick's
 #: extent in cells, the flat table offset of one point step along x, y and
 #: z, and the offset between channel rows
@@ -48,11 +58,16 @@ LINE_LAYOUT = ((LBX, LBY, LBZ), (LPY, 1, TCH * LL), LL)
 
 
 def launch_march(name, table, rows, nb, bounds, pos, dirs, rem, alive, br, *, bend, step, min_bright,
-                 has_absorb):
+                 has_absorb, path_row=None, path_len=0):
     """Launch the forward march kernel ``name`` (K2 or K5) on CUDA tensors:
     table (NB, *rows) f32, pos/dirs (N, 3) f32, rem/alive (N,) int32, br
     (N,) f32 (brightness fraction, 1.0 = 0xFFFFFFFF).  Returns the end
-    (pos, dirs, rem, alive, br) in new tensors."""
+    (pos, dirs, rem, alive, br) in new tensors.  ``path_len`` > 0 launches
+    the recording kernel ``name + "_path"`` instead, which also writes a
+    new (N, path_len, 3) f32 path, returned last: ray i's start position,
+    its position after each executed step, then its end position, in row
+    ``path_row[i]`` ((N,) int64, a permutation of 0..N−1).  The path is a
+    view of a buffer whose rows are ``PATH_ROW_ALIGN``-padded."""
     if table.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {table.device}")
     device = table.device
@@ -64,13 +79,21 @@ def launch_march(name, table, rows, nb, bounds, pos, dirs, rem, alive, br, *, be
     _build.check_tensor("alive", alive, torch.int32, (n,), device)
     _build.check_tensor("br", br, torch.float32, (n,), device)
     out = tuple(torch.empty_like(t) for t in (pos, dirs, rem, alive, br))
+    record = ()
+    if path_len > 0:
+        name = name + "_path"
+        _build.check_tensor("path_row", path_row, torch.int64, (n,), device)
+        stride = -(-path_len // PATH_ROW_ALIGN) * PATH_ROW_ALIGN
+        path = torch.empty((n, stride, 3), dtype=torch.float32, device=device)
+        out = out + (path[:, :path_len],)
+        record = (path.data_ptr(), path_row.data_ptr(), int(path_len), stride)
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, "vrt_" + name)(
             table.data_ptr(), *nb, *bounds,
             *(t.data_ptr() for t in (pos, dirs, rem, alive, br)),
-            *(t.data_ptr() for t in out),
+            *(t.data_ptr() for t in out[:5]), *record,
             n, *bend, *step, min_bright, int(has_absorb), stream,
         )
     _build.check(rc, name)
@@ -82,7 +105,8 @@ def march_lines_cuda(table: torch.Tensor, nb: Tuple[int, int, int], bounds: Tupl
                      alive, br, **kw):
     """Launch K2 on CUDA tensors: table (NB, 72, 128) f32, the rest as
     ``launch_march`` takes them; keywords bend, step, min_bright,
-    has_absorb.  Returns the end (pos, dirs, rem, alive, br) in new
+    has_absorb, and path_row, path_len for the recording K2.  Returns the
+    end (pos, dirs, rem, alive, br), and the path when recording, in new
     tensors."""
     return launch_march("march_lines_fwd", table, (LS, LL), nb, bounds, pos, dirs, rem, alive, br, **kw)
 
@@ -146,13 +170,16 @@ def sort_line_rays(pos: torch.Tensor, nb, valid: Optional[torch.Tensor] = None):
 
 
 def march_on_table(packed, start_position, start_direction, budget, *, bend_scale, step_scale, translucency,
-                   absorb, minimum_brightness, return_state, table, nb, build, launch, sort):
+                   absorb, minimum_brightness, return_state, table, nb, build, launch, sort, record_path=False):
     """The forward march driver of both layouts: ``march_lines``'s contract
     with the layout's table ``build`` (called as ``build(packed,
     absorb=...)``), forward kernel wrapper ``launch`` and ray order ``sort``
     (called as ``sort(pos, nb)``, returning (order, inverse)).  On CPU
     tensors it runs the plain march, which takes the integer
-    ``translucency`` and not the float ``absorb``."""
+    ``translucency`` and not the float ``absorb``.  ``record_path`` asks
+    ``launch`` for the (N, budget + 1, 3) path (``path_row``, ``path_len``
+    keywords); on CPU tensors it is the first budget + 1 rows of the plain
+    recorded march."""
     if packed.ndim != 4 or packed.shape[-1] != 4:
         raise ValueError(f"the march needs a 3-D packed field (X, Y, Z, 4), got {tuple(packed.shape)}")
     bend = tuple(float(v) for v in torch.as_tensor(bend_scale, dtype=torch.float32).expand(3))
@@ -161,11 +188,11 @@ def march_on_table(packed, start_position, start_direction, budget, *, bend_scal
     if packed.device.type == "cpu":
         if absorb is not None and translucency is None:
             raise ValueError("the plain march on CPU tensors takes translucency, not absorb")
-        state = march_float_state(
+        state, path = march_float_state(
             packed, translucency, start_position, start_direction, budget,
-            bend_scale=bend, step_scale=step, minimum_brightness=minimum_brightness,
+            bend_scale=bend, step_scale=step, minimum_brightness=minimum_brightness, record_path=record_path,
         )
-        result = _finish(state, budget)
+        result = _finish(state, budget, path=None if path is None else path[:, : budget + 1])
         if return_state:
             return result, {
                 "remaining": state.remaining.to(torch.int32),
@@ -186,14 +213,15 @@ def march_on_table(packed, start_position, start_direction, budget, *, bend_scal
     rem = torch.full((n,), budget - 1, dtype=torch.int32, device=dev)
     br = torch.ones((n,), dtype=torch.float32, device=dev)
     order, inv = sort(pos, nb)
+    record = dict(path_row=order, path_len=budget + 1) if record_path else {}
     outs = launch(
         table, nb, tuple(int(s) for s in packed.shape[:3]),
         pos[order].contiguous(), dirs[order].contiguous(), rem, alive, br,
         bend=bend, step=step,
         min_bright=float(minimum_brightness) / BRIGHT_MAX_F,
-        has_absorb=has_absorb,
+        has_absorb=has_absorb, **record,
     )
-    end_pos, end_dir, rem, alive, br = (o[inv] for o in outs)
+    end_pos, end_dir, rem, alive, br = (o[inv] for o in outs[:5])
 
     end_remaining = torch.where(alive != 0, 0, rem).to(torch.int64)
     # remaining light: the float32 product br·0xFFFFFFFF truncated,
@@ -208,6 +236,7 @@ def march_on_table(packed, start_position, start_direction, budget, *, bend_scal
         end_direction=end_dir,
         end_iteration=budget - end_remaining,
         remaining_light=light,
+        path=outs[5] if record_path else None,
     )
     if return_state:
         return result, {"remaining": rem, "alive": alive, "brightness": br}
@@ -228,6 +257,7 @@ def march_lines(
     return_state: bool = False,
     table: Optional[torch.Tensor] = None,
     nb: Optional[Tuple[int, int, int]] = None,
+    record_path: bool = False,
 ):
     """Forward float march with the semantics of ``ops.march.march_float``
     on a 3-D packed field (X, Y, Z, 4) and an optional int64 translucency
@@ -236,12 +266,17 @@ def march_lines(
     ``{"remaining", "alive", "brightness"}``, the raw end state: rays
     executed budget − 1 − remaining steps.  ``table``/``nb``: a line table
     of ``packed`` (and the translucency) built already, which the card then
-    marches without a build; the CPU path marches ``packed`` itself."""
+    marches without a build; the CPU path marches ``packed`` itself.
+    ``record_path``: ``TraceResult.path`` is the (N, budget + 1, 3) float32
+    path, the JAX driver's contract: row 0 the start position, row t the
+    position after step t, back-filled with the end position (the recording
+    K2 on the card, the plain recorded march's first budget + 1 rows on the
+    CPU)."""
     return march_on_table(
         packed, start_position, start_direction, budget, bend_scale=bend_scale, step_scale=step_scale,
         translucency=translucency, absorb=absorb, minimum_brightness=minimum_brightness,
         return_state=return_state, table=table, nb=nb,
-        build=build_line_table_cuda, launch=march_lines_cuda, sort=sort_line_rays,
+        build=build_line_table_cuda, launch=march_lines_cuda, sort=sort_line_rays, record_path=record_path,
     )
 
 

@@ -132,6 +132,7 @@ def march_pallas(
     nb: Optional[Tuple[int, int, int]] = None,
     return_state: bool = False,
     layout: str = "points",
+    record_path: bool = False,
 ):
     """Forward float march over the point table, with the semantics of
     ``ops.march.march_float`` (opaque where the opacity is positive) on a
@@ -147,15 +148,18 @@ def march_pallas(
     Results follow ``march_lines``: end_iteration = budget − remaining for
     dead rays, remaining light saturating at 0xFFFFFFFF, and with
     ``return_state=True`` the raw ``{"remaining", "alive", "brightness"}``
-    (rays executed budget − 1 − remaining steps)."""
+    (rays executed budget − 1 − remaining steps).  ``record_path`` needs
+    ``layout="lines"`` (``march_lines``' path), as in the JAX package."""
     kw = dict(
         bend_scale=bend_scale, step_scale=step_scale, translucency=translucency, absorb=absorb,
         minimum_brightness=minimum_brightness, return_state=return_state, table=table, nb=nb,
     )
     if layout == "lines":
-        return march_lines(packed, start_position, start_direction, budget, **kw)
+        return march_lines(packed, start_position, start_direction, budget, record_path=record_path, **kw)
     if layout != "points":
         raise ValueError(f"unknown layout {layout!r}")
+    if record_path:
+        raise ValueError("record_path requires layout='lines'")
     return march_on_table(packed, start_position, start_direction, budget, **kw,
                           build=build_brick_table, launch=march_points_cuda, sort=sort_point_rays)
 

@@ -9,14 +9,19 @@ of two modes:
     positions (int64 tensors holding them), the reference's own
     semantics, with ``dir_fixed=True`` for int16 8.8 directions and
     ``trace_path=True`` for the path of positions;
-  * ``mode="float"`` — float32 voxel positions, differentiable.
+  * ``mode="float"`` — float32 voxel positions, differentiable, with
+    ``trace_path=True`` for the path of positions and ``soft_opacity_tau``
+    for the soft-termination transmittance.
 
 Dispatch follows the tensors' device, never what is installed.  On a CUDA
 device ``kernel="auto"`` runs the CUDA kernels for 3-D volumes (the
-fixed march F1; for the float march the table build K1 and the march K2)
-and the plain torch march for 2-D; ``"plain"`` runs the plain march;
-``"cuda"`` runs the kernels or raises.  On the CPU ``"auto"`` and
-``"plain"`` run the plain march and ``"cuda"`` raises.
+fixed march F1; for the float march the table build K1 and the march K2,
+the recording K2 for a path) and the plain torch march for 2-D;
+``"plain"`` runs the plain march; ``"cuda"`` runs the kernels or raises.
+On the CPU ``"auto"`` and ``"plain"`` run the plain march and ``"cuda"``
+raises.  Soft termination runs on the plain march only, as in the JAX
+package: ``"auto"`` sends it there, decided by the arguments before
+anything launches, and ``"cuda"`` with it raises.
 ``Options.minimum_device_rays`` is not consulted.  With
 ``differentiable=True`` the float trace's end positions and directions
 carry gradients to the start positions and directions (and to ``ior`` when
@@ -141,10 +146,16 @@ class RaytraceScene:
         s·invscale²·0x42000000/0x100000000 voxels per step at n = 1), or
         with ``dir_fixed=True`` (fixed mode only) int16 8.8 values; the end
         direction is then an int16 tensor.  invscale: per-axis float
-        scale.  ``trace_path`` (fixed mode only): ``path`` holds the start
-        position and the position after each of
-        ``ceil(iterations / chunk) · chunk`` steps, back-filled with the end
-        position.
+        scale.  ``trace_path``: ``path`` holds the start position and the
+        position after each step, back-filled with the end position, in
+        the scene frame: on the plain march the position after each of
+        ``ceil(iterations / chunk) · chunk`` steps, (N, 1 + that, dim) (the
+        JAX package's XLA route); through the float kernels (N, iterations
+        + 1, 3) float32 (its Pallas route).  A float path carries no
+        gradient through the kernels and carries one on the plain march.
+        ``soft_opacity_tau`` (float mode only): τ > 0 carries the
+        soft-termination ``transmittance`` (N,), differentiable with
+        respect to the opacity channel, on the plain march.
         """
         if mode not in ("fixed", "float"):
             raise ValueError(f"unknown mode {mode!r}")
@@ -153,12 +164,12 @@ class RaytraceScene:
         if soft_opacity_tau is not None:
             if mode != "float":
                 raise ValueError("soft_opacity_tau requires mode='float'")
-            raise NotImplementedError("soft_opacity_tau is not ported yet (queue 1, item 4 of ROADMAP.md)")
-        if mode == "float":
-            if dir_fixed:
-                raise ValueError("dir_fixed requires mode='fixed'")
-            if trace_path:
-                raise NotImplementedError("trace_path is not ported yet (queue 1, item 4 of ROADMAP.md)")
+            if kernel == "cuda":
+                raise ValueError("soft_opacity_tau runs on the plain march only (the kernels' termination is "
+                                 "straight-through); use kernel='auto' or 'plain'")
+            kernel = "plain"
+        if mode == "float" and dir_fixed:
+            raise ValueError("dir_fixed requires mode='fixed'")
         use_cuda = use_kernels(kernel, self.device, self.dim)
         sp_shape, sd_shape = np.shape(start_position), np.shape(start_direction)
         if sp_shape[-1:] != (self.dim,) or sd_shape[-1:] != (self.dim,):
@@ -201,18 +212,23 @@ class RaytraceScene:
             res = (march_lines_diff if differentiable else march_lines)(
                 self.packed, p, dirs, iterations, bend_scale=bend, step_scale=step,
                 translucency=self.translucency_cropped, minimum_brightness=minimum_brightness,
+                record_path=trace_path,
             )
         else:
             res = march_ops.march_float(
                 self.packed, self.translucency_cropped, p, dirs, iterations,
                 bend_scale=bend, step_scale=step, minimum_brightness=minimum_brightness,
-                chunk_steps=chunk_steps, differentiable=differentiable,
+                chunk_steps=chunk_steps, differentiable=differentiable, record_path=trace_path,
+                soft_opacity_tau=soft_opacity_tau,
             )
+        # +1 voxel back into the scene frame, paths included
         return TraceResult(
             end_position=res.end_position + 1.0,
             end_direction=res.end_direction,
             end_iteration=res.end_iteration,
             remaining_light=res.remaining_light,
+            path=None if res.path is None else res.path + 1.0,
+            transmittance=res.transmittance,
         )
 
     def _trace_fixed(self, pos, dirs, normalize_length, *, invscale, iterations, minimum_brightness, trace_path,

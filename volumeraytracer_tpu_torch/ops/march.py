@@ -1,9 +1,10 @@
 """Batched float and fixed-point ray marches in plain torch.
 
-Counterpart of ``volumeraytracer_tpu/ops/march.py`` (``_float_step``,
-``_fixed_step``, ``_run_while``, ``_run_scan``'s path recording,
-``_init_remaining``, ``march_float``, ``march_fixed``, ``_finish``).  Every
-ray advances in lock-step under a per-ray alive mask; per step:
+Counterpart of ``volumeraytracer_tpu/ops/march.py`` (``_float_step`` with
+its soft termination, ``_fixed_step``, ``_run_while``, ``_run_scan``'s path
+recording, ``_init_remaining``, ``march_float``, ``march_fixed``,
+``_finish``).  Every ray advances in lock-step under a per-ray alive mask;
+per step:
 
     brightness -= min(brightness, 0xFFFFFFFF − translucency[voxel])
     interp      = multilinear(packed, pos)                 # dim+1 channels
@@ -23,7 +24,10 @@ them in the same order.  With ``differentiable=True`` the float march runs
 in checkpointed chunks (autograd keeps each chunk's start state and
 recomputes the chunk in the backward), the counterpart of the JAX
 package's scan of remat'd chunks: the CPU path of training and the oracle
-of the adjoint kernels.
+of the adjoint kernels.  A recorded path is written inside those chunks
+and carries gradients too.  With ``soft_opacity_tau`` the float march
+also carries a transmittance, the only way the opacity channel (and with
+it a float translucency) gets a gradient.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ class MarchState(NamedTuple):
     remaining: torch.Tensor  # (N,) int64 remaining iteration budget
     brightness: torch.Tensor  # (N,) int64 holding uint32 values
     alive: torch.Tensor  # (N,) bool
+    #: (N,) float32 soft transmittance (only with ``soft_opacity_tau``)
+    trans: Optional[torch.Tensor] = None
 
 
 def _float_step(
@@ -74,9 +80,13 @@ def _float_step(
     bend_scale: torch.Tensor,
     step_scale: torch.Tensor,
     minimum_brightness: int,
+    soft_tau: float = 0.0,
 ) -> MarchState:
-    """One predicated step in float voxel units."""
-    pos, direction, remaining, brightness, alive = state
+    """One predicated step in float voxel units.  ``soft_tau`` > 0 also
+    multiplies the transmittance by the survival ``sigmoid(−opacity/τ)``
+    wherever the step is evaluated (``cond``, the stopping step included);
+    the hard stop on the opacity channel stays."""
+    pos, direction, remaining, brightness, alive, trans = state
     dim = pos.shape[-1]
     fpos = torch.floor(pos)
     inbounds = ((pos >= 0.0) & (fpos < bounds_m1.to(torch.float32))).all(-1)
@@ -95,6 +105,9 @@ def _float_step(
     opaque = interp[..., dim] > 0.0
     step_ok = cond & ~dark & ~opaque
     remaining = torch.where(step_ok, remaining - 1, remaining)
+    if soft_tau > 0.0:
+        survive = torch.sigmoid(interp[..., dim] * (-1.0 / soft_tau))
+        trans = torch.where(cond, trans * survive, trans)
 
     new_dir = direction + interp[..., :dim] * bend_scale
     len2 = new_dir[..., 0] * new_dir[..., 0]
@@ -106,7 +119,7 @@ def _float_step(
     ok = step_ok[..., None]
     return MarchState(
         torch.where(ok, new_pos, pos), torch.where(ok, new_dir, direction),
-        remaining, brightness, step_ok,
+        remaining, brightness, step_ok, trans,
     )
 
 
@@ -123,7 +136,7 @@ def _fixed_step(
     order.  A ray is in bounds while ``(pos >> 16) < bounds - 1`` on every
     axis; the translucency index is clamped only for rays that are not
     (their brightness is not updated)."""
-    pos, direction, remaining, brightness, alive = state
+    pos, direction, remaining, brightness, alive, _ = state
     dim = pos.shape[-1]
     cell = pos >> 16
     cond = alive & (remaining > 0) & (cell < bounds_m1).all(-1)
@@ -164,7 +177,8 @@ def _run_while(step_fn, state: MarchState, budget: int, chunk_steps: int, remat:
     sync per chunk).  ``remat``: autograd saves only each chunk's start
     state and recomputes the chunk's steps in the backward.  A dead ray's
     step is the identity, so the end state does not depend on how many
-    chunks run after the last ray stopped."""
+    chunks run after the last ray stopped.  An optional state field that
+    is ``None`` passes through the chunks (and ``checkpoint``) as ``None``."""
     chunk_steps = max(1, min(chunk_steps, budget))
 
     def chunk(*s):
@@ -188,16 +202,31 @@ def path_steps(budget: int, chunk_steps: int) -> int:
     return -(-budget // chunk_steps) * chunk_steps
 
 
-def _run_record(step_fn, state: MarchState, steps: int):
-    """Run exactly ``steps`` steps with no early exit and record the
-    position before the first and after every step: (end state, (N, 1 +
-    steps, dim) path).  A dead ray's step is the identity, so the path is
-    back-filled with the end position."""
-    path = [state.pos]
-    for _ in range(steps):
-        state = step_fn(state)
-        path.append(state.pos)
-    return state, torch.stack(path, dim=1)
+def _run_record(step_fn, state: MarchState, budget: int, chunk_steps: int, remat: bool = False):
+    """Run exactly ``path_steps(budget, chunk_steps)`` steps, in chunks of
+    ``chunk_steps`` with no early exit, and record the position before the
+    first and after every step: (end state, (N, 1 + steps, dim) path).  A
+    dead ray's step is the identity, so the path is back-filled with the end
+    position.  ``remat``: each chunk runs under ``checkpoint``, which keeps
+    its start state and returns its rows of the path, so that autograd's
+    memory is one state per chunk plus one chunk's steps and the path
+    carries gradients, as the JAX package's scan output does."""
+    chunk_steps = max(1, min(chunk_steps, budget))
+
+    def chunk(*s):
+        s = MarchState(*s)
+        rows = []
+        for _ in range(chunk_steps):
+            s = step_fn(s)
+            rows.append(s.pos)
+        return (*s, torch.stack(rows, dim=1))
+
+    path = [state.pos[:, None]]
+    for _ in range(-(-budget // chunk_steps)):
+        out = checkpoint(chunk, *state, use_reentrant=False) if remat else chunk(*state)
+        state = MarchState(*out[:-1])
+        path.append(out[-1])
+    return state, torch.cat(path, dim=1)
 
 
 def march_float_state(
@@ -212,10 +241,14 @@ def march_float_state(
     minimum_brightness: int = 0,
     chunk_steps: int = 256,
     differentiable: bool = False,
-) -> MarchState:
-    """The march's raw end state (see ``march_float``)."""
+    record_path: bool = False,
+    soft_opacity_tau: Optional[float] = None,
+):
+    """The march's raw end state and its recorded path, or ``None`` (see
+    ``march_float``)."""
     device = packed.device
     n, dim = start_position.shape
+    soft = soft_opacity_tau is not None and soft_opacity_tau > 0.0
     state = MarchState(
         pos=start_position.to(torch.float32),
         direction=start_direction.to(torch.float32),
@@ -223,6 +256,7 @@ def march_float_state(
         remaining=torch.full((n,), budget - 1, dtype=torch.int64, device=device),
         brightness=torch.full((n,), BRIGHTNESS_MAX, dtype=torch.int64, device=device),
         alive=torch.ones((n,), dtype=torch.bool, device=device),
+        trans=torch.ones((n,), dtype=torch.float32, device=device) if soft else None,
     )
 
     def vec(v):
@@ -230,13 +264,16 @@ def march_float_state(
 
     bounds_m1, strides_t = _grid(packed)
     bend, step = vec(bend_scale), vec(step_scale)
+    soft_tau = float(soft_opacity_tau) if soft else 0.0
 
     def step_fn(s):
         return _float_step(
-            s, packed, translucency, bounds_m1, strides_t, bend, step, minimum_brightness,
+            s, packed, translucency, bounds_m1, strides_t, bend, step, minimum_brightness, soft_tau,
         )
 
-    return _run_while(step_fn, state, budget, chunk_steps, remat=differentiable)
+    if record_path:
+        return _run_record(step_fn, state, budget, chunk_steps, remat=differentiable)
+    return _run_while(step_fn, state, budget, chunk_steps, remat=differentiable), None
 
 
 def march_float(
@@ -264,17 +301,24 @@ def march_float(
     applied by the caller).  ``differentiable``: march in checkpointed
     chunks of ``chunk_steps`` steps, so that autograd's memory is one state
     per chunk plus one chunk's steps.  Termination is straight-through.
+    ``record_path``: run ``path_steps(budget, chunk_steps)`` steps with no
+    early exit and return the (N, 1 + steps, dim) float32 path of
+    positions, the start first and back-filled with the end position (the
+    JAX package's ``_run_scan``); differentiable when asked.
+    ``soft_opacity_tau`` > 0: carry the soft-termination transmittance
+    (``TraceResult.transmittance``, (N,) float32), differentiable with
+    respect to the opacity channel; τ is in opacity-channel units.  The JAX
+    package's CuPy-variant options (``opaque_when_positive=False``,
+    ``nearest``, ``per_ray_budget``, ``dir_prescale``) have no caller on
+    the ported path and are left out.
     """
-    if record_path:
-        raise NotImplementedError("record_path is not ported yet (queue 1, item 4 of ROADMAP.md)")
-    if soft_opacity_tau is not None:
-        raise NotImplementedError("soft_opacity_tau is not ported yet (queue 1, item 4 of ROADMAP.md)")
-    state = march_float_state(
+    state, path = march_float_state(
         packed, translucency, start_position, start_direction, budget,
-        bend_scale=bend_scale, step_scale=step_scale,
-        minimum_brightness=minimum_brightness, chunk_steps=chunk_steps, differentiable=differentiable,
+        bend_scale=bend_scale, step_scale=step_scale, minimum_brightness=minimum_brightness,
+        chunk_steps=chunk_steps, differentiable=differentiable, record_path=record_path,
+        soft_opacity_tau=soft_opacity_tau,
     )
-    return _finish(state, budget)
+    return _finish(state, budget, path=path)
 
 
 def march_fixed(
@@ -317,7 +361,7 @@ def march_fixed(
         return _fixed_step(s, packed, translucency, bounds_m1, strides_t, inv, minimum_brightness)
 
     if record_path:
-        state, path = _run_record(step_fn, state, path_steps(budget, chunk_steps))
+        state, path = _run_record(step_fn, state, budget, chunk_steps)
     else:
         state, path = _run_while(step_fn, state, budget, chunk_steps), None
     return _finish(state, budget, DIR_PRESCALE_FLOAT, path)
@@ -334,4 +378,5 @@ def _finish(state: MarchState, budget: int, dir_prescale: float = 1.0, path=None
         end_iteration=budget - end_remaining,
         remaining_light=state.brightness,
         path=path,
+        transmittance=state.trans,
     )

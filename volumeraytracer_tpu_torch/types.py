@@ -67,8 +67,11 @@ class TraceResult:
     end_direction: torch.Tensor  # (N, dim) float32, or int16 8.8 (dir_fixed=True)
     end_iteration: torch.Tensor  # (N,) int64 holding uint32 values
     remaining_light: torch.Tensor  # (N,) int64 holding uint32 values
-    path: Optional[torch.Tensor] = None  # (N, 1 + steps, dim) int64 16.16 (mode="fixed")
+    #: (N, 1 + steps, dim): int64 16.16 (mode="fixed") or float32 voxels
+    #: (mode="float"; (N, budget + 1, 3) through the float kernels)
+    path: Optional[torch.Tensor] = None
     windows_used: Optional[torch.Tensor] = None
+    #: (N,) float32 soft-termination transmittance (``soft_opacity_tau``)
     transmittance: Optional[torch.Tensor] = None
 
 
