@@ -90,7 +90,35 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      kernel launched, transmittance and its gradient equal to the CPU's
      within 1e-5, and kernel="cuda" raising; (e) times of the recording K2
      and K2 in turns, the plain recorded march and the recorded trace end
-     to end.
+     to end;
+ 17. the models, which run no CUDA kernel of the port (the JAX package runs
+     them in XLA): (a) kernel="native", the host C++ library that the port
+     builds with g++ into volumeraytracer_tpu_torch/_build/native (its build
+     time), on the phase 5 bundle at 256³, budget 512, against
+     kernel="auto" at tests/test_native.py:85-88's tolerances with no kernel
+     launched, timed at the default Options.max_cpu and at 1, and
+     NativeScene and the native harmonic solve against the port's on small
+     grids; (b) the camera forward at the width of BASELINE config 3, one
+     1024×1024 camera through the 256³ lens, budget 512, σ and a
+     three-channel emission (tests/test_render_image.py:21-32's blob with its
+     optical depths scaled to the grid), background (0.1, 0.05, 0): the
+     transmittance in [0, 1] with min < 0.5 and max > 0.85, the
+     emission-off image equal to T, channel 1 = 0.5 · channel 0 and channel
+     2 = 0, four row tiles through render_rays_image equal to the whole, no
+     kernel launched, and at config 1's size (64³, 128×128) the card against
+     the port's CPU run; (c) the camera gradient at that width: image_loss's
+     gradient to ior, σ and the emission finite and nonzero, then three Adam
+     steps of fit_field_image with falling losses, the step's time and peak
+     memory (checkpointed chunks of 32 steps); (d) solve_harmonic: 200 sweeps
+     at 256³ and their time, and a 64³ run that stops on its error after the
+     same sweep as on the CPU, within 1e-5 of it and 1e-4 of the native
+     float64 solve; (e) OpticalVolume: tests/test_optical_volume.py's ramp
+     at 256 voxels along x (|v| doubles and halves, rtol 1e-2), per-ray
+     budgets, the opaque wall, the card against the CPU, and the time of a
+     trace of the bench bundle through the 256³ lens; (f) fit_field with
+     checkpoints, 4 steps then a resume to 8 equal to a straight 8-step run,
+     and a save_ray_state / load_ray_state round trip between two legs of a
+     trace.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
@@ -246,6 +274,329 @@ def ior_at(ior, pos_fix):
         w = np.prod([frac[:, a] if b else 1.0 - frac[:, a] for a, b in enumerate(bits)], axis=0)
         out += w * ior[tuple(base[:, a] + bits[a] for a in range(3))].astype(np.float64)
     return out
+
+
+def blob_field(n, depth=22.0):
+    """tests/test_render_image.py:21-32's blob, exp(−8(x² + (y − 0.3)² +
+    z²)) on the packed grid of n³ voxels, scaled by depth / n so that its
+    optical depths are those of the test's 22³ grid."""
+    ax = np.linspace(-1.0, 1.0, n, dtype=np.float32)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    return (np.exp(-8.0 * (x * x + (y - 0.3) ** 2 + z * z)) * np.float32(depth / n)).astype(np.float32)
+
+
+def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> None:
+    """The models on the card (see the module doc, phase 17); ``res`` is
+    phase 5's kernel="auto" trace of the bench bundle ``pos``, ``dirs``
+    through ``scene`` (the 256³ lens ``lens``); the camera has ``width``²
+    pixels."""
+    import copy
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from volumeraytracer_tpu_torch import (
+        OpticalVolume, PinholeCamera, RaytraceScene, TraceResult, endpoint_render, fit_field, fit_field_image,
+        image_loss, load_ray_state, native, render_image, render_rays_image, save_ray_state, solve_harmonic,
+    )
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.ops.fields import build_packed_field
+
+    sync = torch.cuda.synchronize
+    close = torch.testing.assert_close
+
+    def no_launch(what):
+        if any(_build.launches.values()):
+            raise AssertionError(f"{what} launched kernels: {dict(_build.launches)}")
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    # 17a. kernel="native": the port's own g++ build, the full-size trace
+    n_rays = pos.shape[0]
+    fresh = not any(native.library_path(serial).exists() for serial in (False, True))
+    t0 = time.perf_counter()
+    native.load()
+    print(f"phase 17a native build: {time.perf_counter() - t0:.2f} s ({'built' if fresh else 'already built'}: "
+          f"{native.loaded_path.relative_to(Path(native.__file__).resolve().parents[1])}, "
+          f"{'without OpenMP: no compiler here has it' if native.loaded_path.stem.endswith('_serial') else 'OpenMP'})")
+    trace = dict(invscale=[INV] * 3, iterations=BUDGET, mode="float")
+    native_s = {}
+    for max_cpu in (scene.options.max_cpu, 1):
+        sc = copy.copy(scene)
+        sc.options = dataclasses.replace(scene.options, max_cpu=max_cpu)
+        sync()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        nres = sc.trace_rays(pos, dirs, kernel="native", **trace)
+        sync()
+        native_s[max_cpu] = time.perf_counter() - t0
+        no_launch("kernel='native'")
+        if nres.end_position.device != pos.device:
+            raise AssertionError(f"kernel='native' returned tensors on {nres.end_position.device}")
+        close(nres.end_position, res.end_position, rtol=1e-4, atol=2e-3)
+        close(nres.end_direction, res.end_direction, rtol=1e-4, atol=2e-3)
+        close(nres.end_iteration, res.end_iteration, rtol=0, atol=0)
+    pos_err = (nres.end_position - res.end_position).abs().max().item()
+    print(f"phase 17a native trace {lens.shape[0]}^3, {n_rays} rays, budget {BUDGET}: no kernel launched; vs "
+          f"kernel='auto' "
+          f"iterations equal, pos max err {pos_err:.3g}, bit-equal positions "
+          f"{bool(torch.equal(nres.end_position, res.end_position))}")
+    for max_cpu, s in native_s.items():
+        print(f"phase 17a time native trace_rays, Options.max_cpu={max_cpu} (host clock, one run): {s * 1e3:.1f} ms, "
+              f"{n_rays / s / 1e6:.4f} Mrays/s {card}")
+    ior_s = (1.0 + 0.3 * np.random.default_rng(3).random((24, 12, 12))).astype(np.float32)
+    p_s = np.array([[2.0, 5.0, 5.0], [1.5, 7.0, 4.0]], np.float32)
+    d_s = np.array([[16.0, 0.5, -0.25], [16.0, 0.0, 0.0]], np.float32)
+    ref_s = RaytraceScene(ior_s, device=dev).trace_rays(t(p_s), t(d_s), invscale=[INV] * 3, iterations=2000,
+                                                        mode="float")
+    ns = native.NativeScene(ior_s)
+    npos, ndir, nit = ns.trace_rays(p_s, d_s, budget=2000, invscale=[INV] * 3)
+    ns.close()
+    close(t(npos), ref_s.end_position, rtol=1e-4, atol=2e-3)
+    close(t(ndir), ref_s.end_direction, rtol=1e-4, atol=2e-3)
+    close(t(nit, np.int64), ref_s.end_iteration, rtol=0, atol=0)
+    vals = np.ones((12, 12))
+    fixed = np.zeros((12, 12), bool)
+    vals[0], vals[-1], fixed[0], fixed[-1] = 1.0, 3.0, True, True
+    hv, hit = native.solve_harmonic(vals, is_fixed=fixed, max_iterations=3000, max_error=0.0)
+    href = solve_harmonic(t(vals), None, t(fixed, bool), max_iterations=3000, max_error=0.0)
+    close(t(hv), href, rtol=0, atol=1e-4)
+    print(f"phase 17a NativeScene 24x12x12 vs the port's trace on the card: iterations {nit.tolist()} equal; native "
+          f"harmonic 12x12, {hit} sweeps, max diff vs the port's {np.abs(hv - href.cpu().numpy()).max():.3g}")
+
+    # 17b. the camera forward at full width: one 1024x1024 camera of config 3
+    n = lens.shape[0]
+    ior = t(lens)
+    packed = scene.packed
+    blob = blob_field(n - 2)
+    sigma, e = t(0.3 * blob), t(2.0 * blob)
+    emission = torch.stack([e, 0.5 * e, 0.0 * e], dim=-1)
+    bg = (0.1, 0.05, 0.0)
+    cam = PinholeCamera(origin=(1.5, n / 2, n / 2), forward=(1.0, 0.0, 0.0), up=(0.0, 0.0, 1.0), width=width,
+                        height=width, fov=0.45, speed=0.5)
+    rkw = dict(budget=BUDGET, invscale=INV, sigma=sigma, emission=emission, background=bg)
+    with torch.no_grad():
+        sync()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        out = render_image(packed, ior, cam, **rkw)
+        sync()
+        render_first_s = time.perf_counter() - t0
+        no_launch("render_image")
+        img, trans = out["image"], out["transmittance"]
+        if tuple(img.shape) != (width, width, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"image shape {tuple(img.shape)} or non-finite values")
+        if not (bool(((trans >= 0) & (trans <= 1)).all()) and trans.min() < 0.5 and trans.max() > 0.85):
+            raise AssertionError(f"transmittance out of [0, 1] or min {trans.min().item()} / max "
+                                 f"{trans.max().item()} not < 0.5 / > 0.85")
+        close(img[..., 1], 0.5 * img[..., 0], rtol=1e-5, atol=1e-7)
+        if not bool((img[..., 2] == 0).all()):
+            raise AssertionError("channel 2 (no emission, no background) is not 0")
+        out0 = render_image(packed, ior, cam, budget=BUDGET, invscale=INV, sigma=sigma, emission=None, background=None)
+        if not (torch.equal(out0["image"], out0["transmittance"]) and torch.equal(out0["transmittance"], trans)):
+            raise AssertionError("the emission-off image is not the transmittance")
+        cpos, cdirs = cam.rays(device=dev)
+        tiles = [render_rays_image(packed, ior, p, d, **rkw)["image"] for p, d in zip(cpos.chunk(4), cdirs.chunk(4))]
+        close(torch.cat(tiles), img.reshape(-1, 3), rtol=2e-6, atol=1e-6)
+        cam_steps = int((out["end_iteration"] - 1).clamp(min=0).sum())
+        exhausted = int((out["end_iteration"] == BUDGET).sum())
+        del out0, tiles
+        render_ms = timed(lambda: render_image(packed, ior, cam, **rkw), 2)
+        print(f"phase 17b camera {width}x{width} through {n}^3, budget {BUDGET}: no kernel launched, first call "
+              f"{render_first_s:.3f} s; T in [{trans.min().item():.4g}, {trans.max().item():.4g}], image max "
+              f"{img.max().item():.4g}; emission-off image = T; channel 1 = 0.5 channel 0, channel 2 = 0; 4 row "
+              f"tiles equal to the whole; {cam_steps} steps, {exhausted} rays exhausted the budget")
+        print(f"phase 17b time render_image {width}x{width} (σ, 3-channel emission): {render_ms:.4f} ms, "
+              f"{width * width / render_ms / 1e3:.4f} Mrays/s, {cam_steps / render_ms / 1e6:.4f} Gsteps/s {card}")
+
+        # config 1's size: the card against the CPU
+        m = 64
+        lens64 = lens_field(m)
+        blob64 = blob_field(m - 2)
+        cam64 = PinholeCamera(origin=(1.5, m / 2, m / 2), forward=(1.0, 0.0, 0.0), up=(0.0, 0.0, 1.0), width=128,
+                              height=128, fov=0.45, speed=0.5)
+        outs = {}
+        for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            io = torch.from_numpy(lens64).to(where)
+            s64, e64 = torch.from_numpy(0.3 * blob64).to(where), torch.from_numpy(2.0 * blob64).to(where)
+            outs[key] = render_image(build_packed_field(io), io, cam64, budget=BUDGET, invscale=INV, sigma=s64,
+                                            emission=torch.stack([e64, 0.5 * e64, 0.0 * e64], -1), background=bg)
+        got, ref = ({k: v.cpu() for k, v in outs[w].items()} for w in ("card", "cpu"))
+        close(got["image"], ref["image"], rtol=1e-5, atol=1e-6)
+        close(got["transmittance"], ref["transmittance"], rtol=1e-5, atol=1e-6)
+        close(got["end_position"], ref["end_position"], rtol=0, atol=1e-4)
+        close(got["end_iteration"], ref["end_iteration"], rtol=0, atol=0)
+        print(f"phase 17b camera 128x128 through 64^3 (config 1): card vs CPU image max err "
+              f"{(got['image'] - ref['image']).abs().max().item():.3g}, T "
+              f"{(got['transmittance'] - ref['transmittance']).abs().max().item():.3g}, end pos "
+              f"{(got['end_position'] - ref['end_position']).abs().max().item():.3g}, iterations equal")
+        del outs, got, ref
+
+        # 17c. the camera gradient at full width, and image fitting
+        ax = np.linspace(-1.0, 1.0, n, dtype=np.float32)
+        xx, yy, zz = np.meshgrid(ax, ax, ax, indexing="ij")
+        true_ior = t(1.0 + 0.55 * np.exp(-4.0 * (xx * xx + yy * yy + zz * zz)))
+        del xx, yy, zz
+        target = render_image(build_packed_field(true_ior), true_ior, cam, **rkw)["image"]
+        del true_ior, out, img, trans
+    leaves = [x.clone().requires_grad_(True) for x in (ior, sigma, emission)]
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    loss = image_loss(leaves[0], cam, target, budget=BUDGET, invscale=INV, sigma=leaves[1], emission=leaves[2],
+                      background=bg, chunk_steps=32)
+    loss.backward()
+    sync()
+    grad_s = time.perf_counter() - t0
+    grad_peak = torch.cuda.max_memory_allocated()
+    no_launch("image_loss's gradient")
+    for name, leaf in zip(("ior", "sigma", "emission"), leaves):
+        g = leaf.grad
+        if not (bool(torch.isfinite(g).all()) and g.abs().max().item() > 0):
+            raise AssertionError(f"d(image loss)/d{name} is not finite and nonzero")
+    print(f"phase 17c image_loss gradient {width}x{width} through {n}^3: loss {loss.item():.6g}, max |d/d ior| "
+          f"{leaves[0].grad.abs().max().item():.4g}, |d/d sigma| {leaves[1].grad.abs().max().item():.4g}, "
+          f"|d/d emission| {leaves[2].grad.abs().max().item():.4g}, all finite; no kernel launched; value+grad "
+          f"{grad_s:.3f} s, peak memory {grad_peak / 2**30:.2f} GiB (chunks of 32 steps) {card}")
+    del leaves, loss
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    fit = fit_field_image(lens, cam, target, budget=BUDGET, invscale=INV, sigma=sigma, emission=emission,
+                          background=bg, chunk_steps=32, steps=3, learning_rate=1e-3, device=dev)
+    sync()
+    fit_s = time.perf_counter() - t0
+    fit_peak = torch.cuda.max_memory_allocated()
+    if not (np.isfinite(fit.losses).all() and fit.losses[-1] < fit.losses[0]):
+        raise AssertionError(f"fit_field_image losses not finite and falling: {fit.losses.tolist()}")
+    print(f"phase 17c fit_field_image {width}x{width} through {n}^3, 3 Adam steps: losses {fit.losses.tolist()}")
+    print(f"phase 17c time fit_field_image step (render + gradient + Adam, host clock over 3 steps): "
+          f"{fit_s / 3 * 1e3:.1f} ms, peak memory {fit_peak / 2**30:.2f} GiB {card}")
+    del fit, target
+
+    # 17d. the harmonic solver: 200 sweeps at 256^3, a converging 64^3 run
+    vals = torch.zeros((n, n, n), device=dev)
+    vals[-1] = 1.0
+    fixed = torch.zeros((n, n, n), dtype=torch.bool, device=dev)
+    fixed[0] = fixed[-1] = True
+    start, stop = events()
+    start.record()
+    field, info = solve_harmonic(vals, None, fixed, max_iterations=200, max_error=0.0, return_info=True)
+    stop.record()
+    sync()
+    sweeps_ms = start.elapsed_time(stop)
+    if info["iterations"] != 200 or not bool(((field >= 0) & (field <= 1)).all()):
+        raise AssertionError(f"harmonic 256^3: {info} or values outside [0, 1]")
+    print(f"phase 17d harmonic {n}^3, Dirichlet x faces: {info['iterations']} sweeps, error {info['error']:.6g}, "
+          f"field at the centre {field[n // 2, n // 2, n // 2].item():.6g}")
+    print(f"phase 17d time solve_harmonic sweep at {n}^3 (200 sweeps, one host sync each): {sweeps_ms / 200:.4f} ms "
+          f"{card}")
+    del vals, fixed, field
+    v64 = np.random.default_rng(17).normal(size=(64, 64, 64)).astype(np.float32)
+    f64 = np.zeros(v64.shape, bool)
+    for a in range(3):
+        for end in (0, -1):
+            idx = [slice(None)] * 3
+            idx[a] = end
+            f64[tuple(idx)], v64[tuple(idx)] = True, 0.0
+    (hg, ig), (hc, ic) = (solve_harmonic(v64, None, f64, max_iterations=5000, max_error=500.0, return_info=True,
+                                         device=w) for w in (dev, "cpu"))
+    if ig["iterations"] != ic["iterations"] or ig["iterations"] >= 5000:
+        raise AssertionError(f"harmonic 64^3: {ig} on the card, {ic} on the CPU")
+    close(hg.cpu(), hc, rtol=0, atol=1e-5)
+    hn, nit = native.solve_harmonic(v64, None, f64, max_iterations=ig["iterations"], max_error=0.0)
+    close(hg.cpu().double(), torch.from_numpy(hn), rtol=0, atol=1e-4)
+    print(f"phase 17d harmonic 64^3 converging (max_error 500): {ig['iterations']} sweeps on the card and the CPU, "
+          f"max diff {(hg.cpu() - hc).abs().max().item():.3g}; vs the native float64 solve "
+          f"{np.abs(hg.cpu().numpy() - hn).max():.3g}")
+
+    # 17e. OpticalVolume: the ramp at 256 voxels along x, budgets, a wall
+    shape = (256, 10, 10)
+    grid = np.meshgrid(*[np.linspace(0, 1, s) for s in shape], indexing="ij")
+    ramp = np.clip(grid[0] * 3, 1, 2).astype(np.float32)
+    vol = OpticalVolume(ramp, np.ones(shape, np.float32), [1.0] * 3, device=dev)
+    vp = t([[5.0, 5.0, 5.0], [250.0, 5.0, 5.0]])
+    vd = t([[10.0, 0.0, 0.0], [-10.0, 0.0, 0.0]])
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        vp, vd, _ = vol.trace_rays(vp, vd, np.full((2,), 10, np.uint32), np.asarray(shape, np.float32))
+    sync()
+    loop_s = time.perf_counter() - t0
+    norm = vd.norm(dim=-1).cpu().numpy()
+    np.testing.assert_allclose([norm[0] / 2, norm[1] * 2], [10.0, 10.0], rtol=1e-2)
+    wall = np.ones((64, 8), np.float32)
+    wall[40:] = -1.0
+    vol2 = OpticalVolume(np.ones((64, 8), np.float32), wall, 1.0, device=dev)
+    bp, _, brem = vol2.trace_rays(t([[2.0, 4.0]] * 3), t([[1.0, 0.0]] * 3), np.array([3, 10_000, 0], np.uint32))
+    if not (abs(bp[0, 0].item() - 5.0) < 1e-5 and 38.0 < bp[1, 0].item() < 41.0 and bp[2, 0].item() == 2.0
+            and brem.tolist()[0] == 0 and brem.tolist()[2] == 0 and 0 < brem.tolist()[1] < 10_000):
+        raise AssertionError(f"per-ray budgets / opaque wall: end x {bp[:, 0].tolist()}, remaining {brem.tolist()}")
+    small = np.clip(np.meshgrid(np.linspace(0, 1, 100), np.ones(10), np.ones(10), indexing="ij")[0] * 3, 1, 2)
+    legs = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        v = OpticalVolume(small.astype(np.float32), None, 1.0, device=where)
+        lp = torch.tensor([[5.0, 5.0, 5.0], [95.0, 5.0, 5.0]], device=where)
+        ld = torch.tensor([[10.0, 0.0, 0.0], [-10.0, 0.0, 0.0]], device=where)
+        for _ in range(20):
+            lp, ld, _ = v.trace_rays(lp, ld, 100)
+        legs[key] = (lp.cpu(), ld.cpu())
+    close(legs["card"][0], legs["cpu"][0], rtol=1e-5, atol=1e-4)
+    close(legs["card"][1], legs["cpu"][1], rtol=1e-5, atol=1e-4)
+    lvol = OpticalVolume(lens, None, 1.0, device=dev)
+    ldirs = torch.zeros_like(dirs)
+    ldirs[:, 0] = 1.0
+    ov_res = lvol.trace_rays(pos, ldirs, BUDGET)
+    ov_steps = int((BUDGET - ov_res[2]).sum())
+    ov_ms = timed(lambda: lvol.trace_rays(pos, ldirs, BUDGET), 2)
+    print(f"phase 17e OpticalVolume ramp 256x10x10: |v| ratios {norm[0] / 10:.5f} and {norm[1] / 10:.5f} after 1000 "
+          f"calls of 10 steps ({loop_s:.2f} s); per-ray budgets and the opaque wall: end x {bp[:, 0].tolist()}, "
+          f"remaining {brem.tolist()}; card vs CPU (100x10x10, 20 legs of 100) max pos diff "
+          f"{(legs['card'][0] - legs['cpu'][0]).abs().max().item():.3g}")
+    print(f"phase 17e time OpticalVolume.trace_rays {n}^3 lens, {n_rays} rays, budget {BUDGET}: {ov_ms:.4f} ms, "
+          f"{n_rays / ov_ms / 1e3:.4f} Mrays/s, {ov_steps / ov_ms / 1e6:.4f} Gsteps/s {card}")
+    del lvol, ov_res
+
+    # 17f. fit_field's checkpoints on the card, and the ray-state snapshot
+    bar = np.ones((24, 8, 8), np.float32)
+    for i in range(2, 22):
+        bar[i] = 1.0 + 0.5 * (i - 2) / 20
+    rng = np.random.default_rng(1)
+    fpos = np.stack([np.full(8, 1.5), rng.uniform(2.0, 5.0, 8), rng.uniform(2.0, 5.0, 8)], -1).astype(np.float32)
+    fdirs = np.tile(np.array([[16.0, 0.0, 0.0]], np.float32), (8, 1))
+    with torch.no_grad():
+        ftarget, _ = endpoint_render(t(bar), t(fpos), t(fdirs), 32, INV, 16)
+    fkw = dict(budget=32, chunk_steps=16, learning_rate=1e-2, device=dev)
+    full = fit_field(bar * 1.1, fpos, fdirs, ftarget, steps=8, **fkw)
+    build_dir = Path(_build.BUILD_DIR)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as ckpt:
+        fit_field(bar * 1.1, fpos, fdirs, ftarget, steps=4, checkpoint_dir=ckpt, checkpoint_every=1, **fkw)
+        resumed = fit_field(bar * 1.1, fpos, fdirs, ftarget, steps=8, checkpoint_dir=ckpt, checkpoint_every=1, **fkw)
+        kept = sorted(p.name for p in Path(ckpt).iterdir())
+    if resumed.step != 7 or kept != ["step_00000006.pt", "step_00000007.pt"]:
+        raise AssertionError(f"resumed fit_field: step {resumed.step}, checkpoints {kept}")
+    np.testing.assert_allclose(resumed.ior, full.ior, rtol=1e-5, atol=1e-6)
+    rvol = OpticalVolume(bar, None, 1.0, device=dev)
+    rp, rd = t([[3.0, 4.0, 4.0], [5.0, 3.0, 3.0]]), t([[10.0, 0.0, 0.0], [10.0, 1.0, 0.0]])
+    p_full, d_full, _ = rvol.trace_rays(rp, rd, 200)
+    p1, d1, rem1 = rvol.trace_rays(rp, rd, 100)
+    with tempfile.TemporaryDirectory(dir=build_dir) as snap_dir:
+        snap = Path(snap_dir) / "rays.npz"
+        save_ray_state(snap, TraceResult(end_position=p1, end_direction=d1, end_iteration=100 - rem1,
+                                         remaining_light=torch.full((2,), 0xFFFFFFFF, device=dev)),
+                       np.full(2, 100, np.uint32))
+        p2, d2, left, _ = load_ray_state(snap)
+    p3, d3, _ = rvol.trace_rays(p2, d2, left)
+    close(p3, p_full, rtol=1e-6, atol=1e-6)
+    close(d3, d_full, rtol=1e-6, atol=1e-6)
+    print(f"phase 17f fit_field on the card, 4 steps then resumed to 8: equal to a straight 8-step run (max diff "
+          f"{np.abs(resumed.ior - full.ior).max():.3g}), checkpoints kept {kept}; ray state saved and loaded between "
+          f"two legs of 100: equal to one trace of 200")
 
 
 def main() -> None:
@@ -1198,6 +1549,10 @@ def main() -> None:
                        ("path_fwd_plain", "recorded trace_rays kernel=plain, trace_path=True (one run)")):
         print(f"phase 16e time {label}: {times[key]:.4f} ms, {n_rays / times[key] / 1e3:.4f} Mrays/s, "
               f"{steps / times[key] / 1e6:.4f} Gsteps/s {card}")
+
+    # 17. the models: native, cameras, image fitting, harmonic, OpticalVolume,
+    # checkpoints (the kernels line below reads the counts saved above)
+    phase17(dev, t, timed, card, lens, scene, pos, dirs, res)
 
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,

@@ -3,6 +3,7 @@ mode="float") and endpoint_render's forward — against the JAX package, plus
 the port's API contract on the CPU."""
 
 import dataclasses
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -181,20 +182,34 @@ def test_cuda_kernel_on_cpu_tensors_raises(entry):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"mode": "fixed", "kernel": "native"}, {"mode": "float", "options": vtt.Options(write_instance=True)},
-           {"mode": "float", "kernel": "native"}],
+    "kw, raises", [({"mode": "fixed", "kernel": "native"}, ValueError),
+                   ({"mode": "float", "options": vtt.Options(write_instance=True)}, NotImplementedError),
+                   ({"mode": "float", "kernel": "native"}, None)],
     ids=["fixed", "write_instance", "native"],
 )
-def test_unported_trace_options_raise(kw):
-    """What is still unported raises: kernel="native" in either mode (the
-    fixed path itself is ported, tests/test_torch_fixed.py, and the float
-    trace_path, tests/test_torch_path.py), and Options.write_instance."""
+def test_unported_trace_options_raise(kw, raises):
+    """Options.write_instance is still unported and raises
+    NotImplementedError.  kernel="native" is ported (tests/test_torch_native.py):
+    a float trace runs on the host library and matches the JAX package's at
+    tests/test_native.py:85-88's tolerances; in fixed mode it raises
+    ValueError, where the JAX package ignores the kernel."""
     kw = dict(kw)
     options = kw.pop("options", None)
-    with pytest.raises(NotImplementedError):
-        scene = vtt.RaytraceScene(np.ones((6, 6, 6), np.float32), options=options, device="cpu")
-        scene.trace_rays([[0x20000, 0x20000, 0x20000]] if kw["mode"] == "fixed" else [[2.0, 2.0, 2.0]],
-                         [[16.0, 0.0, 0.0]], **kw)
+    ior = (1.0 + 0.3 * np.random.default_rng(3).random((6, 6, 6))).astype(np.float32)
+    pos = [[0x20000, 0x20000, 0x20000]] if kw["mode"] == "fixed" else [[2.0, 2.0, 2.0], [1.5, 3.0, 2.5]]
+    dirs = [[16.0, 0.0, 0.0]] * len(pos)
+    if raises is None:
+        if shutil.which("g++") is None:
+            pytest.skip("no g++ to build the native library")
+        got = vtt.RaytraceScene(ior, device="cpu").trace_rays(pos, dirs, invscale=[2.0] * 3, **kw)
+        ref = vrt.RaytraceScene(ior).trace_rays(pos, dirs, invscale=[2.0] * 3, mode="float", kernel="xla")
+        np.testing.assert_allclose(got.end_position.numpy(), np.asarray(ref.end_position), rtol=1e-4, atol=2e-3)
+        np.testing.assert_allclose(got.end_direction.numpy(), np.asarray(ref.end_direction), rtol=1e-4, atol=2e-3)
+        np.testing.assert_array_equal(got.end_iteration.numpy(), np.asarray(ref.end_iteration))
+        return
+    with pytest.raises(raises):
+        scene = vtt.RaytraceScene(ior, options=options, device="cpu")
+        scene.trace_rays(pos, dirs, **kw)
 
 
 def test_import_leaves_jax_out():

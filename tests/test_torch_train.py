@@ -131,9 +131,10 @@ def test_fit_field_matches_jax():
     assert got.losses[-1] < got.losses[0]
 
 
-def test_fit_field_api():
+def test_fit_field_api(tmp_path):
     """Softplus parametrisation round trip, the smoothness penalty against
-    JAX's, a custom optimizer factory, and the unported checkpoint_dir."""
+    JAX's, a custom optimizer factory, and checkpoint_dir, which resumes
+    (tests/test_torch_image_fit.py checks the resumed run's values)."""
     ior = np.random.default_rng(0).uniform(1.01, 3.0, (5, 6, 7)).astype(np.float32)
     t = torch.from_numpy(ior)
     np.testing.assert_allclose(optimize.softplus_ior(optimize.softplus_ior_inverse(t)).numpy(), ior, rtol=1e-5)
@@ -151,8 +152,11 @@ def test_fit_field_api():
         optimizer=lambda params: torch.optim.SGD(params, lr=1e-3), device="cpu",
     )
     assert np.isfinite(res.losses).all() and res.losses.shape == (2,) and bool((res.ior > 1.0).all())
-    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
-        optimize.fit_field(ior, pos, dirs, pos, budget=16, steps=1, checkpoint_dir="ckpt")
+    kw = dict(budget=16, chunk_steps=8, device="cpu", checkpoint_dir=tmp_path / "ckpt")
+    first = optimize.fit_field(ior, pos, dirs, pos, steps=1, **kw)
+    assert first.step == 0 and [p.name for p in (tmp_path / "ckpt").iterdir()] == ["step_00000000.pt"]
+    resumed = optimize.fit_field(ior, pos, dirs, pos, steps=2, **kw)
+    assert resumed.step == 1 and resumed.losses.shape == (1,)
 
 
 def test_fit_field_runs_on_the_card_by_default():

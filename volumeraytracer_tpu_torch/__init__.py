@@ -11,19 +11,30 @@ Ported so far: the fixed-point trace, the default mode —
 ``trace_path``, ``trace_rays_instance`` — through the fixed march kernel
 (F1); the float trace — ``RaytraceScene.trace_rays(mode="float")``, with
 ``trace_path`` through a second instantiation of the forward march kernel
-that records each ray's path, and soft termination
-(``soft_opacity_tau``), which runs on the plain march — and
-training — ``endpoint_render`` with ``loss.backward()``,
-``trace_rays(differentiable=True)`` and ``fit_field`` — through the
-line-table build kernel (K1), the forward march kernel (K2), the
-reverse-replay adjoint kernel (K3) and the gradient-fold kernel (K4); and
-the point-table layout of both — ``endpoint_render(layout="points")``,
-``march_pallas_diff`` — through the point-table forward march (K5) and its
-adjoint (K6).
+that records each ray's path, soft termination (``soft_opacity_tau``),
+which runs on the plain march, and ``kernel="native"``, the host C++
+library (``native.py``) — and training — ``endpoint_render`` with
+``loss.backward()``, ``trace_rays(differentiable=True)`` and ``fit_field``
+(with checkpoints) — through the line-table build kernel (K1), the forward
+march kernel (K2), the reverse-replay adjoint kernel (K3) and the
+gradient-fold kernel (K4); the point-table layout of both —
+``endpoint_render(layout="points")``, ``march_pallas_diff`` — through the
+point-table forward march (K5) and its adjoint (K6); and the models, in
+plain torch on the tensors' device: pinhole cameras with the
+emission/absorption render and image fitting (``PinholeCamera``,
+``render_image``, ``render_rays_image``, ``render_transmittance``,
+``image_loss``, ``fit_field_image``), the harmonic solver
+(``solve_harmonic``, ``solveHarmonic``), the CuPy-style ``OpticalVolume``
+and the ray-state snapshots (``save_ray_state``, ``load_ray_state``).
 """
 
 from .kernels.march_bwd import march_lines_diff, march_pallas_diff
-from .models.optimize import FitResult, endpoint_loss, fit_field
+from .models.camera import PinholeCamera, render_image, render_rays_image, render_transmittance
+from .models.harmonic import solve_harmonic, solveHarmonic
+from .models.optical_volume import OpticalVolume
+from .models.optimize import (
+    FitResult, endpoint_loss, fit_field, fit_field_image, image_loss, load_ray_state, save_ray_state,
+)
 from .models.scene import RaytraceScene, trace_rays_instance
 from .parallel.shard import endpoint_render
 from .types import Options, RayInstance, RaySceneInstance, RaytraceInstance, TraceResult
@@ -32,4 +43,6 @@ __all__ = [
     "RaytraceScene", "trace_rays_instance", "TraceResult", "Options", "RaySceneInstance", "RayInstance",
     "RaytraceInstance", "endpoint_render",
     "march_lines_diff", "march_pallas_diff", "endpoint_loss", "fit_field", "FitResult",
+    "OpticalVolume", "PinholeCamera", "render_image", "render_rays_image", "render_transmittance",
+    "image_loss", "fit_field_image", "save_ray_state", "load_ray_state", "solve_harmonic", "solveHarmonic",
 ]

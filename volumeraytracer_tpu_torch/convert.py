@@ -8,10 +8,13 @@ so that both packages compute from identical data:
   * floating arrays (``ior``, ``packed``, the line table, ray positions and
     directions) → float32;
   * other integer and bool arrays keep their type.
+
+``camera_from_jax`` builds the port's ``PinholeCamera`` from a JAX one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -29,3 +32,11 @@ def state_from_jax(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
             arr = arr.astype(np.float32)
         out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
     return out
+
+
+def camera_from_jax(jax_camera):
+    """The port's ``PinholeCamera`` with the fields of a JAX package one (any
+    dataclass with the same fields)."""
+    from .models.camera import PinholeCamera
+
+    return PinholeCamera(**dataclasses.asdict(jax_camera))

@@ -21,7 +21,10 @@ the recording K2 for a path) and the plain torch march for 2-D;
 On the CPU ``"auto"`` and ``"plain"`` run the plain march and ``"cuda"``
 raises.  Soft termination runs on the plain march only, as in the JAX
 package: ``"auto"`` sends it there, decided by the arguments before
-anything launches, and ``"cuda"`` with it raises.
+anything launches, and ``"cuda"`` with it raises.  ``"native"`` runs a
+plain 3-D float trace (no path, gradient, translucency or soft
+termination) on the host's C++ library (``native.py``), with
+``Options.max_cpu`` threads, and raises in fixed mode.
 ``Options.minimum_device_rays`` is not consulted.  With
 ``differentiable=True`` the float trace's end positions and directions
 carry gradients to the start positions and directions (and to ``ior`` when
@@ -38,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import native as native_lib
 from ..kernels import march_fixed as fixed_kernel
 from ..kernels.march_bwd import march_lines_diff
 from ..kernels.march_lines import march_lines, use_kernels
@@ -45,7 +49,8 @@ from ..ops import march as march_ops
 from ..ops.fields import build_packed_field, cropped_translucency
 from ..ops.interp import interp_fixed, interp_linear
 from ..types import (
-    DIR_UNIT_FIXED, FIX_HALF, FIX_ONE, UINT32_MASK, Options, RayInstance, RaySceneInstance, TraceResult,
+    BRIGHTNESS_MAX, DIR_UNIT_FIXED, FIX_HALF, FIX_ONE, UINT32_MASK, Options, RayInstance, RaySceneInstance,
+    TraceResult,
 )
 
 
@@ -159,18 +164,19 @@ class RaytraceScene:
         """
         if mode not in ("fixed", "float"):
             raise ValueError(f"unknown mode {mode!r}")
-        if kernel == "native":
-            raise NotImplementedError("kernel='native' is not ported yet (queue 1, item 7 of ROADMAP.md)")
+        native = kernel == "native"
+        if native and mode != "float":
+            raise ValueError("kernel='native' runs the float march only; use mode='float'")
         if soft_opacity_tau is not None:
             if mode != "float":
                 raise ValueError("soft_opacity_tau requires mode='float'")
-            if kernel == "cuda":
+            if kernel in ("cuda", "native"):
                 raise ValueError("soft_opacity_tau runs on the plain march only (the kernels' termination is "
                                  "straight-through); use kernel='auto' or 'plain'")
             kernel = "plain"
         if mode == "float" and dir_fixed:
             raise ValueError("dir_fixed requires mode='fixed'")
-        use_cuda = use_kernels(kernel, self.device, self.dim)
+        use_cuda = not native and use_kernels(kernel, self.device, self.dim)
         sp_shape, sd_shape = np.shape(start_position), np.shape(start_direction)
         if sp_shape[-1:] != (self.dim,) or sd_shape[-1:] != (self.dim,):
             raise ValueError(
@@ -200,6 +206,9 @@ class RaytraceScene:
         pos = as_tensor(start_position, torch.float32, self.device).reshape(-1, self.dim)
         dirs = as_tensor(start_direction, torch.float32, self.device).reshape(-1, self.dim)
 
+        if native and (self.dim != 3 or trace_path or differentiable or self.translucency_cropped is not None):
+            raise ValueError("kernel='native' supports only plain 3-D float marches "
+                             "(no trace_path, differentiable, translucency or soft_opacity_tau)")
         # −0.5, sample n there for |v| = n, −0.5 again: net −1 voxel into the
         # cropped frame of the packed field
         if normalize_length:
@@ -208,6 +217,8 @@ class RaytraceScene:
             p = p - 0.5
         else:
             p = pos - 1.0
+        if native:
+            return self._trace_float_native(p, dirs, bend, step, iterations)
         if use_cuda:
             res = (march_lines_diff if differentiable else march_lines)(
                 self.packed, p, dirs, iterations, bend_scale=bend, step_scale=step,
@@ -229,6 +240,24 @@ class RaytraceScene:
             remaining_light=res.remaining_light,
             path=None if res.path is None else res.path + 1.0,
             transmittance=res.transmittance,
+        )
+
+    def _trace_float_native(self, p, dirs, bend, step, iterations) -> TraceResult:
+        """The float march through the host C++ library (``native.py``) from
+        positions ``p`` in the packed frame and |v| = n directions: the
+        packed field and the rays go to the host once, ``Options.max_cpu``
+        caps its threads, and the results come back as tensors on the
+        scene's device, with the full light (no absorption)."""
+        end_pos, end_dir, iters = native_lib.march_float(
+            to_host(self.packed), to_host(p), to_host(dirs), iterations, bend, step,
+            nthreads=int(self.options.max_cpu),
+        )
+        n = end_pos.shape[0]
+        return TraceResult(
+            end_position=torch.from_numpy(end_pos + np.float32(1.0)).to(self.device),
+            end_direction=torch.from_numpy(end_dir).to(self.device),
+            end_iteration=torch.from_numpy(iters.astype(np.int64)).to(self.device),
+            remaining_light=torch.full((n,), BRIGHTNESS_MAX, dtype=torch.int64, device=self.device),
         )
 
     def _trace_fixed(self, pos, dirs, normalize_length, *, invscale, iterations, minimum_brightness, trace_path,

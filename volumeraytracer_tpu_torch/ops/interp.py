@@ -1,10 +1,11 @@
 """Multilinear interpolation over channels-last voxel grids.
 
 Counterpart of ``volumeraytracer_tpu/ops/interp.py`` (``gather_corners``,
-``interp_linear``, ``interp_fixed``, ``_weights_product``), with the
-corners in the same order: ``itertools.product((0, 1), repeat=dim)``, axis
-0 toggling slowest.  The corner sum is taken corner by corner in that
-order, as the march kernels take it.
+``interp_linear``, ``interp_fixed``, ``interp_nearest``,
+``interpolate_host``, ``_weights_product``), with the corners in the same
+order: ``itertools.product((0, 1), repeat=dim)``, axis 0 toggling slowest.
+The corner sum is taken corner by corner in that order, as the march
+kernels take it.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import itertools
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..types import FIX_ONE
@@ -119,3 +121,47 @@ def interp_fixed(field: torch.Tensor, pos_fix: torch.Tensor) -> torch.Tensor:
     corners = torch.where(inside[..., None], flat[idx], float("nan"))
     frac = (pos_fix & 0xFFFF).to(torch.float32) / float(FIX_ONE)
     return _corner_sum(corners, frac)
+
+
+def interp_nearest(field: torch.Tensor, pos_vox: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour (point) sampling with clamp addressing, the CuPy
+    texture's semantics: the voxel ``floor(pos)``, clamped to ``[0, s-1]``
+    per axis.
+
+    field: (*spatial, C) or (*spatial,); pos_vox: (..., dim) float32.
+    Returns (..., C), or (...,) for a field without a channel axis."""
+    squeeze = field.ndim == pos_vox.shape[-1]
+    if squeeze:
+        field = field[..., None]
+    spatial = field.shape[:-1]
+    hi = torch.tensor([s - 1 for s in spatial], dtype=torch.int64, device=pos_vox.device)
+    idx = torch.minimum(torch.clamp(torch.floor(pos_vox).to(torch.int64), min=0), hi)
+    stride_t = torch.tensor(_flat_strides(spatial), dtype=torch.int64, device=pos_vox.device)
+    out = field.reshape(-1, field.shape[-1])[(idx * stride_t).sum(-1)]
+    return out[..., 0] if squeeze else out
+
+
+def interpolate_host(values: np.ndarray, bounds: Sequence[int], pos_fix: np.ndarray) -> np.ndarray:
+    """Host-side exact interpolator at uint32 16.16 positions ``pos_fix``
+    (..., dim): int64 arithmetic rounded to the closest integer (half away
+    from zero) for integer fields, float64 for float fields.  numpy only."""
+    values = np.asarray(values).reshape(tuple(bounds))
+    pos_fix = np.asarray(pos_fix, np.uint64)
+    dim = pos_fix.shape[-1]
+    base = (pos_fix >> np.uint64(16)).astype(np.int64)
+    frac = (pos_fix & np.uint64(0xFFFF)).astype(np.int64)
+    is_int = np.issubdtype(values.dtype, np.integer)
+    acc_dtype = np.int64 if is_int else np.float64
+    acc = np.zeros(pos_fix.shape[:-1], acc_dtype)
+    for bits in itertools.product((0, 1), repeat=dim):
+        w = np.ones(pos_fix.shape[:-1], acc_dtype)
+        for a, b in enumerate(bits):
+            wa = frac[..., a] if b else (FIX_ONE - frac[..., a])
+            w = w * wa.astype(acc_dtype)
+        idx = tuple(base[..., a] + bits[a] for a in range(dim))
+        acc = acc + values[idx].astype(acc_dtype) * w
+    denom = acc_dtype(FIX_ONE) ** dim
+    if is_int:
+        half = denom // 2
+        return np.where(acc >= 0, (acc + half) // denom, -((-acc + half) // denom))
+    return acc / denom

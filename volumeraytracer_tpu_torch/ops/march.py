@@ -1,10 +1,10 @@
 """Batched float and fixed-point ray marches in plain torch.
 
 Counterpart of ``volumeraytracer_tpu/ops/march.py`` (``_float_step`` with
-its soft termination, ``_fixed_step``, ``_run_while``, ``_run_scan``'s path
-recording, ``_init_remaining``, ``march_float``, ``march_fixed``,
-``_finish``).  Every ray advances in lock-step under a per-ray alive mask;
-per step:
+its soft termination and its CuPy variant, ``_fixed_step``, ``_run_while``,
+``_run_scan``'s path recording, ``_init_remaining``, ``march_float``,
+``march_fixed``, ``_finish``).  Every ray advances in lock-step under a
+per-ray alive mask; per step:
 
     brightness -= min(brightness, 0xFFFFFFFF − translucency[voxel])
     interp      = multilinear(packed, pos)                 # dim+1 channels
@@ -39,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..types import BRIGHTNESS_MAX, DIR_PRESCALE_FLOAT, FIX_ONE, STEP_CONST, UINT32_MASK, TraceResult
-from .interp import interp_fixed, interp_linear
+from .interp import interp_fixed, interp_linear, interp_nearest
 
 
 def march_scales(invscale) -> tuple:
@@ -81,15 +81,24 @@ def _float_step(
     step_scale: torch.Tensor,
     minimum_brightness: int,
     soft_tau: float = 0.0,
+    opaque_when_positive: bool = True,
+    nearest: bool = False,
 ) -> MarchState:
     """One predicated step in float voxel units.  ``soft_tau`` > 0 also
     multiplies the transmittance by the survival ``sigmoid(−opacity/τ)``
     wherever the step is evaluated (``cond``, the stopping step included);
-    the hard stop on the opacity channel stays."""
+    the hard stop on the opacity channel stays.  The CuPy variant
+    (``opaque_when_positive=False``, ``nearest=True``) stops where the
+    channel is negative (the survival's sign flips with it), samples the
+    field at the nearest voxel and keeps rays strictly inside
+    ``0 < pos < bound``."""
     pos, direction, remaining, brightness, alive, trans = state
     dim = pos.shape[-1]
     fpos = torch.floor(pos)
-    inbounds = ((pos >= 0.0) & (fpos < bounds_m1.to(torch.float32))).all(-1)
+    if nearest:
+        inbounds = ((pos > 0.0) & (pos < (bounds_m1 + 1).to(torch.float32))).all(-1)
+    else:
+        inbounds = ((pos >= 0.0) & (fpos < bounds_m1.to(torch.float32))).all(-1)
     cond = alive & (remaining > 0) & inbounds
 
     if translucency is not None:
@@ -101,12 +110,13 @@ def _float_step(
     else:
         dark = torch.zeros_like(alive)
 
-    interp = interp_linear(packed, pos)
-    opaque = interp[..., dim] > 0.0
+    interp = interp_nearest(packed, pos) if nearest else interp_linear(packed, pos)
+    opaque = interp[..., dim] > 0.0 if opaque_when_positive else interp[..., dim] < 0.0
     step_ok = cond & ~dark & ~opaque
     remaining = torch.where(step_ok, remaining - 1, remaining)
     if soft_tau > 0.0:
-        survive = torch.sigmoid(interp[..., dim] * (-1.0 / soft_tau))
+        sgn = -1.0 if opaque_when_positive else 1.0
+        survive = torch.sigmoid(interp[..., dim] * (sgn / soft_tau))
         trans = torch.where(cond, trans * survive, trans)
 
     new_dir = direction + interp[..., :dim] * bend_scale
@@ -178,20 +188,23 @@ def _run_while(step_fn, state: MarchState, budget: int, chunk_steps: int, remat:
     state and recomputes the chunk's steps in the backward.  A dead ray's
     step is the identity, so the end state does not depend on how many
     chunks run after the last ray stopped.  An optional state field that
-    is ``None`` passes through the chunks (and ``checkpoint``) as ``None``."""
+    is ``None`` passes through the chunks (and ``checkpoint``) as ``None``.
+    ``state`` may be any named tuple with an ``alive`` field, such as a
+    march state with accumulators beside it."""
     chunk_steps = max(1, min(chunk_steps, budget))
+    cls = type(state)
 
     def chunk(*s):
-        s = MarchState(*s)
+        s = cls(*s)
         for _ in range(chunk_steps):
             s = step_fn(s)
         return tuple(s)
 
     while bool(state.alive.any()):
         if remat:
-            state = MarchState(*checkpoint(chunk, *state, use_reentrant=False))
+            state = cls(*checkpoint(chunk, *state, use_reentrant=False))
         else:
-            state = MarchState(*chunk(*state))
+            state = cls(*chunk(*state))
     return state
 
 
@@ -229,6 +242,23 @@ def _run_record(step_fn, state: MarchState, budget: int, chunk_steps: int, remat
     return state, torch.cat(path, dim=1)
 
 
+def _init_remaining(n: int, budget: int, per_ray_budget, consume_start_slot: bool, device) -> torch.Tensor:
+    """Each ray's remaining budget, (N,) int64: ``budget`` or the per-ray
+    budgets (uint32 values), less the slot that the reference's C++ march
+    consumes for the start path entry (the CuPy kernel consumes none)."""
+    if per_ray_budget is None:
+        return torch.full((n,), budget - 1 if consume_start_slot else budget, dtype=torch.int64, device=device)
+    rem = _as_budget(per_ray_budget, device).expand(n).clone()
+    return torch.clamp(rem, min=1) - 1 if consume_start_slot else rem
+
+
+def _as_budget(per_ray_budget, device) -> torch.Tensor:
+    """Per-ray budgets (uint32 values, a scalar or (N,)) → int64 tensor."""
+    if isinstance(per_ray_budget, torch.Tensor):
+        return per_ray_budget.to(device=device, dtype=torch.int64) & UINT32_MASK
+    return torch.from_numpy(np.asarray(per_ray_budget, np.uint32).astype(np.int64)).to(device)
+
+
 def march_float_state(
     packed: torch.Tensor,
     translucency: Optional[torch.Tensor],
@@ -243,17 +273,23 @@ def march_float_state(
     differentiable: bool = False,
     record_path: bool = False,
     soft_opacity_tau: Optional[float] = None,
+    opaque_when_positive: bool = True,
+    nearest: bool = False,
+    dir_prescale: float = 1.0,
+    per_ray_budget=None,
 ):
     """The march's raw end state and its recorded path, or ``None`` (see
     ``march_float``)."""
     device = packed.device
     n, dim = start_position.shape
     soft = soft_opacity_tau is not None and soft_opacity_tau > 0.0
+    direction = start_direction.to(torch.float32)
+    if dir_prescale != 1.0:
+        direction = direction * float(np.float32(dir_prescale))
     state = MarchState(
         pos=start_position.to(torch.float32),
-        direction=start_direction.to(torch.float32),
-        # the reference consumes one budget slot for the start path entry
-        remaining=torch.full((n,), budget - 1, dtype=torch.int64, device=device),
+        direction=direction,
+        remaining=_init_remaining(n, budget, per_ray_budget, opaque_when_positive, device),
         brightness=torch.full((n,), BRIGHTNESS_MAX, dtype=torch.int64, device=device),
         alive=torch.ones((n,), dtype=torch.bool, device=device),
         trans=torch.ones((n,), dtype=torch.float32, device=device) if soft else None,
@@ -269,6 +305,7 @@ def march_float_state(
     def step_fn(s):
         return _float_step(
             s, packed, translucency, bounds_m1, strides_t, bend, step, minimum_brightness, soft_tau,
+            opaque_when_positive, nearest,
         )
 
     if record_path:
@@ -290,9 +327,14 @@ def march_float(
     record_path: bool = False,
     differentiable: bool = False,
     soft_opacity_tau: Optional[float] = None,
+    opaque_when_positive: bool = True,
+    nearest: bool = False,
+    dir_prescale: float = 1.0,
+    per_ray_budget=None,
 ) -> TraceResult:
-    """Float voxel-unit forward march, opaque where the interpolated
-    opacity channel is positive (the reference's C++ convention).
+    """Float voxel-unit forward march, by default opaque where the
+    interpolated opacity channel is positive (the reference's C++
+    convention).
 
     packed: (*spatial, dim+1) float32 field; translucency: optional
     (*spatial) int64 absorption grid (``cropped_translucency``);
@@ -307,18 +349,24 @@ def march_float(
     JAX package's ``_run_scan``); differentiable when asked.
     ``soft_opacity_tau`` > 0: carry the soft-termination transmittance
     (``TraceResult.transmittance``, (N,) float32), differentiable with
-    respect to the opacity channel; τ is in opacity-channel units.  The JAX
-    package's CuPy-variant options (``opaque_when_positive=False``,
-    ``nearest``, ``per_ray_budget``, ``dir_prescale``) have no caller on
-    the ported path and are left out.
+    respect to the opacity channel; τ is in opacity-channel units.
+
+    The CuPy variant (``OpticalVolume``): ``opaque_when_positive=False``
+    stops where the channel is negative and consumes no budget slot for
+    the start; ``nearest`` samples the nearest voxel within ``0 < pos <
+    bound``; ``dir_prescale`` multiplies the start direction (and divides
+    the end direction); ``per_ray_budget`` (a scalar or (N,), uint32
+    values) replaces ``budget`` per ray, which must then be at least their
+    largest, and ``end_iteration`` counts from it.
     """
     state, path = march_float_state(
         packed, translucency, start_position, start_direction, budget,
         bend_scale=bend_scale, step_scale=step_scale, minimum_brightness=minimum_brightness,
         chunk_steps=chunk_steps, differentiable=differentiable, record_path=record_path,
-        soft_opacity_tau=soft_opacity_tau,
+        soft_opacity_tau=soft_opacity_tau, opaque_when_positive=opaque_when_positive, nearest=nearest,
+        dir_prescale=dir_prescale, per_ray_budget=per_ray_budget,
     )
-    return _finish(state, budget, path=path)
+    return _finish(state, budget, dir_prescale, path, per_ray_budget)
 
 
 def march_fixed(
@@ -367,11 +415,13 @@ def march_fixed(
     return _finish(state, budget, DIR_PRESCALE_FLOAT, path)
 
 
-def _finish(state: MarchState, budget: int, dir_prescale: float = 1.0, path=None) -> TraceResult:
-    """end_iteration = budget − remaining; rays still alive when the driver
-    stops have consumed their whole budget.  The end direction is divided
-    by the march's ``dir_prescale``."""
+def _finish(state: MarchState, budget: int, dir_prescale: float = 1.0, path=None, per_ray_budget=None) -> TraceResult:
+    """end_iteration = budget (or the per-ray budget) − remaining; rays
+    still alive when the driver stops have consumed their whole budget.
+    The end direction is divided by the march's ``dir_prescale``."""
     end_remaining = torch.where(state.alive, torch.zeros_like(state.remaining), state.remaining)
+    if per_ray_budget is not None:
+        budget = _as_budget(per_ray_budget, end_remaining.device)
     return TraceResult(
         end_position=state.pos,
         end_direction=state.direction / float(dir_prescale),
