@@ -118,12 +118,40 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      trace of the bench bundle through the 256³ lens; (f) fit_field with
      checkpoints, 4 steps then a resume to 8 equal to a straight 8-step run,
      and a save_ray_state / load_ray_state round trip between two legs of a
-     trace.
+     trace;
+ 18. the scattered rays and capture and replay: (a) the capped K2
+     (march_lines_fwd_capped, K2's body stopping each ray after max_steps
+     steps of a launch) against the capped plain march on the phase 4 lens40
+     scenes without and with translucency at caps 7 and 50 (iterations,
+     alive and remaining exact, positions within 1e-4), and resumed launch
+     after launch to the end equal to one uncapped launch bit for bit; then
+     bench.py's scattered bundle (131,072 random positions in [4, 252]^3 and
+     directions, |d| = 16) through the 256^3 lens at budget 512, the table
+     built once: the single K2 launch against the plain march (iterations
+     exact, positions within 1e-4), march_lines_compact at its default (one
+     phase of the whole budget) and at 64 steps a phase with one K1 launch,
+     one capped K2 launch a phase and no uncapped K2, its loop at
+     phase_steps 32, 64, 128, 256 and 512, and the public pause at 100 steps
+     and resume, each equal to the single launch bit for bit; times in turns
+     with the single launch, K2 and the capped K2 alone over the sorted rays
+     in turns, and the capped K2 over the whole march against the capped
+     plain march (remaining and alive exact, positions within 1e-4,
+     directions within 1e-6 of |d| = 16); (b) the
+     scattered fwd+bwd,
+     endpoint_render's value and gradient through K1-K4 once each (d_ior
+     against kernel="plain" on 4096 of the rays within 1e-3 of its largest
+     value) and its time; (c) replay: the fixed trace of the bench bundle as
+     16.16 positions dumped by Options.write_instance to .npz and .vrt in a
+     temporary directory and replayed by vrt-replay-torch's main with one F1
+     launch each, a float trace's dump replayed with --mode float with one K1
+     and one K2 launch, each equal to the direct trace bit for bit, and the
+     built-in 100^3 ramp with one F1 launch, with its "Rays per time" line.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
 the point training step, F1 on the fixed trace, the recording K2 on the
-recorded float trace), error against its plain
+recorded float trace, the capped K2 on march_lines_compact over the
+scattered rays), error against its plain
 version, times, its bound (the larger of its float32 operations over 67
 TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
 executed steps; the recording K2's bytes include its path) and its library
@@ -597,6 +625,300 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> Non
     print(f"phase 17f fit_field on the card, 4 steps then resumed to 8: equal to a straight 8-step run (max diff "
           f"{np.abs(resumed.ior - full.ior).max():.3g}), checkpoints kept {kept}; ray state saved and loaded between "
           f"two legs of 100: equal to one trace of 200")
+
+
+def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40, pos40, dirs40, times) -> dict:
+    """The scattered rays and capture-and-replay on the card (see the module
+    doc, phase 18).  Adds the capped K2's times to ``times`` and returns its
+    launches on the compaction path, its error against the capped plain
+    march and its bound."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from volumeraytracer_tpu_torch import Options, RaytraceScene, cli, endpoint_render
+    from volumeraytracer_tpu_torch.kernels import _build, line_table_cuda
+    from volumeraytracer_tpu_torch.kernels import march_lines as ml
+    from volumeraytracer_tpu_torch.kernels.line_table import LBX, LBY, LBZ
+    from volumeraytracer_tpu_torch.ops.march import _finish, march_float, march_float_state
+    from volumeraytracer_tpu_torch.workloads import build_scattered_rays
+
+    sync = torch.cuda.synchronize
+    fields = ("end_position", "end_direction", "end_iteration", "remaining_light")
+    kw = dict(bend_scale=BEND, step_scale=STEP)
+
+    def differs(a, b):
+        """The fields in which two trace results are not equal bit for bit."""
+        return [f for f in fields if not torch.equal(getattr(a, f), getattr(b, f))]
+
+    # 18a. the capped K2 against the capped plain march on the phase 4
+    # scenes, and over several launches against one uncapped launch
+    k2c_err = 0.0
+    for name, tr in (("lens40", None), ("lens40 + translucency", trc40)):
+        full = ml.march_lines(packed40, pos40, dirs40, 300, translucency=tr, **kw)
+        for cap in (7, 50):
+            got, state = ml.march_lines(packed40, pos40, dirs40, 300, translucency=tr, max_steps=cap,
+                                        return_state=True, **kw)
+            ref_state, _ = march_float_state(packed40, tr, pos40, dirs40, 300, chunk_steps=64, max_steps=cap, **kw)
+            ref = _finish(ref_state, 300)
+            sync()
+            torch.testing.assert_close(got.end_iteration, ref.end_iteration, rtol=0, atol=0)
+            torch.testing.assert_close(got.end_position, ref.end_position, rtol=0, atol=1e-4)
+            torch.testing.assert_close(got.end_direction, ref.end_direction, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(got.remaining_light.double(), ref.remaining_light.double(), rtol=2e-2, atol=0)
+            if not (torch.equal(state["alive"] != 0, ref_state.alive)
+                    and torch.equal(state["remaining"].long(), ref_state.remaining)):
+                raise AssertionError(f"capped K2 {name} cap {cap}: alive or remaining differ from the plain march")
+            cap_err = (got.end_position - ref.end_position).abs().max().item()
+            k2c_err = max(k2c_err, cap_err)
+            launches = 1
+            while bool((state["alive"] != 0).any()):
+                got, state = ml.march_lines(packed40, got.end_position, got.end_direction, 300, translucency=tr,
+                                            init_state=state, max_steps=cap, return_state=True, **kw)
+                launches += 1
+            bad = differs(got, full)
+            if bad:
+                raise AssertionError(f"capped K2 {name} cap {cap}: {launches} launches differ from one uncapped "
+                                     f"launch in {bad}")
+            print(f"phase 18a capped K2 {name}, budget 300, cap {cap}: vs the capped plain march iterations, alive "
+                  f"and remaining exact, pos max err {cap_err:.3g}; resumed, {launches} capped launches equal to one "
+                  f"uncapped launch bit for bit")
+
+    # 18a. compaction at full width: bench.py's scattered bundle through the
+    # 256^3 lens, the table built once
+    pos_np, dirs_np = build_scattered_rays()
+    pos, dirs = t(pos_np), t(dirs_np)
+    n_rays = pos.shape[0]
+    table, nb = line_table_cuda.build_line_table_cuda(packed256)
+    on = dict(table=table, nb=nb, **kw)
+    sync()
+    _build.launches.clear()
+    single = ml.march_lines(packed256, pos, dirs, BUDGET, **on)
+    sync()
+    if dict(_build.launches) != {"march_lines_fwd": 1}:
+        raise AssertionError(f"the single scattered march launched {dict(_build.launches)}")
+    plain = march_float(packed256, None, pos, dirs, BUDGET, **kw)
+    sync()
+    torch.testing.assert_close(single.end_iteration, plain.end_iteration, rtol=0, atol=0)
+    torch.testing.assert_close(single.end_position, plain.end_position, rtol=0, atol=1e-4)
+    scat_steps = int((single.end_iteration - 1).sum())
+    print(f"phase 18a scattered {n_rays} rays through {lens.shape[0]}^3, budget {BUDGET}: single K2 launch vs the "
+          f"plain march iterations equal, pos max err {(single.end_position - plain.end_position).abs().max().item():.3g}"
+          f"; {scat_steps} steps, {int((single.end_iteration == BUDGET).sum())} rays exhausted the budget")
+    del plain
+
+    # the counted runs: K1 once, the capped K2 once a phase, no uncapped K2;
+    # at the default (one phase of the whole budget) and at 64 steps a phase
+    for ps in (None, 64):
+        sync()
+        _build.launches.clear()
+        got = ml.march_lines_compact(packed256, pos, dirs, BUDGET, phase_steps=ps, **kw)
+        sync()
+        launched = dict(_build.launches)
+        steps_a_phase = ps or BUDGET
+        phases = min(-(-(BUDGET - 1) // steps_a_phase), -(-int(single.end_iteration.max()) // steps_a_phase))
+        want = {"line_table_build": 1, "march_lines_fwd_capped": phases}
+        if launched != want:
+            raise AssertionError(f"march_lines_compact (phase_steps {steps_a_phase}) launched {launched}, expected "
+                                 f"{want}")
+        bad = differs(got, single)
+        if bad:
+            raise AssertionError(f"march_lines_compact (phase_steps {steps_a_phase}) differs from the single launch "
+                                 f"in {bad}")
+        if ps is None:
+            compact_launches = launched
+        print(f"phase 18a march_lines_compact phase_steps {steps_a_phase}{' (the default)' if ps is None else ''}: "
+              f"launches {launched}; equal to the single launch bit for bit")
+
+    def loop(ps):
+        """march_lines_compact's phases over the table built above, at
+        ``phase_steps`` = ``ps``: the end (pos, dirs, remaining, alive, br)
+        in the input order."""
+        state = (pos, dirs, torch.full((n_rays,), BUDGET - 1, dtype=torch.int32, device=dev),
+                 torch.ones((n_rays,), dtype=torch.int32, device=dev),
+                 torch.ones((n_rays,), dtype=torch.float32, device=dev))
+        return ml._compact_loop(lambda st: ml.march_lines_cuda(
+            table, nb, tuple(packed256.shape[:3]), *(x.contiguous() for x in st), bend=(BEND,) * 3,
+            step=(STEP,) * 3, min_bright=0.0, has_absorb=False, max_steps=ps), nb, state,
+            -(-(BUDGET - 1) // ps))
+
+    sweep = (32, 64, 128, 256, BUDGET)
+    for ps in sweep:
+        end_pos, end_dir, rem, alive, br = loop(ps)
+        sync()
+        if not (torch.equal(end_pos, single.end_position) and torch.equal(end_dir, single.end_direction)
+                and torch.equal(BUDGET - torch.where(alive != 0, 0, rem).long(), single.end_iteration)
+                and bool((br == 1.0).all())):
+            raise AssertionError(f"compaction phase_steps {ps} differs from the single launch")
+    print(f"phase 18a compaction at phase_steps {list(sweep)}: equal to the single launch bit for bit")
+
+    r1, s1 = ml.march_lines(packed256, pos, dirs, BUDGET, max_steps=100, return_state=True, **on)
+    r2 = ml.march_lines(packed256, r1.end_position, r1.end_direction, BUDGET, init_state=s1, **on)
+    sync()
+    bad = differs(r2, single)
+    if bad:
+        raise AssertionError(f"the scattered march paused at 100 steps and resumed differs in {bad}")
+    print(f"phase 18a pause at 100 steps ({int((s1['alive'] != 0).sum())} rays alive) and resume: equal to the "
+          f"single launch bit for bit")
+
+    # 18a. times, in turns with the single launch, each setting end to end
+    def single_run():
+        ml.march_lines(packed256, pos, dirs, BUDGET, **on)
+
+    for ps in sweep:
+        t_single, t_comp = turns(single_run, lambda: loop(ps), 5)
+        print(f"phase 18a time compaction phase_steps {ps}, end to end: {sum(t_comp) / 2:.4f} ms (turns {t_comp}), "
+              f"{scat_steps / (sum(t_comp) / 2) / 1e6:.4f} Gsteps/s; single launch in the same turns "
+              f"{sum(t_single) / 2:.4f} ms (turns {t_single}), {scat_steps / (sum(t_single) / 2) / 1e6:.4f} Gsteps/s "
+              f"{card}")
+    api_ms = timed(lambda: ml.march_lines_compact(packed256, pos, dirs, BUDGET, **on), 5)
+    print(f"phase 18a time march_lines_compact (default: one phase, table given): {api_ms:.4f} ms, "
+          f"{scat_steps / api_ms / 1e6:.4f} Gsteps/s {card}")
+
+    # the kernels alone over the scattered rays sorted once: K2 and, in the
+    # same turns, the capped K2 over the whole march (the default's one
+    # phase), which is the capped K2's row; and one phase of 64 steps
+    order, _ = ml.sort_line_rays(pos, nb)
+    rem = torch.full((n_rays,), BUDGET - 1, dtype=torch.int32, device=dev)
+    alive = torch.ones((n_rays,), dtype=torch.int32, device=dev)
+    br = torch.ones((n_rays,), dtype=torch.float32, device=dev)
+    k_args = (table, nb, tuple(packed256.shape[:3]), pos[order].contiguous(), dirs[order].contiguous(), rem, alive, br)
+    k_kw = dict(bend=(BEND,) * 3, step=(STEP,) * 3, min_bright=0.0, has_absorb=False)
+    t_k2, t_k2c = turns(lambda: ml.march_lines_cuda(*k_args, **k_kw),
+                        lambda: ml.march_lines_cuda(*k_args, max_steps=BUDGET, **k_kw), 10)
+    times["k2c"] = sum(t_k2c) / 2
+    t64 = timed(lambda: ml.march_lines_cuda(*k_args, max_steps=64, **k_kw), 10)
+    print(f"phase 18a time K2 alone over the sorted scattered rays {sum(t_k2) / 2:.4f} ms (turns {t_k2}), "
+          f"{scat_steps / (sum(t_k2) / 2) / 1e6:.4f} Gsteps/s; the capped K2 over the whole march (cap {BUDGET}) "
+          f"{times['k2c']:.4f} ms (turns {t_k2c}), {scat_steps / times['k2c'] / 1e6:.4f} Gsteps/s; one phase of 64 "
+          f"steps {t64:.4f} ms; coherent bench K2 (phase 7) {times['k2']:.4f} ms {card}")
+    capped = ml.march_lines_cuda(*k_args, max_steps=BUDGET, **k_kw)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain_capped, _ = march_float_state(packed256, None, k_args[3], k_args[4], BUDGET, max_steps=BUDGET, **kw)
+    stop.record()
+    sync()
+    times["k2c_plain"] = start.elapsed_time(stop)
+    if not (torch.equal(capped[2].long(), plain_capped.remaining) and torch.equal(capped[3] != 0, plain_capped.alive)):
+        raise AssertionError("the capped K2 over the scattered rays differs from the capped plain march in remaining "
+                             "or alive")
+    torch.testing.assert_close(capped[0], plain_capped.pos, rtol=0, atol=1e-4)
+    # directions within 1e-6 of their norm |d| = 16 (8 float32 ulps at 16):
+    # a component near 0 that took a 511-step path differs in the ulps of
+    # |d|, not of its own size, as the uncapped K2's does
+    torch.testing.assert_close(capped[1], plain_capped.direction, rtol=0, atol=1e-6 * 16.0)
+    scat_err = (capped[0] - plain_capped.pos).abs().max().item()
+    scat_dir_err = (capped[1] - plain_capped.direction).abs().max().item()
+    k2c_err = max(k2c_err, scat_err)
+    # its bound: the steps it executed, its ray state (36 B read and written
+    # a ray) and the line bricks its rays pass through
+    capped_steps = int((rem - capped[2]).sum())
+    frac = torch.linspace(0.0, 1.0, 17, device=dev)
+    seg = (k_args[3][:, None, :] + frac[None, :, None] * (capped[0] - k_args[3])[:, None, :]).reshape(-1, 3)
+    k2c_bytes = 72 * n_rays + int(torch.unique(ml._brick_and_cell(seg, nb, (LBX, LBY, LBZ))[0]).numel()) \
+        * table[0].numel() * 4
+    k2c_bound = kernel_bound(MARCH_OPS * capped_steps, k2c_bytes)
+    print(f"phase 18a capped K2 over the whole scattered march vs the capped plain march ({times['k2c_plain']:.4f} "
+          f"ms, one run): remaining and alive exact, pos max err {scat_err:.3g}, dir max err {scat_dir_err:.3g}; {capped_steps} steps, "
+          f"{k2c_bytes} B of ray state and bricks {card}")
+    del table, capped, plain_capped, seg
+
+    # 18b. scattered fwd+bwd: endpoint_render's value and gradient through
+    # K1-K4 (no compaction: the JAX package has no adjoint for it)
+    ior_k = ior256.clone().requires_grad_(True)
+    sync()
+    _build.launches.clear()
+    end_pos, _ = endpoint_render(ior_k, pos, dirs, BUDGET, INV, 64)
+    end_pos[:, 1].sum().backward()
+    sync()
+    want = {"line_table_build": 1, "march_lines_fwd": 1, "march_lines_bwd": 1, "line_table_fold": 1}
+    if dict(_build.launches) != want or not bool(torch.isfinite(ior_k.grad).all()):
+        raise AssertionError(f"scattered fwd+bwd: launches {dict(_build.launches)} or a non-finite gradient")
+    sub = slice(0, 4096)
+    grads = {}
+    for kernel in ("auto", "plain"):
+        ior_s = ior256.clone().requires_grad_(True)
+        e, _ = endpoint_render(ior_s, pos[sub], dirs[sub], BUDGET, INV, 64, kernel=kernel)
+        e[:, 1].sum().backward()
+        grads[kernel] = ior_s.grad
+    sync()
+    err = (grads["auto"] - grads["plain"]).abs().max().item()
+    bound = 1e-3 * grads["plain"].abs().max().item()
+    if not err <= bound:
+        raise AssertionError(f"scattered d_ior kernels vs plain on 4096 rays: max err {err:.3g} above {bound:.3g}")
+
+    def fwd_bwd():
+        ior_k.grad = None
+        e, _ = endpoint_render(ior_k, pos, dirs, BUDGET, INV, 64)
+        e[:, 1].sum().backward()
+
+    fb_ms = timed(fwd_bwd, 3)
+    print(f"phase 18b scattered fwd+bwd {lens.shape[0]}^3, {n_rays} rays: launches {want}; d_ior on "
+          f"{pos[sub].shape[0]} rays vs plain max err {err:.3g} (bound {bound:.3g})")
+    print(f"phase 18b time scattered fwd+bwd (endpoint_render value + gradient): {fb_ms:.4f} ms, "
+          f"{n_rays / fb_ms / 1e3:.4f} Mrays/s {card}")
+    del ior_k, grads, end_pos
+
+    # 18c. capture and replay: dumps into a temporary directory, replayed
+    # through vrt-replay-torch's main
+    def replay(argv):
+        seen = []
+        traced = cli.trace_rays_instance
+
+        def capture(*a, **k):
+            seen.append(traced(*a, **k))
+            return seen[-1]
+
+        out = io.StringIO()
+        cli.trace_rays_instance = capture
+        try:
+            sync()
+            _build.launches.clear()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main([*argv, "--device", str(dev), "--bench"])
+            sync()
+        finally:
+            cli.trace_rays_instance = traced
+        if rc != 0 or len(seen) != 1:
+            raise AssertionError(f"vrt-replay-torch {argv}: exit {rc}, {len(seen)} traces")
+        return seen[0], dict(_build.launches), out.getvalue().strip()
+
+    bench_pos, bench_dirs = bench_rays()
+    pos_fix = np.round(bench_pos.astype(np.float64) * 65536.0).astype(np.uint32)
+    with tempfile.TemporaryDirectory() as tmp:
+        for suffix in (".npz", ".vrt"):
+            dump = str(Path(tmp) / f"bench_fixed{suffix}")
+            scene = RaytraceScene(lens, options=Options(write_instance=dump), device=dev)
+            direct = scene.trace_rays(pos_fix, bench_dirs, invscale=[INV] * 3, iterations=BUDGET, mode="fixed")
+            res, launched, line = replay([dump])
+            if launched != {"march_fixed": 1}:
+                raise AssertionError(f"the fixed replay of {suffix} launched {launched}, expected one F1")
+            bad = differs(res, direct)
+            if bad:
+                raise AssertionError(f"the fixed replay of {suffix} differs from the direct trace in {bad}")
+            print(f"phase 18c replay of the fixed bench trace ({suffix}, {Path(dump).stat().st_size / 1e6:.1f} MB): "
+                  f"launches {launched}, equal to the direct trace bit for bit; {line} {card}")
+        dump = str(Path(tmp) / "bench_float.npz")
+        scene = RaytraceScene(lens, options=Options(write_instance=dump), device=dev)
+        direct = scene.trace_rays(bench_pos, bench_dirs, invscale=[INV] * 3, iterations=BUDGET, mode="float")
+        res, launched, line = replay([dump, "--mode", "float"])
+        if launched != {"line_table_build": 1, "march_lines_fwd": 1}:
+            raise AssertionError(f"the float replay launched {launched}, expected one K1 and one K2")
+        bad = differs(res, direct)
+        if bad:
+            raise AssertionError(f"the float replay differs from the direct trace in {bad}")
+        print(f"phase 18c replay of the float bench trace: launches {launched}, equal to the direct trace bit for "
+              f"bit; {line} {card}")
+    res, launched, line = replay([])
+    if launched != {"march_fixed": 1} or not bool((res.end_iteration < 1_000_000).all()):
+        raise AssertionError(f"the built-in replay launched {launched} or ran out of budget")
+    print(f"phase 18c replay of the built-in 100^3 ramp ({res.end_position.shape[0]} rays, mean end iteration "
+          f"{res.end_iteration.double().mean().item():.1f}): launches {launched}; {line} "
+          f"{torch.cuda.get_device_name(0)} {card}")
+    return {"launches": compact_launches, "err": k2c_err, "bound": k2c_bound}
 
 
 def main() -> None:
@@ -1554,6 +1876,10 @@ def main() -> None:
     # checkpoints (the kernels line below reads the counts saved above)
     phase17(dev, t, timed, card, lens, scene, pos, dirs, res)
 
+    # 18. the scattered rays (compaction over the capped K2, fwd+bwd) and
+    # capture and replay (write_instance, vrt-replay-torch)
+    k2c = phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40, pos40, dirs40, times)
+
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,
     # alive, br: 36 B a ray) and writes it, a replay reads 52 B a ray (end
@@ -1580,9 +1906,11 @@ def main() -> None:
         # the recording K2: K2's, plus each ray's int64 path row read and
         # its (budget + 1) × 3 float32 path written
         "k2p": kernel_bound(MARCH_OPS * steps, 80 * n_rays + line_bytes + n_rays * (BUDGET + 1) * 12),
+        # the capped K2: one phase over the scattered bundle (phase 18)
+        "k2c": k2c["bound"],
     }
     for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
-                       ("f1", "F1"), ("k2p", "recording K2")):
+                       ("f1", "F1"), ("k2p", "recording K2"), ("k2c", "capped K2")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
@@ -1599,6 +1927,8 @@ def main() -> None:
         ("k6", "march_points_bwd", "march_points_bwd.cu", "kernels/march_bwd.py:115", point_launches, k6_err),
         ("f1", "march_fixed", "march_fixed.cu", "ops/march.py:286", fixed_launches, f1_err),
         ("k2p", "march_lines_fwd_path", "march_lines_fwd.cu", "kernels/march_lines.py:190", path_launches, k2p_err),
+        ("k2c", "march_lines_fwd_capped", "march_lines_fwd.cu", "kernels/march_lines.py:190", k2c["launches"],
+         k2c["err"]),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,

@@ -183,14 +183,17 @@ def test_cuda_kernel_on_cpu_tensors_raises(entry):
 
 @pytest.mark.parametrize(
     "kw, raises", [({"mode": "fixed", "kernel": "native"}, ValueError),
-                   ({"mode": "float", "options": vtt.Options(write_instance=True)}, NotImplementedError),
+                   ({"mode": "float", "options": vtt.Options(write_instance=True)}, None),
                    ({"mode": "float", "kernel": "native"}, None)],
     ids=["fixed", "write_instance", "native"],
 )
-def test_unported_trace_options_raise(kw, raises):
-    """Options.write_instance is still unported and raises
-    NotImplementedError.  kernel="native" is ported (tests/test_torch_native.py):
-    a float trace runs on the host library and matches the JAX package's at
+def test_unported_trace_options_raise(kw, raises, tmp_path, monkeypatch):
+    """The options that raised until they were ported now run.
+    Options.write_instance (tests/test_torch_replay.py) dumps
+    debug_raytrace_instance.npz into the working directory, here a
+    temporary one, and the trace is the one without it.
+    kernel="native" (tests/test_torch_native.py): a float trace runs on the
+    host library and matches the JAX package's at
     tests/test_native.py:85-88's tolerances; in fixed mode it raises
     ValueError, where the JAX package ignores the kernel."""
     kw = dict(kw)
@@ -198,6 +201,18 @@ def test_unported_trace_options_raise(kw, raises):
     ior = (1.0 + 0.3 * np.random.default_rng(3).random((6, 6, 6))).astype(np.float32)
     pos = [[0x20000, 0x20000, 0x20000]] if kw["mode"] == "fixed" else [[2.0, 2.0, 2.0], [1.5, 3.0, 2.5]]
     dirs = [[16.0, 0.0, 0.0]] * len(pos)
+    if options is not None:
+        from volumeraytracer_tpu_torch.utils.serialization import load_instance
+
+        monkeypatch.chdir(tmp_path)
+        got = vtt.RaytraceScene(ior, options=options, device="cpu").trace_rays(pos, dirs, invscale=[2.0] * 3, **kw)
+        ref = vtt.RaytraceScene(ior, device="cpu").trace_rays(pos, dirs, invscale=[2.0] * 3, **kw)
+        assert torch.equal(got.end_position, ref.end_position)
+        assert [p.name for p in tmp_path.iterdir()] == ["debug_raytrace_instance.npz"]
+        inst = load_instance(tmp_path / "debug_raytrace_instance.npz")
+        np.testing.assert_array_equal(inst.scene.ior, ior)
+        np.testing.assert_array_equal(inst.rays.start_position, np.array(pos))
+        return
     if raises is None:
         if shutil.which("g++") is None:
             pytest.skip("no g++ to build the native library")
@@ -213,6 +228,10 @@ def test_unported_trace_options_raise(kw, raises):
 
 
 def test_import_leaves_jax_out():
-    code = "import sys, volumeraytracer_tpu_torch; assert 'jax' not in sys.modules, 'jax imported'"
+    code = ("import sys, volumeraytracer_tpu_torch, volumeraytracer_tpu_torch.cli, "
+            "volumeraytracer_tpu_torch.utils.serialization, volumeraytracer_tpu_torch.utils.logging, "
+            "volumeraytracer_tpu_torch.workloads; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m.split('.')[0] == 'volumeraytracer_tpu' for m in sys.modules), 'JAX package imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

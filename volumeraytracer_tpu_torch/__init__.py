@@ -25,7 +25,13 @@ emission/absorption render and image fitting (``PinholeCamera``,
 ``render_image``, ``render_rays_image``, ``render_transmittance``,
 ``image_loss``, ``fit_field_image``), the harmonic solver
 (``solve_harmonic``, ``solveHarmonic``), the CuPy-style ``OpticalVolume``
-and the ray-state snapshots (``save_ray_state``, ``load_ray_state``).
+and the ray-state snapshots (``save_ray_state``, ``load_ray_state``);
+scattered rays (``kernels.march_lines.march_lines_compact``, phases of a
+capped instantiation of the forward march kernel, and
+``march_lines(max_steps=, init_state=)``); and capture and replay
+(``Options.write_instance``, the instance files of
+``utils/serialization.py``, which the JAX package reads and writes too,
+and the replay CLI ``vrt-replay-torch``, ``cli.py``).
 """
 
 from .kernels.march_bwd import march_lines_diff, march_pallas_diff
@@ -38,6 +44,10 @@ from .models.optimize import (
 from .models.scene import RaytraceScene, trace_rays_instance
 from .parallel.shard import endpoint_render
 from .types import Options, RayInstance, RaySceneInstance, RaytraceInstance, TraceResult
+from .utils.serialization import (
+    load_instance, load_instance_binary, load_ray_instance, load_scene_instance, save_instance,
+    save_instance_binary, save_ray_instance, save_scene_instance,
+)
 
 __all__ = [
     "RaytraceScene", "trace_rays_instance", "TraceResult", "Options", "RaySceneInstance", "RayInstance",
@@ -45,4 +55,6 @@ __all__ = [
     "march_lines_diff", "march_pallas_diff", "endpoint_loss", "fit_field", "FitResult",
     "OpticalVolume", "PinholeCamera", "render_image", "render_rays_image", "render_transmittance",
     "image_loss", "fit_field_image", "save_ray_state", "load_ray_state", "solve_harmonic", "solveHarmonic",
+    "save_instance", "load_instance", "save_instance_binary", "load_instance_binary", "save_scene_instance",
+    "load_scene_instance", "save_ray_instance", "load_ray_instance",
 ]

@@ -53,6 +53,8 @@ _MARCH_FWD = (
 #: the recording K2: the forward march's arguments with the path, its rows,
 #: its length and its row stride before n
 _MARCH_FWD_PATH = _MARCH_FWD[:17] + (_P, _P, _I, _I) + _MARCH_FWD[17:]
+#: the capped K2: the forward march's arguments with the step cap before n
+_MARCH_FWD_CAPPED = _MARCH_FWD[:17] + (_I,) + _MARCH_FWD[17:]
 _MARCH_BWD = (
     _P, _P, _I, _I, _I,  # table, gtable, nb
     _P, _P, _P, _P, _P,  # end pos, end dir, nexec, d_pos, d_dir
@@ -63,6 +65,7 @@ _SIGNATURES = {
     "vrt_line_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vrt_march_lines_fwd": _MARCH_FWD,
     "vrt_march_lines_fwd_path": _MARCH_FWD_PATH,
+    "vrt_march_lines_fwd_capped": _MARCH_FWD_CAPPED,
     "vrt_march_lines_bwd": _MARCH_BWD,
     "vrt_line_table_fold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vrt_march_points_fwd": _MARCH_FWD,

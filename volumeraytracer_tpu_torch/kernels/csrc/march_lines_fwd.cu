@@ -47,11 +47,17 @@
 // and one-hot MXU gathers served the TPU's lack of a fast dynamic gather and
 // are not carried over.
 //
-// The body is a template on RECORD, instantiated twice: march_lines_fwd
-// (RECORD = false, the march above) and march_lines_fwd_path (RECORD =
-// true), which replaces the TPU kernel's record_path branch
-// (march_lines.py:722-771).  Both run the same step (the lambda `step`);
-// the recorder also writes its ray's path into row path_row[i] of a
+// The body is a template on RECORD and CAPPED, instantiated three times:
+// march_lines_fwd (the march above), march_lines_fwd_capped (CAPPED: at
+// most max_steps steps a launch, the pause of the TPU kernel's max_windows
+// cap, which the scattered-ray compaction driver launches once a phase and
+// resumes from the state it wrote) and march_lines_fwd_path (RECORD),
+// which replaces the TPU kernel's record_path branch
+// (march_lines.py:722-771).  The cap is its own instantiation so that the
+// uncapped loop, which is bound by issuing its instructions, carries no
+// step counter.  All three run the same step (the lambda `step`), so a
+// march paused and resumed over several capped launches ends where one
+// uncapped launch ends, bit for bit.  The recorder also writes its ray's path into row path_row[i] of a
 // (N, path_stride, 3) buffer, of whose rows the first path_len are the
 // path: the start position, its position after each executed step, then
 // its end position up to the last row, the JAX driver's (N, budget + 1, 3)
@@ -125,7 +131,7 @@ __device__ __forceinline__ void warp_write_rows(float* __restrict__ path, const 
   }
 }
 
-template <bool RECORD>
+template <bool RECORD, bool CAPPED = false>
 __device__ __forceinline__ void
 march_lines_body(const float* __restrict__ table,
                  int nbx, int nby, int nbz, float xb, float yb, float zb,
@@ -141,7 +147,7 @@ march_lines_body(const float* __restrict__ table,
                  int path_len, int path_stride, int n,
                  float bendx, float bendy, float bendz,
                  float stepx, float stepy, float stepz,
-                 float min_bright, int has_absorb) {
+                 float min_bright, int has_absorb, int max_steps = 0) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   // the recorder keeps every lane of its warp for the warp's writes; a lane
   // past the last ray marches nothing
@@ -226,7 +232,11 @@ march_lines_body(const float* __restrict__ table,
     return true;
   };
 
-  if constexpr (!RECORD) {
+  if constexpr (CAPPED) {
+    // at most max_steps steps in this launch; a ray still alive then keeps
+    // its state for the next launch
+    for (int s = 0; alive && s < max_steps; ++s) alive = step();
+  } else if constexpr (!RECORD) {
     while (alive) alive = step();
   } else {
     // the ray's path row, the next row to write, and its staged positions;
@@ -293,6 +303,30 @@ march_lines_fwd_kernel(const float* __restrict__ table,
 }
 
 __global__ void __launch_bounds__(THREADS)
+march_lines_fwd_capped_kernel(const float* __restrict__ table,
+                              int nbx, int nby, int nbz, float xb, float yb,
+                              float zb, const float* __restrict__ pos_in,
+                              const float* __restrict__ dir_in,
+                              const int* __restrict__ rem_in,
+                              const int* __restrict__ alive_in,
+                              const float* __restrict__ br_in,
+                              float* __restrict__ pos_out,
+                              float* __restrict__ dir_out,
+                              int* __restrict__ rem_out,
+                              int* __restrict__ alive_out,
+                              float* __restrict__ br_out, int max_steps, int n,
+                              float bendx, float bendy, float bendz,
+                              float stepx, float stepy, float stepz,
+                              float min_bright, int has_absorb) {
+  march_lines_body<false, true>(table, nbx, nby, nbz, xb, yb, zb, pos_in,
+                                dir_in, rem_in, alive_in, br_in, pos_out,
+                                dir_out, rem_out, alive_out, br_out, nullptr,
+                                nullptr, 0, 0, n, bendx, bendy, bendz, stepx,
+                                stepy, stepz, min_bright, has_absorb,
+                                max_steps);
+}
+
+__global__ void __launch_bounds__(THREADS)
 march_lines_fwd_path_kernel(const float* __restrict__ table,
                             int nbx, int nby, int nbz, float xb, float yb,
                             float zb, const float* __restrict__ pos_in,
@@ -335,6 +369,26 @@ extern "C" int vrt_march_lines_fwd(
         (float*)pos_out, (float*)dir_out, (int*)rem_out, (int*)alive_out,
         (float*)br_out, n, bendx, bendy, bendz, stepx, stepy, stepz,
         min_bright, has_absorb);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vrt_march_lines_fwd_capped(
+    const void* table, int nbx, int nby, int nbz, int X, int Y, int Z,
+    const void* pos_in, const void* dir_in, const void* rem_in,
+    const void* alive_in, const void* br_in, void* pos_out, void* dir_out,
+    void* rem_out, void* alive_out, void* br_out, int max_steps, int n,
+    float bendx, float bendy, float bendz, float stepx, float stepy,
+    float stepz, float min_bright, int has_absorb, void* stream) {
+  if (n > 0) {
+    march_lines_fwd_capped_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                                    (cudaStream_t)stream>>>(
+        (const float*)table, nbx, nby, nbz, (float)(X - 1), (float)(Y - 1),
+        (float)(Z - 1), (const float*)pos_in, (const float*)dir_in,
+        (const int*)rem_in, (const int*)alive_in, (const float*)br_in,
+        (float*)pos_out, (float*)dir_out, (int*)rem_out, (int*)alive_out,
+        (float*)br_out, max_steps, n, bendx, bendy, bendz, stepx, stepy,
+        stepz, min_bright, has_absorb);
   }
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,10 @@
 adjoint, their wrappers and the functions that call them.
 
 The forward kernel (``csrc/march_lines_fwd.cu``) replaces the TPU kernel
-``volumeraytracer_tpu/kernels/march_lines.py:_march_kernel_lines`` in two
-instantiations of one body: ``march_lines_fwd`` and, for
+``volumeraytracer_tpu/kernels/march_lines.py:_march_kernel_lines`` in three
+instantiations of one body: ``march_lines_fwd``; for ``max_steps``,
+``march_lines_fwd_capped``, which stops each ray after that many steps of
+a launch (the TPU kernel's ``max_windows`` pause); and, for
 ``record_path=True``, ``march_lines_fwd_path``, which also writes each
 ray's path of positions (the TPU kernel's record branch).  The adjoint
 kernel (``csrc/march_lines_bwd.cu``) replaces its ``_bwd_kernel_lines``.
@@ -21,6 +23,10 @@ neighbouring threads read neighbouring lanes of the same bricks, launches
 K2 through ``march_lines_cuda``, restores the input order and turns the
 raw state into a ``TraceResult``.  The recording K2 writes each ray's path
 at the ray's input index, so the path needs no reordering.
+``march_lines_compact`` is the counterpart of the JAX package's
+scattered-ray driver: phases of the capped K2, each resumed from the state
+the last one wrote, with the survivors sorted again by their current cell
+between phases.
 ``march_lines_bwd`` is the counterpart of ``_bwd_impl_lines``: it sorts
 the rays in the same order by their end position, launches K3 and
 restores the order.  The kernels need no padding of the ray batch: each
@@ -38,9 +44,9 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.march import _finish, march_float_state
-from ..types import TraceResult
+from ..types import BRIGHTNESS_MAX, TraceResult
 from . import _build
-from .line_table import BRIGHT_MAX_F, LBX, LBY, LBZ, LCH, LL, LPY, LS, NLO, TCH, table_inputs
+from .line_table import BRIGHT_MAX_F, LBX, LBY, LBZ, LCH, LL, LPY, LS, NLO, TCH, line_brick_grid, table_inputs
 from .line_table_cuda import build_line_table_cuda
 
 #: sort key of rays with nothing to march or replay: after every other key
@@ -58,7 +64,7 @@ LINE_LAYOUT = ((LBX, LBY, LBZ), (LPY, 1, TCH * LL), LL)
 
 
 def launch_march(name, table, rows, nb, bounds, pos, dirs, rem, alive, br, *, bend, step, min_bright,
-                 has_absorb, path_row=None, path_len=0):
+                 has_absorb, path_row=None, path_len=0, max_steps=None):
     """Launch the forward march kernel ``name`` (K2 or K5) on CUDA tensors:
     table (NB, *rows) f32, pos/dirs (N, 3) f32, rem/alive (N,) int32, br
     (N,) f32 (brightness fraction, 1.0 = 0xFFFFFFFF).  Returns the end
@@ -67,9 +73,14 @@ def launch_march(name, table, rows, nb, bounds, pos, dirs, rem, alive, br, *, be
     new (N, path_len, 3) f32 path, returned last: ray i's start position,
     its position after each executed step, then its end position, in row
     ``path_row[i]`` ((N,) int64, a permutation of 0..N−1).  The path is a
-    view of a buffer whose rows are ``PATH_ROW_ALIGN``-padded."""
+    view of a buffer whose rows are ``PATH_ROW_ALIGN``-padded.
+    ``max_steps`` launches the capped kernel ``name + "_capped"``, whose
+    rays take at most that many steps and, still alive, keep their state
+    for the next launch."""
     if table.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {table.device}")
+    if max_steps is not None and path_len > 0:
+        raise ValueError(f"{name}: a recorded path takes no max_steps")
     device = table.device
     n = pos.shape[0]
     _build.check_tensor("table", table, torch.float32, (nb[0] * nb[1] * nb[2], *rows), device)
@@ -79,21 +90,24 @@ def launch_march(name, table, rows, nb, bounds, pos, dirs, rem, alive, br, *, be
     _build.check_tensor("alive", alive, torch.int32, (n,), device)
     _build.check_tensor("br", br, torch.float32, (n,), device)
     out = tuple(torch.empty_like(t) for t in (pos, dirs, rem, alive, br))
-    record = ()
+    extra = ()
     if path_len > 0:
         name = name + "_path"
         _build.check_tensor("path_row", path_row, torch.int64, (n,), device)
         stride = -(-path_len // PATH_ROW_ALIGN) * PATH_ROW_ALIGN
         path = torch.empty((n, stride, 3), dtype=torch.float32, device=device)
         out = out + (path[:, :path_len],)
-        record = (path.data_ptr(), path_row.data_ptr(), int(path_len), stride)
+        extra = (path.data_ptr(), path_row.data_ptr(), int(path_len), stride)
+    if max_steps is not None:
+        name = name + "_capped"
+        extra = (int(max_steps),)
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, "vrt_" + name)(
             table.data_ptr(), *nb, *bounds,
             *(t.data_ptr() for t in (pos, dirs, rem, alive, br)),
-            *(t.data_ptr() for t in out[:5]), *record,
+            *(t.data_ptr() for t in out[:5]), *extra,
             n, *bend, *step, min_bright, int(has_absorb), stream,
         )
     _build.check(rc, name)
@@ -105,9 +119,9 @@ def march_lines_cuda(table: torch.Tensor, nb: Tuple[int, int, int], bounds: Tupl
                      alive, br, **kw):
     """Launch K2 on CUDA tensors: table (NB, 72, 128) f32, the rest as
     ``launch_march`` takes them; keywords bend, step, min_bright,
-    has_absorb, and path_row, path_len for the recording K2.  Returns the
-    end (pos, dirs, rem, alive, br), and the path when recording, in new
-    tensors."""
+    has_absorb, path_row, path_len for the recording K2, and max_steps for
+    the capped K2.  Returns the end (pos, dirs, rem, alive, br), and the
+    path when recording, in new tensors."""
     return launch_march("march_lines_fwd", table, (LS, LL), nb, bounds, pos, dirs, rem, alive, br, **kw)
 
 
@@ -169,19 +183,43 @@ def sort_line_rays(pos: torch.Tensor, nb, valid: Optional[torch.Tensor] = None):
     return _order(((brick * LBZ + cell[:, 2]) * LBX + cell[:, 0]) * LBY + cell[:, 1], valid)
 
 
+def _light(br: torch.Tensor) -> torch.Tensor:
+    """Remaining light (int64 holding uint32 values) of the kernels'
+    brightness fraction: the float32 product br·0xFFFFFFFF truncated,
+    saturating at 0xFFFFFFFF once br ≥ 1."""
+    return torch.where(
+        br >= 1.0,
+        torch.full_like(br, 0xFFFFFFFF, dtype=torch.int64),
+        (br.to(torch.float32) * BRIGHT_MAX_F).to(torch.int64),
+    )
+
+
+def _plain_state(init_state):
+    """A ``return_state`` dict → the plain march's (remaining int64, alive
+    bool, brightness int64 holding uint32 values); the brightness fraction
+    is read back as ``_light`` reads it, so its last bits may differ from
+    the uint32 brightness of the march that returned it."""
+    return (init_state["remaining"].to(torch.int64), init_state["alive"] != 0, _light(init_state["brightness"]))
+
+
 def march_on_table(packed, start_position, start_direction, budget, *, bend_scale, step_scale, translucency,
-                   absorb, minimum_brightness, return_state, table, nb, build, launch, sort, record_path=False):
+                   absorb, minimum_brightness, return_state, table, nb, build, launch, sort, record_path=False,
+                   init_state=None, max_steps=None):
     """The forward march driver of both layouts: ``march_lines``'s contract
     with the layout's table ``build`` (called as ``build(packed,
     absorb=...)``), forward kernel wrapper ``launch`` and ray order ``sort``
-    (called as ``sort(pos, nb)``, returning (order, inverse)).  On CPU
-    tensors it runs the plain march, which takes the integer
+    (called as ``sort(pos, nb)``, or ``sort(pos, nb, valid)`` to put the
+    rays where ``valid`` is False last; returning (order, inverse)).  On
+    CPU tensors it runs the plain march, which takes the integer
     ``translucency`` and not the float ``absorb``.  ``record_path`` asks
     ``launch`` for the (N, budget + 1, 3) path (``path_row``, ``path_len``
     keywords); on CPU tensors it is the first budget + 1 rows of the plain
-    recorded march."""
+    recorded march.  ``init_state`` and ``max_steps`` pause and resume the
+    march (``launch`` takes ``max_steps``); neither takes ``record_path``."""
     if packed.ndim != 4 or packed.shape[-1] != 4:
         raise ValueError(f"the march needs a 3-D packed field (X, Y, Z, 4), got {tuple(packed.shape)}")
+    if record_path and (init_state is not None or max_steps is not None):
+        raise ValueError("record_path takes no init_state or max_steps: a paused march records no path")
     bend = tuple(float(v) for v in torch.as_tensor(bend_scale, dtype=torch.float32).expand(3))
     step = tuple(float(v) for v in torch.as_tensor(step_scale, dtype=torch.float32).expand(3))
 
@@ -191,6 +229,7 @@ def march_on_table(packed, start_position, start_direction, budget, *, bend_scal
         state, path = march_float_state(
             packed, translucency, start_position, start_direction, budget,
             bend_scale=bend, step_scale=step, minimum_brightness=minimum_brightness, record_path=record_path,
+            init_state=None if init_state is None else _plain_state(init_state), max_steps=max_steps,
         )
         result = _finish(state, budget, path=None if path is None else path[:, : budget + 1])
         if return_state:
@@ -209,33 +248,34 @@ def march_on_table(packed, start_position, start_direction, budget, *, bend_scal
     dev = packed.device
     pos = start_position.to(torch.float32)
     dirs = start_direction.to(torch.float32)
-    alive = torch.ones((n,), dtype=torch.int32, device=dev)
-    rem = torch.full((n,), budget - 1, dtype=torch.int32, device=dev)
-    br = torch.ones((n,), dtype=torch.float32, device=dev)
-    order, inv = sort(pos, nb)
-    record = dict(path_row=order, path_len=budget + 1) if record_path else {}
+    if init_state is None:
+        alive = torch.ones((n,), dtype=torch.int32, device=dev)
+        rem = torch.full((n,), budget - 1, dtype=torch.int32, device=dev)
+        br = torch.ones((n,), dtype=torch.float32, device=dev)
+        order, inv = sort(pos, nb)
+    else:
+        rem, alive, br = (init_state[k].to(device=dev, dtype=d) for k, d in (
+            ("remaining", torch.int32), ("alive", torch.int32), ("brightness", torch.float32)))
+        order, inv = sort(pos, nb, alive != 0)
+        rem, alive, br = (x[order].contiguous() for x in (rem, alive, br))
+    extra = dict(path_row=order, path_len=budget + 1) if record_path else {}
+    if max_steps is not None:
+        extra = dict(max_steps=max_steps)
     outs = launch(
         table, nb, tuple(int(s) for s in packed.shape[:3]),
         pos[order].contiguous(), dirs[order].contiguous(), rem, alive, br,
         bend=bend, step=step,
         min_bright=float(minimum_brightness) / BRIGHT_MAX_F,
-        has_absorb=has_absorb, **record,
+        has_absorb=has_absorb, **extra,
     )
     end_pos, end_dir, rem, alive, br = (o[inv] for o in outs[:5])
 
     end_remaining = torch.where(alive != 0, 0, rem).to(torch.int64)
-    # remaining light: the float32 product br·0xFFFFFFFF truncated,
-    # saturating at 0xFFFFFFFF once br ≥ 1
-    light = torch.where(
-        br >= 1.0,
-        torch.full_like(rem, 0xFFFFFFFF, dtype=torch.int64),
-        (br * BRIGHT_MAX_F).to(torch.int64),
-    )
     result = TraceResult(
         end_position=end_pos,
         end_direction=end_dir,
         end_iteration=budget - end_remaining,
-        remaining_light=light,
+        remaining_light=_light(br),
         path=outs[5] if record_path else None,
     )
     if return_state:
@@ -258,6 +298,8 @@ def march_lines(
     table: Optional[torch.Tensor] = None,
     nb: Optional[Tuple[int, int, int]] = None,
     record_path: bool = False,
+    init_state: Optional[dict] = None,
+    max_steps: Optional[int] = None,
 ):
     """Forward float march with the semantics of ``ops.march.march_float``
     on a 3-D packed field (X, Y, Z, 4) and an optional int64 translucency
@@ -271,12 +313,142 @@ def march_lines(
     path, the JAX driver's contract: row 0 the start position, row t the
     position after step t, back-filled with the end position (the recording
     K2 on the card, the plain recorded march's first budget + 1 rows on the
-    CPU)."""
+    CPU).
+
+    Pause and resume (the JAX package's ``init_state`` with its
+    ``max_windows`` cap): ``max_steps`` stops every ray after that many
+    steps of this call (the capped K2 on the card), a ray still alive then
+    keeping its remaining budget; ``init_state``, the dict that an earlier
+    call's ``return_state=True`` returned, continues its rays from
+    ``start_position`` and ``start_direction``, which are then that call's
+    end position and direction.  Rays that are not alive sort last.
+    Neither takes ``record_path``.  On the CPU the brightness fraction of
+    ``init_state`` is read back to the plain march's uint32 brightness, so
+    a resumed light may differ from an uninterrupted one in its last bits
+    (``march_lines_compact`` carries the plain state and does not)."""
     return march_on_table(
         packed, start_position, start_direction, budget, bend_scale=bend_scale, step_scale=step_scale,
         translucency=translucency, absorb=absorb, minimum_brightness=minimum_brightness,
         return_state=return_state, table=table, nb=nb,
         build=build_line_table_cuda, launch=march_lines_cuda, sort=sort_line_rays, record_path=record_path,
+        init_state=init_state, max_steps=max_steps,
+    )
+
+
+def _compact_loop(phase, nb, state, max_phases: int):
+    """The phases of ``march_lines_compact``: sort the rays by line brick
+    and cell (``sort_line_rays``), then, while a ray is alive and fewer
+    than ``max_phases`` phases have run, march them all one phase
+    (``phase``: a state tuple (pos, dirs, remaining, alive, brightness) →
+    the state after its steps) and sort them again by their current cell,
+    the dead ones last (one host sync a phase asks whether any is alive).
+    Returns the end state in the input order."""
+    perm, _ = sort_line_rays(state[0], nb)
+    state = [s[perm] for s in state]
+    for k in range(max_phases):
+        state = list(phase(tuple(state)))
+        if k + 1 == max_phases or not bool((state[3] != 0).any()):
+            break
+        order, _ = sort_line_rays(state[0], nb, state[3] != 0)
+        state = [s[order] for s in state]
+        perm = perm[order]
+    ends = []
+    for s in state:
+        end = torch.empty_like(s)
+        end[perm] = s
+        ends.append(end)
+    return ends
+
+
+def march_lines_compact(
+    packed: torch.Tensor,
+    start_position: torch.Tensor,
+    start_direction: torch.Tensor,
+    budget: int,
+    *,
+    bend_scale,
+    step_scale,
+    translucency: Optional[torch.Tensor] = None,
+    absorb: Optional[torch.Tensor] = None,
+    minimum_brightness: int = 0,
+    phase_steps: Optional[int] = None,
+    max_phases: Optional[int] = None,
+    table: Optional[torch.Tensor] = None,
+    nb: Optional[Tuple[int, int, int]] = None,
+) -> TraceResult:
+    """The scattered-ray march: march every ray ``phase_steps`` steps, sort
+    the survivors again by their current cell, and go on, so that a
+    scattered batch regains the coherence that K2's cell-resident corners
+    need; the counterpart of the JAX package's ``march_lines_compact``.
+    ``phase_steps`` defaults to the budget, one phase: on the H100 every
+    shorter phase lost to it on bench.py's scattered rays (PERF.md), whose
+    rays share no cell for a sort to bring together.
+    Same semantics as ``march_lines``, whose arguments it takes, and on
+    the card the same end state bit for bit: the table is built once (K1)
+    unless given, and each phase is one launch of the capped K2, resumed
+    from the state the last one wrote.  On CPU tensors
+    each phase is the plain march, paused and resumed with its own state,
+    so the result equals the plain march's bit for bit there too.
+
+    ``max_phases`` defaults to ``ceil((budget − 1) / phase_steps)``: every
+    live ray advances ``phase_steps`` steps a phase, so that many phases
+    finish every march.  Fewer return the rays still alive as the JAX
+    package does, with ``end_iteration`` = budget.  ``windows_used`` is
+    ``None``: the TPU driver's ``k_steps``, ``phase_windows``, ``dual``,
+    ``anchor2x``, ``interpret`` and ``precision`` have no counterpart."""
+    if packed.ndim != 4 or packed.shape[-1] != 4:
+        raise ValueError(f"the march needs a 3-D packed field (X, Y, Z, 4), got {tuple(packed.shape)}")
+    if phase_steps is None:
+        phase_steps = budget
+    if phase_steps < 1:
+        raise ValueError(f"phase_steps must be at least 1, got {phase_steps}")
+    if max_phases is None:
+        max_phases = -(-(budget - 1) // phase_steps)
+    bend = tuple(float(v) for v in torch.as_tensor(bend_scale, dtype=torch.float32).expand(3))
+    step = tuple(float(v) for v in torch.as_tensor(step_scale, dtype=torch.float32).expand(3))
+    n = start_position.shape[0]
+    dev = packed.device
+    pos = start_position.to(torch.float32)
+    dirs = start_direction.to(torch.float32)
+
+    if dev.type == "cpu":
+        if absorb is not None and translucency is None:
+            raise ValueError("the plain march on CPU tensors takes translucency, not absorb")
+        nb = line_brick_grid(packed.shape)
+        state = (pos, dirs, torch.full((n,), budget - 1, dtype=torch.int64), torch.ones((n,), dtype=torch.bool),
+                 torch.full((n,), BRIGHTNESS_MAX, dtype=torch.int64))
+
+        def phase(s):
+            end, _ = march_float_state(packed, translucency, s[0], s[1], budget, bend_scale=bend, step_scale=step,
+                                       minimum_brightness=minimum_brightness, init_state=s[2:],
+                                       max_steps=phase_steps)
+            return end.pos, end.direction, end.remaining, end.alive, end.brightness
+
+        end_pos, end_dir, rem, alive, bright = _compact_loop(phase, nb, state, max_phases)
+        light = bright
+    else:
+        has_absorb = translucency is not None or absorb is not None
+        if table is None:
+            absorb = table_inputs(packed, translucency, absorb)
+            table, nb = build_line_table_cuda(packed.contiguous(),
+                                              absorb=None if absorb is None else absorb.contiguous())
+        bounds = tuple(int(s) for s in packed.shape[:3])
+        state = (pos, dirs, torch.full((n,), budget - 1, dtype=torch.int32, device=dev),
+                 torch.ones((n,), dtype=torch.int32, device=dev), torch.ones((n,), dtype=torch.float32, device=dev))
+
+        def phase(s):
+            return march_lines_cuda(table, nb, bounds, *(x.contiguous() for x in s), bend=bend, step=step,
+                                    min_bright=float(minimum_brightness) / BRIGHT_MAX_F, has_absorb=has_absorb,
+                                    max_steps=phase_steps)
+
+        end_pos, end_dir, rem, alive, br = _compact_loop(phase, nb, state, max_phases)
+        light = _light(br)
+    end_remaining = torch.where(alive != 0, 0, rem).to(torch.int64)
+    return TraceResult(
+        end_position=end_pos,
+        end_direction=end_dir,
+        end_iteration=budget - end_remaining,
+        remaining_light=light,
     )
 
 

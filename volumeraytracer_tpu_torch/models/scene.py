@@ -25,7 +25,10 @@ anything launches, and ``"cuda"`` with it raises.  ``"native"`` runs a
 plain 3-D float trace (no path, gradient, translucency or soft
 termination) on the host's C++ library (``native.py``), with
 ``Options.max_cpu`` threads, and raises in fixed mode.
-``Options.minimum_device_rays`` is not consulted.  With
+``Options.minimum_device_rays`` is not consulted.
+``Options.write_instance`` dumps each traced batch with its scene to a
+replay file (``utils/serialization.py``; ``cli.py`` replays it), and
+``Options.loglevel`` < 0 logs each trace.  With
 ``differentiable=True`` the float trace's end positions and directions
 carry gradients to the start positions and directions (and to ``ior`` when
 the scene was built from a tensor that requires grad): the kernel path
@@ -50,8 +53,10 @@ from ..ops.fields import build_packed_field, cropped_translucency
 from ..ops.interp import interp_fixed, interp_linear
 from ..types import (
     BRIGHTNESS_MAX, DIR_UNIT_FIXED, FIX_HALF, FIX_ONE, UINT32_MASK, Options, RayInstance, RaySceneInstance,
-    TraceResult,
+    RaytraceInstance, TraceResult,
 )
+from ..utils import serialization
+from ..utils.logging import get_logger
 
 
 def as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -100,11 +105,12 @@ class RaytraceScene:
         if not bool((ior > 0).all()):
             raise ValueError("refraction-index underflow: ior must be > 0")
         self.options = options or Options()
-        if self.options.write_instance:
-            raise NotImplementedError("Options.write_instance is not ported yet (queue 1, item 14 of ROADMAP.md)")
+        self._log = get_logger(self.options.loglevel)
         self.bounds = tuple(int(s) for s in ior.shape)
         self.dim = ior.ndim
         self.ior = ior
+        # kept for the replay dump only, which needs the values as given
+        self._translucency_raw = translucency if self.options.write_instance else None
         self.packed = build_packed_field(ior, translucency)
         self.translucency_cropped = None if translucency is None else cropped_translucency(translucency)
         self.diff_bounds = tuple(int(s) for s in self.packed.shape[:-1])
@@ -191,6 +197,13 @@ class RaytraceScene:
             invscale = np.ones(self.dim, np.float32)
         invscale = np.broadcast_to(np.asarray(invscale, np.float32), (self.dim,))
         chunk_steps = chunk_steps or self.options.chunk_steps
+
+        if self.options.write_instance:
+            self._dump_instance(start_position, start_direction, invscale, iterations, minimum_brightness,
+                                trace_path, normalize_length, mode)
+        if self.options.loglevel < 0:
+            self._log.info("trace_rays: %d rays, mode=%s kernel=%s budget=%d", int(np.prod(sp_shape[:-1])), mode,
+                           kernel, iterations)
 
         if mode == "fixed":
             pos = as_fixed(start_position, self.device).reshape(-1, self.dim)
@@ -312,6 +325,47 @@ class RaytraceScene:
         res = self._trace_fixed(pos, dirs, False, **march)
         res.end_direction = torch.round(res.end_direction * DIR_UNIT_FIXED).to(torch.int32).to(torch.int16)
         return res
+
+    def _dump_instance(self, start_position, start_direction, invscale, iterations, minimum_brightness,
+                       trace_path, normalize_length, mode) -> str:
+        """Write a replayable instance of the scene and this ray batch, in
+        the JAX package's format and dtypes (host numpy: ior float32,
+        translucency uint32 or all 0xFFFFFFFF, fixed-mode 16.16 positions
+        uint32, float-mode positions as given, directions and invscale
+        float32), so that either package replays it.
+        ``Options.write_instance`` is ``True`` (``debug_raytrace_instance.npz``
+        in the working directory, the reference's file name) or a path; a
+        path ending in ``.vrt`` takes the binary codec.  Returns the path."""
+        tr = self._translucency_raw
+        if tr is None and self.translucency_cropped is not None:
+            raise ValueError("a scene with translucency dumps its instance only if it was built with "
+                             "Options.write_instance set")
+        tr = np.full(self.bounds, BRIGHTNESS_MAX, np.uint32) if tr is None else to_host(tr).astype(np.uint32)
+        if mode == "fixed":
+            pos = to_host(as_fixed(start_position, "cpu")).astype(np.uint32)
+        else:
+            pos = to_host(start_position)
+        inst = RaytraceInstance(
+            RaySceneInstance(self.bounds, to_host(self.ior), tr),
+            RayInstance(
+                pos.reshape(-1, self.dim),
+                to_host(start_direction).astype(np.float32).reshape(-1, self.dim),
+                np.asarray(invscale, np.float32),
+                minimum_brightness=minimum_brightness,
+                iterations=iterations,
+                trace_path=trace_path,
+                normalize_length=normalize_length,
+            ),
+        )
+        path = self.options.write_instance
+        if not isinstance(path, str):
+            path = "debug_raytrace_instance.npz"
+        if path.endswith(".vrt"):
+            serialization.save_instance_binary(path, inst)
+        else:
+            serialization.save_instance(path, inst)
+        self._log.info("wrote replay instance to %s", path)
+        return path
 
     def get_ior(self, position) -> torch.Tensor:
         """Interpolated index at float voxel positions, (N,) float32."""

@@ -32,7 +32,7 @@ it a float translucency) gets a gradient.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -182,9 +182,12 @@ def _fixed_step(
     )
 
 
-def _run_while(step_fn, state: MarchState, budget: int, chunk_steps: int, remat: bool = False) -> MarchState:
+def _run_while(step_fn, state: MarchState, budget: int, chunk_steps: int, remat: bool = False,
+               max_steps: Optional[int] = None) -> MarchState:
     """Run chunks of ``chunk_steps`` steps while any ray is alive (one host
-    sync per chunk).  ``remat``: autograd saves only each chunk's start
+    sync per chunk), and at most ``max_steps`` steps in all when it is
+    given: a ray still alive then keeps its remaining budget, and a later
+    call continues it.  ``remat``: autograd saves only each chunk's start
     state and recomputes the chunk's steps in the backward.  A dead ray's
     step is the identity, so the end state does not depend on how many
     chunks run after the last ray stopped.  An optional state field that
@@ -194,17 +197,20 @@ def _run_while(step_fn, state: MarchState, budget: int, chunk_steps: int, remat:
     chunk_steps = max(1, min(chunk_steps, budget))
     cls = type(state)
 
-    def chunk(*s):
+    def chunk(*s, steps=chunk_steps):
         s = cls(*s)
-        for _ in range(chunk_steps):
+        for _ in range(steps):
             s = step_fn(s)
         return tuple(s)
 
-    while bool(state.alive.any()):
+    done = 0
+    while (max_steps is None or done < max_steps) and bool(state.alive.any()):
+        steps = chunk_steps if max_steps is None else min(chunk_steps, max_steps - done)
         if remat:
-            state = cls(*checkpoint(chunk, *state, use_reentrant=False))
+            state = cls(*checkpoint(chunk, *state, steps=steps, use_reentrant=False))
         else:
-            state = cls(*chunk(*state))
+            state = cls(*chunk(*state, steps=steps))
+        done += steps
     return state
 
 
@@ -277,21 +283,37 @@ def march_float_state(
     nearest: bool = False,
     dir_prescale: float = 1.0,
     per_ray_budget=None,
+    init_state: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    max_steps: Optional[int] = None,
 ):
     """The march's raw end state and its recorded path, or ``None`` (see
-    ``march_float``)."""
+    ``march_float``).  ``init_state``: (remaining int64, alive bool,
+    brightness int64 holding uint32 values), the fields of an earlier
+    call's end state, which then continues from ``start_position`` and
+    ``start_direction`` (that call's end position and direction) in place
+    of a fresh start.  ``max_steps``: stop after that many steps, rays
+    still alive keeping their remaining budget.  Neither takes a recorded
+    path or a soft transmittance."""
     device = packed.device
     n, dim = start_position.shape
     soft = soft_opacity_tau is not None and soft_opacity_tau > 0.0
+    if (init_state is not None or max_steps is not None) and (record_path or soft):
+        raise ValueError("init_state and max_steps take no record_path or soft_opacity_tau")
     direction = start_direction.to(torch.float32)
     if dir_prescale != 1.0:
         direction = direction * float(np.float32(dir_prescale))
+    if init_state is None:
+        remaining = _init_remaining(n, budget, per_ray_budget, opaque_when_positive, device)
+        brightness = torch.full((n,), BRIGHTNESS_MAX, dtype=torch.int64, device=device)
+        alive = torch.ones((n,), dtype=torch.bool, device=device)
+    else:
+        remaining, alive, brightness = init_state
     state = MarchState(
         pos=start_position.to(torch.float32),
         direction=direction,
-        remaining=_init_remaining(n, budget, per_ray_budget, opaque_when_positive, device),
-        brightness=torch.full((n,), BRIGHTNESS_MAX, dtype=torch.int64, device=device),
-        alive=torch.ones((n,), dtype=torch.bool, device=device),
+        remaining=remaining,
+        brightness=brightness,
+        alive=alive,
         trans=torch.ones((n,), dtype=torch.float32, device=device) if soft else None,
     )
 
@@ -310,7 +332,7 @@ def march_float_state(
 
     if record_path:
         return _run_record(step_fn, state, budget, chunk_steps, remat=differentiable)
-    return _run_while(step_fn, state, budget, chunk_steps, remat=differentiable), None
+    return _run_while(step_fn, state, budget, chunk_steps, remat=differentiable, max_steps=max_steps), None
 
 
 def march_float(

@@ -20,7 +20,8 @@ kernels and times them with CUDA events.  Each child records:
 - K5 and K6, each over the point drivers' order (point brick alone) and
   over a (point brick, cell) order, in turns, and the zeroing of K6's
   gradient table, which its wrapper does;
-- K1, K2 (cell order) and K3 (cell order);
+- K1, K2 (cell order; and the digest of its per-ray outputs) and K3
+  (cell order);
 - the line and the point train step (``endpoint_render`` + backward +
   SGD), each ending in a device sync;
 - the SM clock read while K4, K5 and K6 run;
@@ -30,9 +31,9 @@ kernels and times them with CUDA events.  Each child records:
 - the registers, shared memory and spills that ptxas reports (the child
   that builds a version's library has them).
 
-It fails unless K4's output and K5's and K6's per-ray outputs are the
-same, bit for bit, in every child and, for K5 and K6, in both orders.  A
-fifth child, of this checkout, profiles both train steps with
+It fails unless K2's and K4's outputs and K5's and K6's per-ray outputs
+are the same, bit for bit, in every child and, for K5 and K6, in both
+orders.  A fifth child, of this checkout, profiles both train steps with
 ``torch.profiler`` (device time by kernel over three steps after two
 warm-up steps, and the device's busy share).  The summary goes to stdout
 and, with ``--out``, as JSON to that file.  Needs one CUDA device.
@@ -55,9 +56,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 
 #: the port's kernels by the fragment of their (mangled) names; a name takes
-#: the first fragment it holds, so the recording K2 comes before K2
-KERNELS = ("line_table_build", "march_lines_fwd_path", "march_lines_fwd", "march_lines_bwd", "line_table_fold",
-           "march_points_fwd", "march_points_bwd", "march_fixed")
+#: the first fragment it holds, so the recording and the capped K2 come
+#: before K2
+KERNELS = ("line_table_build", "march_lines_fwd_path", "march_lines_fwd_capped", "march_lines_fwd",
+           "march_lines_bwd", "line_table_fold", "march_points_fwd", "march_points_bwd", "march_fixed")
 #: instruction families counted in K4's SASS
 FAMILIES = ("LDGSTS", "LDG", "STG", "LDS", "STS", "BAR", "LDGDEPBAR", "DEPBAR", "MUFU", "I2F", "F2I")
 
@@ -309,6 +311,10 @@ def child(root: Path, profiled: bool) -> dict:
     out["clock_during_k4"] = _clock(torch, k4, 1500)
     del gfull, hi_rows, dst
 
+    def restored(order, outs):
+        inv_o = torch.argsort(order)
+        return _digest(*(r[inv_o] for r in outs))
+
     # K1, K2, K3
     table, lnb = line_table_cuda.build_line_table_cuda(packed)
     out["k1"] = timed(lambda: line_table_cuda.build_line_table_cuda(packed), 10)
@@ -321,6 +327,7 @@ def child(root: Path, profiled: bool) -> dict:
     order, _ = ml.sort_line_rays(p, lnb)
     k2_args = (table, lnb, tuple(packed.shape[:3]), p[order].contiguous(), d[order].contiguous(), rem, alive, br)
     out["k2"] = timed(lambda: ml.march_lines_cuda(*k2_args, **fkw), 10)
+    out["k2_digest"] = restored(order, ml.march_lines_cuda(*k2_args, **fkw))
     fwd, raw = ml.march_lines(packed, p, d, budget, bend_scale=bend, step_scale=step, return_state=True,
                               table=table, nb=lnb)
     nexec = torch.clamp(budget - 1 - raw["remaining"], min=0).to(torch.int32)
@@ -338,10 +345,6 @@ def child(root: Path, profiled: bool) -> dict:
     def k5_over(order):
         args = (ptable, pnb, tuple(packed.shape[:3]), p[order].contiguous(), d[order].contiguous(), rem, alive, br)
         return lambda: mp.march_points_cuda(*args, **fkw)
-
-    def restored(order, outs):
-        inv_o = torch.argsort(order)
-        return _digest(*(r[inv_o] for r in outs))
 
     brick_order, cell_order = point_orders(p, pnb)
     out["k5_brick_order"], out["k5_cell_order"] = turns(k5_over(brick_order), k5_over(cell_order), 10)
@@ -411,12 +414,13 @@ def main() -> None:
 
     runs = [run_child("parent", args.parent), run_child("change", REPO), run_child("change", REPO),
             run_child("parent", args.parent)]
-    for key in ("k4_digest", "k5_digest", "k6_digest"):
+    for key in ("k2_digest", "k4_digest", "k5_digest", "k6_digest"):
         seen = {r[k] for r in runs for k in (key, key + "_cell_order") if k in r}
         if len(seen) != 1:
             raise SystemExit(f"probe_k4k6: {key} differs between the versions or orders: {sorted(seen)}")
-    print(f"K4's output and K5's and K6's per-ray outputs equal across versions, runs and orders (digests "
-          f"{runs[0]['k4_digest']}, {runs[0]['k5_digest']}, {runs[0]['k6_digest']}) [{smi}]")
+    print(f"K2's and K4's outputs and K5's and K6's per-ray outputs equal across versions, runs and orders "
+          f"(digests {runs[0]['k2_digest']}, {runs[0]['k4_digest']}, {runs[0]['k5_digest']}, {runs[0]['k6_digest']}) "
+          f"[{smi}]")
     profiled = run_child("change, profiled", REPO, "--profile")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

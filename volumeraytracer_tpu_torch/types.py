@@ -47,7 +47,9 @@ class Options:
     #: below this many rays the JAX package skips its device kernels; the
     #: port keeps the field but does not consult it on the card
     minimum_device_rays: int = 0x80
-    #: dump every traced instance to a replay file (not ported yet)
+    #: dump every traced instance to a replay file: True for
+    #: ``debug_raytrace_instance.npz`` in the working directory, or a path
+    #: (``.vrt`` for the binary codec)
     write_instance: Any = False
     #: cap on host-side parallelism for native helpers
     max_cpu: int = 256
