@@ -136,7 +136,11 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      with the single launch, K2 and the capped K2 alone over the sorted rays
      in turns, and the capped K2 over the whole march against the capped
      plain march (remaining and alive exact, positions within 1e-4,
-     directions within 1e-6 of |d| = 16); (b) the
+     directions within 1e-6 of |d| = 16), then K1's table, the capped K2
+     and the capped plain march each run again in the same process and
+     every side's outputs digested (it fails if K1's or the capped K2's
+     differ between the runs; the digests are printed to compare runs);
+     (b) the
      scattered fwd+bwd,
      endpoint_render's value and gradient through K1-K4 once each (d_ior
      against kernel="plain" on 4096 of the rays within 1e-3 of its largest
@@ -145,7 +149,33 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      temporary directory and replayed by vrt-replay-torch's main with one F1
      launch each, a float trace's dump replayed with --mode float with one K1
      and one K2 launch, each equal to the direct trace bit for bit, and the
-     built-in 100^3 ramp with one F1 launch, with its "Rays per time" line.
+     built-in 100^3 ramp with one F1 launch, with its "Rays per time" line;
+ 19. data parallelism over torch.distributed, profiling and the image
+     tools: (a) init_distributed() and make_mesh() at world size 1 on the
+     card (a HashStore group, NCCL for CUDA tensors when available), then
+     make_train_step on the bench workload (the 256^3 lens, the 131,044
+     rays, targets 2 voxels past each ray's end): two steps and one with
+     accum_steps=2, K1-K4 launched once per micro-batch, the loss within
+     rtol 1e-5 of endpoint_render + SGD's and (ior - new)/lr within 1e-3 of
+     its largest value, at lr = 1e-2 / max|gradient| (at 1e-6 the update is
+     below half an ulp of the field); the step's time in turns with phase
+     11's line train step and the all_reduce of the gradient's size alone;
+     (b) trace_rays_sharded at world size 1 equal to one march_lines call
+     bit for bit, K1 and K2 once, and their times in turns; (c) two
+     processes (``chip_smoke.py --phase19c-worker``) sharing the card over
+     gloo through init_distributed's tcp:// rendezvous on localhost, with a
+     timeout: one counted train step (K1-K4 once a rank; the loss equal on
+     both ranks bit for bit and within rtol 1e-5 of 19a's, the update within
+     19a's bound) and two timed ones, gloo's all_reduce alone, one
+     trace_rays_sharded equal to 19b's bit for bit, and replicate and
+     shard_batch of the field and the rays; (d) profiling.trace
+     around the fixed bench trace with an annotate span (the trace file
+     names march_fixed and the span), profiling.benchmark's rays/s of that
+     trace and cost_report of endpoint_render on the card; (e) phase 17's
+     1024^2 render through to_uint8 and write_png, read back equal, and
+     through write_jpeg at quality 90, read back within a mean error of 3
+     (tests/test_image_io.py's tolerance), on the host while 19c's
+     processes run.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
@@ -313,11 +343,11 @@ def blob_field(n, depth=22.0):
     return (np.exp(-8.0 * (x * x + (y - 0.3) ** 2 + z * z)) * np.float32(depth / n)).astype(np.float32)
 
 
-def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> None:
+def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.ndarray:
     """The models on the card (see the module doc, phase 17); ``res`` is
     phase 5's kernel="auto" trace of the bench bundle ``pos``, ``dirs``
     through ``scene`` (the 256³ lens ``lens``); the camera has ``width``²
-    pixels."""
+    pixels.  Returns the camera's (width, width, 3) image on the host."""
     import copy
     import dataclasses
     import tempfile
@@ -415,6 +445,7 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> Non
         render_first_s = time.perf_counter() - t0
         no_launch("render_image")
         img, trans = out["image"], out["transmittance"]
+        image = img.cpu().numpy()
         if tuple(img.shape) != (width, width, 3) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"image shape {tuple(img.shape)} or non-finite values")
         if not (bool(((trans >= 0) & (trans <= 1)).all()) and trans.min() < 0.5 and trans.max() > 0.85):
@@ -625,6 +656,61 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> Non
     print(f"phase 17f fit_field on the card, 4 steps then resumed to 8: equal to a straight 8-step run (max diff "
           f"{np.abs(resumed.ior - full.ior).max():.3g}), checkpoints kept {kept}; ray state saved and loaded between "
           f"two legs of 100: equal to one trace of 200")
+    return image
+
+
+def capped_digests(dev, packed256, table, k_args, k_kw, capped, plain_capped) -> dict:
+    """Phase 18a's repeat: K1's table of the 256^3 lens, the capped K2 and
+    the capped plain march over the scattered rays (``k_args``, sorted),
+    each run a second time in this process, every side's outputs digested
+    (sha256 of their bytes, as probes/probe_k4k6.py digests K2's).  The
+    digests are printed with those of the inputs, so that two runs can be
+    compared too (probes/probe_capped.py runs this in several processes),
+    and so is the largest end-direction difference between the capped K2
+    and the capped plain march, over all components and over those outside
+    a per-component rtol 1e-6 + atol 1e-6 (the only ones that
+    ``torch.testing.assert_close`` names when it fails).  Fails if K1's
+    table or the capped K2 differ between the two runs; a plain march that
+    differs is printed.  Returns the digests and the differences."""
+    import torch
+
+    from volumeraytracer_tpu_torch.kernels import line_table_cuda
+    from volumeraytracer_tpu_torch.kernels import march_lines as ml
+    from volumeraytracer_tpu_torch.ops.march import march_float_state
+    from volumeraytracer_tpu_torch.probes.probe_k4k6 import _digest
+
+    kw = dict(bend_scale=BEND, step_scale=STEP)
+    table2, _ = line_table_cuda.build_line_table_cuda(packed256)
+    capped2 = ml.march_lines_cuda(*k_args, max_steps=BUDGET, **k_kw)
+    plain2, _ = march_float_state(packed256, None, k_args[3], k_args[4], BUDGET, max_steps=BUDGET, **kw)
+    torch.cuda.synchronize()
+    state = ("pos", "direction", "remaining", "brightness", "alive")
+    digests = {
+        "packed field": [_digest(packed256)],
+        "sorted scattered rays": [_digest(*k_args[3:5])],
+        "K1 table": [_digest(table), _digest(table2)],
+        "capped K2": [_digest(*capped), _digest(*capped2)],
+        "capped plain march": [_digest(*(getattr(plain_capped, f) for f in state)),
+                               _digest(*(getattr(plain2, f) for f in state))],
+    }
+    print(f"phase 18a repeat in one process (sha256[:16] of each side's outputs, run 1 and run 2): "
+          f"{json.dumps(digests)}")
+    varied = [k for k, v in digests.items() if len(set(v)) > 1]
+    if "K1 table" in varied or "capped K2" in varied:
+        raise AssertionError(f"{varied} differ between two runs on the same inputs in one process")
+    if varied:
+        moved = {f: (getattr(plain_capped, f).double() - getattr(plain2, f).double()).abs().max().item()
+                 for f in state}
+        print(f"phase 18a the capped plain march differs between two runs: max |run 1 - run 2| {moved}")
+    diff = (capped[1] - plain_capped.direction).abs()
+    outside = diff > 1e-6 + 1e-6 * plain_capped.direction.abs()
+    stats = {"dir_max_err": diff.max().item(), "dir_outside_rtol_atol_1e-6": int(outside.sum()),
+            "dir_max_err_outside": diff[outside].max().item() if bool(outside.any()) else 0.0}
+    print(f"phase 18a capped K2 end directions vs the capped plain march: largest difference {stats['dir_max_err']!r}; "
+          f"{stats['dir_outside_rtol_atol_1e-6']} of {diff.numel()} components outside a per-component rtol 1e-6 + "
+          f"atol 1e-6, the largest difference among them {stats['dir_max_err_outside']!r}")
+    del table2, capped2, plain2
+    return {"digests": digests, **stats}
 
 
 def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40, pos40, dirs40, times) -> dict:
@@ -812,6 +898,7 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     torch.testing.assert_close(capped[1], plain_capped.direction, rtol=0, atol=1e-6 * 16.0)
     scat_err = (capped[0] - plain_capped.pos).abs().max().item()
     scat_dir_err = (capped[1] - plain_capped.direction).abs().max().item()
+    capped_digests(dev, packed256, table, k_args, k_kw, capped, plain_capped)
     k2c_err = max(k2c_err, scat_err)
     # its bound: the steps it executed, its ray state (36 B read and written
     # a ray) and the line bricks its rays pass through
@@ -919,6 +1006,288 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
           f"{res.end_iteration.double().mean().item():.1f}): launches {launched}; {line} "
           f"{torch.cuda.get_device_name(0)} {card}")
     return {"launches": compact_launches, "err": k2c_err, "bound": k2c_bound}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase19_worker(rank: int, world: int, coordinator: str, inputs: str, out: str) -> None:
+    """One of phase 19c's processes (``chip_smoke.py --phase19c-worker RANK
+    WORLD HOST:PORT INPUTS OUT``): a gloo group of ``world`` processes on
+    the one card, started by ``init_distributed``; one counted train step
+    of the bench workload and two timed ones, the all_reduce of the
+    gradient's size alone, one ``trace_rays_sharded``, and ``replicate``
+    and ``shard_batch`` of the field and the rays; its results go to
+    ``out`` (``torch.save``)."""
+    import torch
+    import torch.distributed as dist
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.ops.fields import build_packed_field
+    from volumeraytracer_tpu_torch.parallel import (
+        init_distributed, make_mesh, make_train_step, replicate, shard_batch, trace_rays_sharded,
+    )
+
+    info = init_distributed(coordinator_address=coordinator, num_processes=world, process_id=rank, backend="gloo")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _build.load()
+    data = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in torch.load(inputs).items()}
+    ior = torch.from_numpy(lens_field()).to(dev)
+    pos, dirs = (torch.from_numpy(a).to(dev) for a in bench_rays())
+    mesh = make_mesh()
+    placed = torch.equal(replicate(mesh, ior), ior) and torch.equal(
+        shard_batch(mesh, pos), pos[rank * (pos.shape[0] // world):(rank + 1) * (pos.shape[0] // world)])
+    step = make_train_step(mesh, budget=BUDGET, invscale=INV, lr=data["lr"])
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    new, loss = step(ior, pos, dirs, data["targets"])
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    step_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        step(ior, pos, dirs, data["targets"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    buf = torch.zeros(ior.numel() + 1, device=dev)
+    group = mesh.get_group("rays")
+    reduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=group)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    _build.launches.clear()
+    res = trace_rays_sharded(mesh, build_packed_field(ior), data["p"], data["d"], BUDGET, bend_scale=BEND,
+                             step_scale=STEP)
+    torch.cuda.synchronize()
+    torch.save({
+        "info": info, "backend": str(dist.get_backend()), "placed": placed, "launches": launches, "trace_launches":
+        dict(_build.launches), "loss": loss.cpu(), "new": new.cpu(), "step_ms": step_ms, "reduce_ms": reduce_ms,
+        "trace": {f: getattr(res, f).cpu() for f in ("end_position", "end_direction", "end_iteration",
+                                                     "remaining_light")},
+    }, out)
+    dist.destroy_process_group()
+
+
+def phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, line_step, image) -> None:
+    """Data parallelism, profiling and the image tools on the card (see the
+    module doc, phase 19).  ``line_step(ior, kernel)`` is phase 11's line
+    train step; ``image`` phase 17's 1024² render on the host."""
+    import glob
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import march_lines as ml
+    from volumeraytracer_tpu_torch.ops.interp import interp_linear
+    from volumeraytracer_tpu_torch.parallel import (
+        endpoint_render, init_distributed, make_mesh, make_train_step, trace_rays_sharded,
+    )
+    from volumeraytracer_tpu_torch.utils import image_io, profiling
+
+    sync = torch.cuda.synchronize
+    fields = ("end_position", "end_direction", "end_iteration", "remaining_light")
+    n_rays = pos.shape[0]
+    line_kernels = ("line_table_build", "march_lines_fwd", "march_lines_bwd", "line_table_fold")
+
+    # 19a. world size 1 on the card: the group and the mesh
+    info = init_distributed()
+    mesh = make_mesh()
+    group = mesh.get_group("rays")
+    print(f"phase 19a init_distributed() {info}; make_mesh() {mesh}; NCCL available "
+          f"{dist.is_nccl_available()}, backend {dist.get_backend()}")
+
+    # the single-process reference: endpoint_render + backward + SGD of the
+    # step's loss towards targets 2 voxels past each ray's end.  At lr 1e-6
+    # the update (lr·|g|) is below half an ulp of the field and leaves it
+    # unchanged, so the step runs at lr = 1e-2 / max|g|: the largest update
+    # is 1e-2, the field's rounding 1e-5 of the largest gradient
+    with torch.no_grad():
+        ends, _ = endpoint_render(ior256, pos, dirs, BUDGET, INV, 64)
+    targets = ends + torch.tensor([2.0, 0.0, 0.0], device=dev)
+    field = ior256.clone().requires_grad_()
+    end_pos, _ = endpoint_render(field, pos, dirs, BUDGET, INV, 64)
+    ref_loss = ((end_pos - targets) ** 2).sum() / n_rays
+    ref_loss.backward()
+    lr = 1e-2 / field.grad.abs().max().item()
+    ref_update = (ior256 - (ior256 - lr * field.grad)) / lr
+    bound = 1e-3 * ref_update.abs().max().item()
+    del field, end_pos
+
+    def check(name, new, loss, want):
+        torch.testing.assert_close(loss, ref_loss.detach(), rtol=1e-5, atol=0)
+        err = ((ior256 - new) / lr - ref_update).abs().max().item()
+        if not err <= bound:
+            raise AssertionError(f"{name}: update/lr max err {err:.3g} above 1e-3·max|ref| = {bound:.3g}")
+        launched = dict(_build.launches)
+        if launched != {k: want for k in line_kernels}:
+            raise AssertionError(f"{name} launched {launched}, expected K1-K4 {want} each")
+        return err
+
+    steps = {acc: make_train_step(mesh, budget=BUDGET, invscale=INV, lr=lr, accum_steps=acc) for acc in (1, 2)}
+    sync()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    new1, loss1 = steps[1](ior256, pos, dirs, targets)
+    sync()
+    first_s = time.perf_counter() - t0
+    err1 = check("step 1", new1, loss1, 1)
+    _build.launches.clear()
+    new2, loss2 = steps[1](new1, pos, dirs, targets)
+    sync()
+    launched2 = dict(_build.launches)
+    if launched2 != {k: 1 for k in line_kernels} or not loss2 < loss1:
+        raise AssertionError(f"step 2: launches {launched2}, loss {loss2.item()} not below {loss1.item()}")
+    _build.launches.clear()
+    new_a, loss_a = steps[2](ior256, pos, dirs, targets)
+    sync()
+    err_a = check("accum_steps=2", new_a, loss_a, 2)
+    print(f"phase 19a make_train_step 256^3, {n_rays} rays, budget {BUDGET}, lr {lr:.6g}: step 1 loss "
+          f"{loss1.item():.8g} vs endpoint_render + SGD {ref_loss.item():.8g}, update/lr max err {err1:.3g} (bound "
+          f"{bound:.3g}), K1-K4 once each, first call {first_s:.3f} s; step 2 loss {loss2.item():.8g}, K1-K4 once "
+          f"each; accum_steps=2 loss {loss_a.item():.8g}, update/lr max err {err_a:.3g}, K1-K4 twice each")
+    del new2, new_a
+    ior_t = ior256.clone().requires_grad_(True)
+    t_line, t_ws1 = turns(lambda: line_step(ior_t, "auto"), lambda: steps[1](ior256, pos, dirs, targets), 5)
+    buf = torch.zeros(ior256.numel() + 1, device=dev)
+    reduce_ms = timed(lambda: dist.all_reduce(buf, group=group), 10)
+    print(f"phase 19a time train step at world size 1 (one NCCL all_reduce a step): {sum(t_ws1) / 2:.4f} ms (turns "
+          f"{t_ws1}), {n_rays / (sum(t_ws1) / 2) / 1e3:.4f} Mrays/s fwd+bwd; phase 11's line train step in the same "
+          f"turns {sum(t_line) / 2:.4f} ms (turns {t_line}); the all_reduce of the {buf.numel() * 4} B gradient "
+          f"and loss alone {reduce_ms:.4f} ms {card}")
+    del ior_t, buf
+
+    # 19b. trace_rays_sharded at world size 1 against one march_lines call
+    p0 = pos - 0.5
+    d = dirs * interp_linear(ior256, p0)[..., None]
+    p = p0 - 0.5
+    kw = dict(bend_scale=BEND, step_scale=STEP)
+    sync()
+    _build.launches.clear()
+    sharded = trace_rays_sharded(mesh, packed256, p, d, BUDGET, **kw)
+    sync()
+    launched = dict(_build.launches)
+    single = ml.march_lines(packed256, p, d, BUDGET, **kw)
+    sync()
+    bad = [f for f in fields if not torch.equal(getattr(sharded, f), getattr(single, f))]
+    if bad or launched != {"line_table_build": 1, "march_lines_fwd": 1}:
+        raise AssertionError(f"trace_rays_sharded: launches {launched}, differs from march_lines in {bad}")
+    t_single, t_sharded = turns(lambda: ml.march_lines(packed256, p, d, BUDGET, **kw),
+                                lambda: trace_rays_sharded(mesh, packed256, p, d, BUDGET, **kw), 5)
+    print(f"phase 19b trace_rays_sharded world size 1: launches {launched}, equal to one march_lines call bit for "
+          f"bit; time {sum(t_sharded) / 2:.4f} ms (turns {t_sharded}), march_lines in the same turns "
+          f"{sum(t_single) / 2:.4f} ms (turns {t_single}) {card}")
+
+    # 19c. two processes sharing the card over gloo (NCCL refuses two ranks
+    # on one device), started here; 19e runs on the host meanwhile
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"targets": targets.cpu(), "p": p.cpu(), "d": d.cpu(), "lr": lr}, os.path.join(tmp, "in.pt"))
+        coordinator = f"127.0.0.1:{_free_port()}"
+        logs = [open(os.path.join(tmp, f"log{r}.txt"), "w+") for r in range(world)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase19c-worker", str(r), str(world),
+                                   coordinator, os.path.join(tmp, "in.pt"), os.path.join(tmp, f"out{r}.pt")],
+                                  stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+        try:
+            # 19e. the image tools on phase 17's render
+            img8 = image_io.to_uint8(image)
+            png, jpg = os.path.join(tmp, "render.png"), os.path.join(tmp, "render.jpg")
+            t0 = time.perf_counter()
+            image_io.write_png(png, img8)
+            back = image_io.read_png(png)
+            png_s = time.perf_counter() - t0
+            if not np.array_equal(back, img8):
+                raise AssertionError("the render's PNG read back differs")
+            t0 = time.perf_counter()
+            image_io.write_jpeg(jpg, img8, quality=90)
+            jback = image_io.read_jpeg(jpg)
+            jpg_s = time.perf_counter() - t0
+            jerr = float(np.abs(jback.astype(np.float64) - img8).mean())
+            if jback.shape != img8.shape or not jerr < 3.0:
+                raise AssertionError(f"the render's JPEG: shape {jback.shape}, mean error {jerr}")
+            print(f"phase 19e image tools: the {img8.shape} render as uint8, PNG {os.path.getsize(png)} B written "
+                  f"and read back equal ({png_s:.2f} s), JPEG quality 90 {os.path.getsize(jpg)} B, mean error "
+                  f"{jerr:.4f} (< 3) ({jpg_s:.2f} s, host)")
+
+            deadline = time.monotonic() + 400
+            while any(q.poll() is None for q in procs):
+                if any(q.poll() not in (None, 0) for q in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                q.wait()
+        failed = []
+        for r, (q, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if q.returncode != 0:
+                failed.append(f"rank {r} exited {q.returncode}:\n{text[-4000:]}")
+        if failed:
+            raise AssertionError("phase 19c workers failed or timed out:\n" + "\n".join(failed))
+        outs = [torch.load(os.path.join(tmp, f"out{r}.pt")) for r in range(world)]
+    if not (torch.equal(outs[0]["loss"], outs[1]["loss"]) and torch.equal(outs[0]["new"], outs[1]["new"])):
+        raise AssertionError("the two ranks' losses or fields differ")
+    torch.testing.assert_close(outs[0]["loss"].to(dev), loss1, rtol=1e-5, atol=0)
+    err2 = ((ior256 - outs[0]["new"].to(dev)) / lr - ref_update).abs().max().item()
+    if not err2 <= bound:
+        raise AssertionError(f"two ranks: update/lr max err {err2:.3g} above 1e-3·max|ref| = {bound:.3g}")
+    for r, o in enumerate(outs):
+        if not o["placed"]:
+            raise AssertionError(f"rank {r}: replicate or shard_batch placed the field or the rays wrongly")
+        if o["launches"] != {k: 1 for k in line_kernels} or \
+                o["trace_launches"] != {"line_table_build": 1, "march_lines_fwd": 1}:
+            raise AssertionError(f"rank {r}: launches {o['launches']}, trace {o['trace_launches']}")
+        bad = [f for f in fields if not torch.equal(o["trace"][f].to(dev), getattr(sharded, f))]
+        if bad:
+            raise AssertionError(f"rank {r}: trace_rays_sharded differs from 19b's in {bad}")
+    print(f"phase 19c two processes on the card over gloo ({outs[0]['info']}, backend {outs[0]['backend']}): "
+          f"train step loss {outs[0]['loss'].item():.8g} equal on both ranks, vs world size 1 "
+          f"{loss1.item():.8g}; update/lr max err vs endpoint_render + SGD {err2:.3g} (bound {bound:.3g}); K1-K4 "
+          f"once a rank; trace_rays_sharded equal to 19b's bit for bit on both ranks, K1 and K2 once a rank; "
+          f"replicate (a gloo broadcast of the field) and shard_batch right on both")
+    for r, o in enumerate(outs):
+        print(f"phase 19c time rank {r}: train step {o['step_ms']} ms (host clock, two steps), gloo all_reduce of "
+              f"the gradient and loss {o['reduce_ms']} ms (host clock, staged by gloo through the host) {card}")
+    del outs
+
+    # 19d. profiling: a trace of the fixed bench trace with a span, its
+    # rate, and the cost report of endpoint_render on the card
+    pos_fix = (pos.double() * 65536.0).round().to(torch.int64)
+    fixed_kw = dict(invscale=[INV] * 3, iterations=BUDGET, mode="fixed")
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.trace(log_dir):
+            with profiling.annotate("phase19d_fixed_trace"):
+                scene.trace_rays(pos_fix, dirs, **fixed_kw)
+                sync()
+        files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        size = len(text)
+    if "march_fixed" not in text or "phase19d_fixed_trace" not in text:
+        raise AssertionError(f"profiling.trace wrote {files}: march_fixed {'march_fixed' in text}, span "
+                             f"{'phase19d_fixed_trace' in text}")
+    rate = profiling.benchmark(lambda: scene.trace_rays(pos_fix, dirs, **fixed_kw), reps=5, rays=n_rays)
+    cost = profiling.cost_report(endpoint_render, ior256, pos, dirs, BUDGET, INV, 64)
+    top = sorted(cost["ops"].items(), key=lambda kv: -kv[1])[:8]
+    print(f"phase 19d profiling.trace of the fixed trace: {size} B of Chrome trace naming march_fixed and the span; "
+          f"benchmark {rate['rays_per_s'] / 1e6:.4f} Mrays/s ({rate['seconds_per_call'] * 1e3:.4f} ms a call, host "
+          f"clock) {card}")
+    print(f"phase 19d cost_report endpoint_render (forward, kernels not counted): {cost['cost']}, {cost['memory']}, "
+          f"{sum(cost['ops'].values())} torch ops, the most dispatched {top}")
+    dist.destroy_process_group()
 
 
 def main() -> None:
@@ -1874,11 +2243,15 @@ def main() -> None:
 
     # 17. the models: native, cameras, image fitting, harmonic, OpticalVolume,
     # checkpoints (the kernels line below reads the counts saved above)
-    phase17(dev, t, timed, card, lens, scene, pos, dirs, res)
+    image = phase17(dev, t, timed, card, lens, scene, pos, dirs, res)
 
     # 18. the scattered rays (compaction over the capped K2, fwd+bwd) and
     # capture and replay (write_instance, vrt-replay-torch)
     k2c = phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40, pos40, dirs40, times)
+
+    # 19. data parallelism over torch.distributed (world size 1 over NCCL,
+    # two processes sharing the card over gloo), profiling, the image tools
+    phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, train_step, image)
 
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,
@@ -1944,4 +2317,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase19c-worker"]:
+        phase19_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    else:
+        main()

@@ -31,7 +31,13 @@ capped instantiation of the forward march kernel, and
 ``march_lines(max_steps=, init_state=)``); and capture and replay
 (``Options.write_instance``, the instance files of
 ``utils/serialization.py``, which the JAX package reads and writes too,
-and the replay CLI ``vrt-replay-torch``, ``cli.py``).
+and the replay CLI ``vrt-replay-torch``, ``cli.py``); data parallelism
+over ``torch.distributed``, one process a device (``parallel/``:
+``init_distributed``, ``make_mesh``, ``make_host_mesh``,
+``trace_rays_sharded`` and ``make_train_step`` with ``accum_steps``, whose
+shards run the same kernels); and the image tools and profiling
+(``utils/image_io.py`` with ``utils/jpeg.py``, the same bytes as the JAX
+package's, and ``utils/profiling.py`` on ``torch.profiler``).
 """
 
 from .kernels.march_bwd import march_lines_diff, march_pallas_diff

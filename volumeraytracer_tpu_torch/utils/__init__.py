@@ -1,2 +1,3 @@
-"""Host-side utilities of the port: instance serialization and logging
-(numpy and the standard library only)."""
+"""Host-side utilities of the port: instance serialization, logging, the
+image codecs (PNG, baseline JPEG) and the stack exporter (numpy and the
+standard library only), and profiling (``torch.profiler``, CUDA events)."""
