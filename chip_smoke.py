@@ -175,7 +175,29 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      1024^2 render through to_uint8 and write_png, read back equal, and
      through write_jpeg at quality 90, read back within a mean error of 3
      (tests/test_image_io.py's tolerance), on the host while 19c's
-     processes run.
+     processes run;
+ 20. the brick-sharded field (parallel/bricks.py, plain torch, no kernel)
+     at BASELINE config 5's 512^3 lens with bench.py's 131,072 scattered
+     rays (workloads.build_scattered_rays(grid=512)) at |d| = 1, the trace
+     at budget 512 and k_steps 64, the train step at budget 256, k_steps
+     32 and lr = 1e-2 / max|gradient|, each checked against the whole
+     field's plain march_float (iterations exact, positions and
+     directions within rtol 1e-5 / atol 1e-4) and endpoint_render(kernel=
+     "plain") + SGD (each slab's update/lr within rtol 2e-3 / atol 1e-6 of
+     the gradient cell by cell, the loss within rtol 1e-5, both steps'
+     losses finite and equal on every rank), with no kernel launched and
+     the share of rays that end in another brick than they start (at
+     least 0.3 for the trace at 4 bricks): (a) world size 1 over NCCL,
+     one brick; (b) 2 and 4 processes sharing the card over gloo
+     (``chip_smoke.py --phase20-worker``), which read their slabs from
+     memory maps of the fields that the main process writes once, every
+     rank's trace equal bit for bit and the overlap copies of adjacent
+     slabs bit-identical after two steps; (c) 4 processes as 2 rays x 2
+     bricks (make_mesh2d, trace_rays_bricked2d, make_brick_train_step2d);
+     for each, a rank's trace and step times (host clock with a sync),
+     windows, the all_reduce of one window's buffer and the halo exchange
+     of a slab's strips alone, and the memory each call allocated above
+     its start.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
@@ -1290,6 +1312,327 @@ def phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, line_s
     dist.destroy_process_group()
 
 
+#: phase 20's volume (BASELINE config 5's 512³), its scattered rays' count,
+#: and the trace's and the train step's budgets and windows
+P20_GRID, P20_RAYS = 512, 131072
+P20_TRACE, P20_TRAIN = dict(budget=512, k_steps=64), dict(budget=256, k_steps=32)
+
+
+def _p20_windows(bricks):
+    """Count the brick marches' windows from here on: a list whose one
+    element each ``_combine_window`` call increments."""
+    count = [0]
+    combine = bricks._combine_window
+
+    def counted(*args):
+        count[0] += 1
+        return combine(*args)
+
+    bricks._combine_window = counted
+    return count
+
+
+def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dict:
+    """One rank's phase 20 work on ``mesh`` (1-D "bricks", or ("rays",
+    "bricks") when ``two_d``): the trace, two train steps, the all_reduce of
+    one window's buffer and the halo exchange of a slab's gradient alone;
+    times on the host clock with a sync, windows, peak memory, launches."""
+    import torch
+    import torch.distributed as dist
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.parallel import bricks
+
+    sync = torch.cuda.synchronize
+    group = mesh.get_group("bricks")
+    num = mesh.size(mesh.mesh_dim_names.index("bricks"))
+    windows = _p20_windows(bricks)
+    out = {}
+    kw = dict(bend_scale=BEND, step_scale=STEP, k_steps=P20_TRACE["k_steps"])
+    # the group's first collective sets up its communicator (NCCL's ~1 s)
+    dist.all_reduce(torch.zeros(1, device=pos.device), group=group)
+    _build.launches.clear()
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if two_d:
+        res = bricks.trace_rays_bricked2d(mesh, packed, pos, dirs, P20_TRACE["budget"], **kw)
+    else:
+        res = bricks.trace_rays_bricked(mesh, packed, pos, dirs, P20_TRACE["budget"], **kw)
+    sync()
+    out["trace_ms"] = (time.perf_counter() - t0) * 1e3
+    out["trace_mem"] = torch.cuda.max_memory_allocated() - base
+    out["trace_windows"] = windows[0]
+    out["trace"] = {f: getattr(res, f).cpu() for f in ("end_position", "end_direction", "end_iteration")}
+    del res
+
+    slab = bricks.shard_slabs(mesh, bricks.build_ior_slabs(ior, num)[0])
+    x_packed = int(ior.shape[0]) - 2
+    tkw = dict(budget=P20_TRAIN["budget"], invscale=INV, k_steps=P20_TRAIN["k_steps"], lr=lr)
+    if two_d:
+        step = bricks.make_brick_train_step2d(mesh, x_packed, pos.shape[0], **tkw)
+    else:
+        step = bricks.make_brick_train_step(mesh, x_packed, **tkw)
+    windows[0] = 0
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses, new = [], [], slab
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        new, loss = step(new, pos, dirs, targets)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.cpu())
+        if len(losses) == 1:
+            out["update"] = (slab - new).cpu()
+            out["train_windows"] = windows[0]
+    out["train_mem"] = torch.cuda.max_memory_allocated() - base
+    out.update(step_ms=step_ms, losses=losses, launches=dict(_build.launches), slab_bytes=slab.numel() * 4,
+               strips=(new[:bricks.IOR_OVERLAP].cpu(), new[-bricks.IOR_OVERLAP:].cpu()))
+
+    buf = torch.zeros((pos.shape[0] // (2 if two_d else 1), 8), device=pos.device)
+    g = torch.ones_like(slab)
+    reduce_ms, exchange_ms = [], []
+    for _ in range(3):
+        for fn, ms in ((lambda: dist.all_reduce(buf, group=group), reduce_ms),
+                       (lambda: bricks.exchange_overlap_grads(g, group, num), exchange_ms)):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(reduce_ms=reduce_ms, exchange_ms=exchange_ms, buf_bytes=buf.numel() * 4)
+    return out
+
+
+def phase20_worker(rank: int, world: int, coordinator: str, tmp: str, mode: str) -> None:
+    """One of phase 20's processes (``chip_smoke.py --phase20-worker RANK
+    WORLD HOST:PORT DIR MODE``): a gloo group of ``world`` processes on the
+    one card, started by ``init_distributed``; the packed field and the
+    index field are read from memory maps of ``DIR``'s .npy files (only
+    this rank's slabs reach the card), the rays and targets from
+    ``DIR/in.pt``; ``_p20_rank_run`` over ``world`` bricks (MODE "1d") or
+    a 2 × 2 ``make_mesh2d`` (MODE "2d"); its results go to
+    ``DIR/out_MODE_WORLD_RANK.pt``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from volumeraytracer_tpu_torch.parallel import init_distributed, make_mesh
+    from volumeraytracer_tpu_torch.parallel.bricks import make_mesh2d
+
+    init_distributed(coordinator_address=coordinator, num_processes=world, process_id=rank, backend="gloo")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    data = torch.load(os.path.join(tmp, "in.pt"))
+    packed, ior = (torch.from_numpy(np.load(os.path.join(tmp, f"{k}.npy"), mmap_mode="c")) for k in ("packed", "ior"))
+    mesh = make_mesh2d(2, 2) if mode == "2d" else make_mesh(axis="bricks")
+    out = _p20_rank_run(mesh, packed, ior, data["pos"].to(dev), data["dirs"].to(dev), data["targets"].to(dev),
+                        data["lr"], mode == "2d")
+    out["backend"] = str(dist.get_backend())
+    torch.save(out, os.path.join(tmp, f"out_{mode}_{world}_{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _p20_group(tmp: str, world: int, mode: str, timeout: float = 240.0) -> list:
+    """Run ``world`` phase 20 workers on the card and return their results;
+    a worker that fails or a group that outlives ``timeout`` seconds kills
+    every worker and raises with its output."""
+    import os
+
+    import torch
+
+    coordinator = f"127.0.0.1:{_free_port()}"
+    logs = [open(os.path.join(tmp, f"log_{mode}_{world}_{r}.txt"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase20-worker", str(r), str(world),
+                               coordinator, tmp, mode], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(q.poll() is None for q in procs):
+            if any(q.poll() not in (None, 0) for q in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+            q.wait()
+    failed = []
+    for r, (q, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if q.returncode != 0:
+            failed.append(f"rank {r} exited {q.returncode}:\n{text[-4000:]}")
+    if failed:
+        raise AssertionError(f"phase 20 {mode} workers ({world}) failed or timed out:\n" + "\n".join(failed))
+    return [torch.load(os.path.join(tmp, f"out_{mode}_{world}_{r}.pt")) for r in range(world)]
+
+
+def phase20(dev, card) -> None:
+    """The brick-sharded field on the card (see the module doc, phase 20)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from volumeraytracer_tpu_torch.ops.fields import build_packed_field
+    from volumeraytracer_tpu_torch.ops.march import march_float
+    from volumeraytracer_tpu_torch.parallel import endpoint_render, make_mesh
+    from volumeraytracer_tpu_torch.parallel.bricks import IOR_OVERLAP, slab_cells
+    from volumeraytracer_tpu_torch.workloads import build_scattered_rays
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    ior_np = lens_field(P20_GRID)
+    ior = torch.from_numpy(ior_np).to(dev)
+    packed = build_packed_field(ior)
+    x_packed = P20_GRID - 2
+    pos_np, dirs_np = build_scattered_rays(P20_RAYS, grid=P20_GRID, seed=0)
+    pos, dirs = torch.from_numpy(pos_np).to(dev), torch.from_numpy(dirs_np / 16.0).to(dev)
+
+    # the references on the whole field: the plain march (the trace, in the
+    # packed frame) and endpoint_render(kernel="plain") + SGD (the step,
+    # towards targets 2 voxels past each ray's end, at lr = 1e-2 / max|g|:
+    # at 1e-6 the update is below half an ulp of the field)
+    sync()
+    t0 = time.perf_counter()
+    ref = march_float(packed, None, pos, dirs, P20_TRACE["budget"], bend_scale=BEND, step_scale=STEP)
+    sync()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        ends, _ = endpoint_render(ior, pos, dirs, P20_TRAIN["budget"], INV, P20_TRAIN["k_steps"], kernel="plain")
+    targets = ends + torch.tensor([2.0, 0.0, 0.0], device=dev)
+    field = ior.clone().requires_grad_()
+    sync()
+    t0 = time.perf_counter()
+    end_pos, _ = endpoint_render(field, pos, dirs, P20_TRAIN["budget"], INV, P20_TRAIN["k_steps"], kernel="plain")
+    ref_loss = ((end_pos - targets) ** 2).sum(-1).mean()
+    ref_loss.backward()
+    sync()
+    ref_step_ms = (time.perf_counter() - t0) * 1e3
+    g_full, ref_loss = field.grad, ref_loss.detach()
+    lr = 1e-2 / g_full.abs().max().item()
+    del field, end_pos
+
+    def brick_of(x, num):
+        return torch.clamp(torch.floor(x) // slab_cells(x_packed, num), 0, num - 1)
+
+    shares = {num: ((brick_of(ref.end_position[:, 0], num) != brick_of(pos[:, 0], num)).double().mean().item(),
+                    (brick_of(ends[:, 0] - 1.0, num) != brick_of(pos[:, 0] - 1.0, num)).double().mean().item())
+              for num in (2, 4)}
+    print(f"phase 20 lens_field({P20_GRID}), {P20_RAYS} scattered rays (|d| = 1), trace budget {P20_TRACE['budget']} "
+          f"k_steps {P20_TRACE['k_steps']}, train budget {P20_TRAIN['budget']} k_steps {P20_TRAIN['k_steps']}, lr "
+          f"{lr:.6g}; rays ending in another brick than they start: "
+          + ", ".join(f"{num} bricks trace {a:.4f} train {b:.4f}" for num, (a, b) in shares.items())
+          + f"; references: plain march_float {ref_ms:.1f} ms, endpoint_render(kernel='plain') + backward "
+          f"{ref_step_ms:.1f} ms (host clock) {card}")
+    if not shares[4][0] >= 0.3:
+        raise AssertionError(f"only {shares[4][0]:.4f} of the trace's rays cross a face at 4 bricks")
+
+    def check_trace(name, got):
+        if not torch.equal(got["end_iteration"].to(dev), ref.end_iteration):
+            bad = int((got["end_iteration"].to(dev) != ref.end_iteration).sum())
+            raise AssertionError(f"{name}: iterations differ from march_float on {bad} rays")
+        for k in ("end_position", "end_direction"):
+            torch.testing.assert_close(got[k].to(dev), getattr(ref, k), rtol=1e-5, atol=1e-4, msg=f"{name}: {k}")
+        return (got["end_position"].to(dev) - ref.end_position).abs().max().item()
+
+    def check_update(name, update, d, num):
+        """(slab − new)/lr of brick ``d`` against the whole field's gradient,
+        cell by cell (slab-local l is global l + d·xs − 1)."""
+        lo = d * slab_cells(x_packed, num) - 1
+        a, b = max(0, -lo), min(update.shape[0], P20_GRID - lo)
+        g, want = update[a:b].to(dev) / lr, g_full[lo + a:lo + b]
+        err = (g - want).abs()
+        bad = int((err > 1e-6 + 2e-3 * want.abs()).sum())
+        if bad:
+            raise AssertionError(f"{name} brick {d}: {bad} cells outside rtol 2e-3 / atol 1e-6 of the gradient, "
+                                 f"max err {err.max().item():.3g}")
+        return err.max().item()
+
+    def check_loss(name, losses):
+        """Each step's loss equal on every rank and finite, the first within
+        rtol 1e-5 of the reference's.  (The second need not fall: an update
+        of up to 1e-2 of the index bends rays ~100 voxels long well past
+        the gradient's reach.)"""
+        for k in range(2):
+            if not all(torch.equal(x[k], losses[0][k]) for x in losses) or not torch.isfinite(losses[0][k]):
+                raise AssertionError(f"{name}: step {k + 1}'s loss differs between ranks or is not finite: "
+                                     f"{[x[k].item() for x in losses]}")
+        torch.testing.assert_close(losses[0][0].to(dev), ref_loss, rtol=1e-5, atol=0, msg=f"{name}: loss")
+
+    def report(name, outs):
+        gmax = g_full.abs().max().item()
+        for r, o in enumerate(outs):
+            print(f"phase 20 {name} rank {r}: trace {o['trace_ms']:.1f} ms ({o['trace_windows']} windows), train "
+                  f"steps {[round(x, 1) for x in o['step_ms']]} ms ({o['train_windows']} windows), all_reduce of a "
+                  f"window's {o['buf_bytes']} B buffer "
+                  f"{[round(x, 3) for x in o['reduce_ms']]} ms, halo exchange (all_gather_into_tensor) of a "
+                  f"{o['slab_bytes']} B slab's strips {[round(x, 3) for x in o['exchange_ms']]} ms (host clock); "
+                  f"max_memory_allocated above the call's start: trace {o['trace_mem'] / 2**30:.3f} GiB, train "
+                  f"{o['train_mem'] / 2**30:.3f} GiB; backend {o.get('backend', 'nccl')}; launches {o['launches']} {card}")
+        print(f"phase 20 {name}: gradient max err {max(o['grad_err'] for o in outs):.3g} (max|g| {gmax:.3g}), "
+              f"trace position max err {max(o['pos_err'] for o in outs):.3g}, loss {outs[0]['losses'][0].item():.8g} "
+              f"vs {ref_loss.item():.8g}, then {outs[0]['losses'][1].item():.8g}")
+
+    # 20a. world size 1 over NCCL, one brick
+    mesh = make_mesh(axis="bricks")
+    backend = dist.get_backend()
+    o = _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, False)
+    if o["launches"]:
+        raise AssertionError(f"the brick path launched kernels: {o['launches']}")
+    o.update(pos_err=check_trace("20a trace", o["trace"]), grad_err=check_update("20a", o["update"], 0, 1))
+    check_loss("20a", [o["losses"]])
+    o["backend"] = backend
+    report("20a world size 1", [o])
+    dist.destroy_process_group()
+    del o
+    # the workers allocate on the same card: hand back what this process's
+    # caching allocator keeps from the earlier phases
+    torch.cuda.empty_cache()
+
+    # 20b, 20c. processes sharing the card over gloo (NCCL refuses two ranks
+    # on one device): 2 and 4 bricks, then 2 rays × 2 bricks
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "ior.npy"), ior_np)
+        np.save(os.path.join(tmp, "packed.npy"), packed.cpu().numpy())
+        torch.save({"pos": pos.cpu(), "dirs": dirs.cpu(), "targets": targets.cpu(), "lr": lr},
+                   os.path.join(tmp, "in.pt"))
+        for world, mode in ((2, "1d"), (4, "1d"), (4, "2d")):
+            t0 = time.perf_counter()
+            outs = _p20_group(tmp, world, mode)
+            wall = time.perf_counter() - t0
+            num = 2 if mode == "2d" else world
+            name = "20c 2x2" if mode == "2d" else f"20b {world} bricks"
+            for r, o in enumerate(outs):
+                if o["launches"]:
+                    raise AssertionError(f"{name} rank {r}: the brick path launched kernels: {o['launches']}")
+                for k in ("end_position", "end_direction", "end_iteration"):
+                    if not torch.equal(o["trace"][k], outs[0]["trace"][k]):
+                        raise AssertionError(f"{name}: rank {r}'s trace {k} differs from rank 0's")
+                o["pos_err"] = check_trace(f"{name} rank {r}", o["trace"])
+                d = r % num
+                o["grad_err"] = check_update(name, o["update"], d, num)
+                if d + 1 < num:
+                    right, left = o["strips"][1], outs[r + 1]["strips"][0]
+                    if not torch.equal(right, left):
+                        raise AssertionError(f"{name}: bricks {d}/{d + 1} overlap copies differ after two steps")
+                if mode == "2d" and r >= num and not torch.equal(o["update"], outs[r - num]["update"]):
+                    raise AssertionError(f"{name}: rank {r}'s update differs from rank {r - num}'s")
+            check_loss(name, [o["losses"] for o in outs])
+            print(f"phase 20 {name}: {world} processes on the card over gloo, {wall:.1f} s with their start; "
+                  f"every check passed, overlaps of {IOR_OVERLAP} cells bit-identical after two steps")
+            report(name, outs)
+            del outs
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -2253,6 +2596,10 @@ def main() -> None:
     # two processes sharing the card over gloo), profiling, the image tools
     phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, train_step, image)
 
+    # 20. the brick-sharded field at 512^3 (world size 1 over NCCL; 2 and 4
+    # processes sharing the card over gloo; 2 rays x 2 bricks)
+    phase20(dev, card)
+
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,
     # alive, br: 36 B a ray) and writes it, a replay reads 52 B a ray (end
@@ -2319,5 +2666,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase19c-worker"]:
         phase19_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    elif sys.argv[1:2] == ["--phase20-worker"]:
+        phase20_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     else:
         main()

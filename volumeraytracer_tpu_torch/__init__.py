@@ -35,9 +35,15 @@ and the replay CLI ``vrt-replay-torch``, ``cli.py``); data parallelism
 over ``torch.distributed``, one process a device (``parallel/``:
 ``init_distributed``, ``make_mesh``, ``make_host_mesh``,
 ``trace_rays_sharded`` and ``make_train_step`` with ``accum_steps``, whose
-shards run the same kernels); and the image tools and profiling
-(``utils/image_io.py`` with ``utils/jpeg.py``, the same bytes as the JAX
-package's, and ``utils/profiling.py`` on ``torch.profiler``).
+shards run the same kernels; and the brick-sharded field of
+``parallel/bricks.py``, X-slabs one a rank with the exactly-once window
+combine and the halo-gradient exchange, ``trace_rays_bricked``,
+``make_brick_train_step`` and their ("rays", "bricks") versions, whose
+slab march is plain torch as in the JAX package, with the departures its
+docstring lists); and the image tools
+and profiling (``utils/image_io.py`` with ``utils/jpeg.py``, the same
+bytes as the JAX package's, and ``utils/profiling.py`` on
+``torch.profiler``).  Every module of the JAX package has its counterpart.
 """
 
 from .kernels.march_bwd import march_lines_diff, march_pallas_diff
