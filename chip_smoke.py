@@ -78,11 +78,14 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      recording K2 (march_lines_fwd_path) against the plain recorded march on
      the phase 4 scenes (lens40 without and with its translucency, rays
      along line-brick faces): iterations exact, path within 1e-4, the start
-     in row 0, back-filled rows equal to the end position bit for bit, and
-     the end state equal to the unrecorded K2's bit for bit; (b) the main
-     path at full size, trace_rays(mode="float", trace_path=True) on the
-     bench bundle, with exactly one K1 and one recording-K2 launch, checked
-     against kernel="plain" and its end state against phase 5's; (c) the
+     in row 0, back-filled rows equal to the end position bit for bit, the
+     path with offset 1.0 (path_offset, the scene's +1 voxel) equal to the
+     path + 1.0 bit for bit, and the end state equal to the unrecorded K2's
+     bit for bit; (b) the main path at full size, trace_rays(mode="float",
+     trace_path=True) on the bench bundle, with exactly one K1 and one
+     recording-K2 launch, checked against kernel="plain", its path equal to
+     march_lines' path + 1.0 bit for bit and its end state equal to phase
+     5's; (c) the
      differentiable recorded trace at full size, K1, the recording K2, K3
      and K4 once each, per-ray gradients equal to the non-recording run's
      bit for bit and d_ior within 1e-3 of its largest value; (d) soft
@@ -119,9 +122,15 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      checkpoints, 4 steps then a resume to 8 equal to a straight 8-step run,
      and a save_ray_state / load_ray_state round trip between two legs of a
      trace;
- 18. the scattered rays and capture and replay: (a) the capped K2
-     (march_lines_fwd_capped, K2's body stopping each ray after max_steps
-     steps of a launch) against the capped plain march on the phase 4 lens40
+ 18. the scattered rays and capture and replay: (a) the corner build
+     (corner_table_build, the capped K2's table) equal to its plain version
+     and to a gather of K1's table bit for bit at 256^3 and on lens40 with
+     its translucency; the capped K2 (march_lines_fwd_capped, K2's body
+     over the corner table, stopping each ray after max_steps steps of a
+     launch) with a cap of the whole budget equal to K2 over K1's table bit
+     for bit (pos, dir, remaining, alive, brightness) on lens40 without and
+     with translucency, on the scattered bundle and on the coherent bench
+     bundle; the capped K2 against the capped plain march on the phase 4 lens40
      scenes without and with translucency at caps 7 and 50 (iterations,
      alive and remaining exact, positions within 1e-4), and resumed launch
      after launch to the end equal to one uncapped launch bit for bit; then
@@ -129,17 +138,19 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      directions, |d| = 16) through the 256^3 lens at budget 512, the table
      built once: the single K2 launch against the plain march (iterations
      exact, positions within 1e-4), march_lines_compact at its default (one
-     phase of the whole budget) and at 64 steps a phase with one K1 launch,
-     one capped K2 launch a phase and no uncapped K2, its loop at
+     phase of the whole budget) and at 64 steps a phase with one corner
+     build, one capped K2 launch a phase and nothing else, its loop at
      phase_steps 32, 64, 128, 256 and 512, and the public pause at 100 steps
      and resume, each equal to the single launch bit for bit; times in turns
      with the single launch, K2 and the capped K2 alone over the sorted rays
      in turns, and the capped K2 over the whole march against the capped
      plain march (remaining and alive exact, positions within 1e-4,
-     directions within 1e-6 of |d| = 16), then K1's table, the capped K2
-     and the capped plain march each run again in the same process and
-     every side's outputs digested (it fails if K1's or the capped K2's
-     differ between the runs; the digests are printed to compare runs);
+     directions within 1e-6 of |d| = 16), then the corner table, the
+     capped K2 and the capped plain march each run again in the same
+     process and every side's outputs digested (it fails if the corner
+     table or the capped K2 differ between the runs; the digests are
+     printed to compare runs); the corner build's time and its plain
+     version's;
      (b) the
      scattered fwd+bwd,
      endpoint_render's value and gradient through K1-K4 once each (d_ior
@@ -202,8 +213,8 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
 the point training step, F1 on the fixed trace, the recording K2 on the
-recorded float trace, the capped K2 on march_lines_compact over the
-scattered rays), error against its plain
+recorded float trace, the capped K2 and the corner build on
+march_lines_compact over the scattered rays), error against its plain
 version, times, its bound (the larger of its float32 operations over 67
 TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
 executed steps; the recording K2's bytes include its path) and its library
@@ -682,8 +693,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
 
 
 def capped_digests(dev, packed256, table, k_args, k_kw, capped, plain_capped) -> dict:
-    """Phase 18a's repeat: K1's table of the 256^3 lens, the capped K2 and
-    the capped plain march over the scattered rays (``k_args``, sorted),
+    """Phase 18a's repeat: the corner table of the 256^3 lens (``table``),
+    the capped K2 over it and the capped plain march over the scattered
+    rays (``k_args``, sorted),
     each run a second time in this process, every side's outputs digested
     (sha256 of their bytes, as probes/probe_k4k6.py digests K2's).  The
     digests are printed with those of the inputs, so that two runs can be
@@ -691,9 +703,10 @@ def capped_digests(dev, packed256, table, k_args, k_kw, capped, plain_capped) ->
     and so is the largest end-direction difference between the capped K2
     and the capped plain march, over all components and over those outside
     a per-component rtol 1e-6 + atol 1e-6 (the only ones that
-    ``torch.testing.assert_close`` names when it fails).  Fails if K1's
-    table or the capped K2 differ between the two runs; a plain march that
-    differs is printed.  Returns the digests and the differences."""
+    ``torch.testing.assert_close`` names when it fails).  Fails if the
+    corner table or the capped K2 differ between the two runs; a plain
+    march that differs is printed.  Returns the digests and the
+    differences."""
     import torch
 
     from volumeraytracer_tpu_torch.kernels import line_table_cuda
@@ -702,7 +715,7 @@ def capped_digests(dev, packed256, table, k_args, k_kw, capped, plain_capped) ->
     from volumeraytracer_tpu_torch.probes.probe_k4k6 import _digest
 
     kw = dict(bend_scale=BEND, step_scale=STEP)
-    table2, _ = line_table_cuda.build_line_table_cuda(packed256)
+    table2, _ = line_table_cuda.build_corner_table_cuda(packed256)
     capped2 = ml.march_lines_cuda(*k_args, max_steps=BUDGET, **k_kw)
     plain2, _ = march_float_state(packed256, None, k_args[3], k_args[4], BUDGET, max_steps=BUDGET, **kw)
     torch.cuda.synchronize()
@@ -710,7 +723,7 @@ def capped_digests(dev, packed256, table, k_args, k_kw, capped, plain_capped) ->
     digests = {
         "packed field": [_digest(packed256)],
         "sorted scattered rays": [_digest(*k_args[3:5])],
-        "K1 table": [_digest(table), _digest(table2)],
+        "corner table": [_digest(table.points), _digest(table2.points)],
         "capped K2": [_digest(*capped), _digest(*capped2)],
         "capped plain march": [_digest(*(getattr(plain_capped, f) for f in state)),
                                _digest(*(getattr(plain2, f) for f in state))],
@@ -718,7 +731,7 @@ def capped_digests(dev, packed256, table, k_args, k_kw, capped, plain_capped) ->
     print(f"phase 18a repeat in one process (sha256[:16] of each side's outputs, run 1 and run 2): "
           f"{json.dumps(digests)}")
     varied = [k for k, v in digests.items() if len(set(v)) > 1]
-    if "K1 table" in varied or "capped K2" in varied:
+    if "corner table" in varied or "capped K2" in varied:
         raise AssertionError(f"{varied} differ between two runs on the same inputs in one process")
     if varied:
         moved = {f: (getattr(plain_capped, f).double() - getattr(plain2, f).double()).abs().max().item()
@@ -750,7 +763,10 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     from volumeraytracer_tpu_torch import Options, RaytraceScene, cli, endpoint_render
     from volumeraytracer_tpu_torch.kernels import _build, line_table_cuda
     from volumeraytracer_tpu_torch.kernels import march_lines as ml
-    from volumeraytracer_tpu_torch.kernels.line_table import LBX, LBY, LBZ
+    from volumeraytracer_tpu_torch.kernels.line_table import (
+        LBX, LBY, LBZ, LCH, LL, LPY, TCH, absorption_fraction, build_corner_table, corner_lattice,
+    )
+    from volumeraytracer_tpu_torch.ops.interp import interp_linear
     from volumeraytracer_tpu_torch.ops.march import _finish, march_float, march_float_state
     from volumeraytracer_tpu_torch.workloads import build_scattered_rays
 
@@ -761,6 +777,70 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     def differs(a, b):
         """The fields in which two trace results are not equal bit for bit."""
         return [f for f in fields if not torch.equal(getattr(a, f), getattr(b, f))]
+
+    def gather(line, nb):
+        """The corner table's values gathered from the line table ``line``
+        of the brick grid ``nb`` at every lattice point (the last brick owns
+        the far faces): channels 0-2 as hi + lo, the opacity, the
+        absorption (tests/test_torch_corner_table.py's ``_gather``)."""
+        px, py, pz = corner_lattice(nb)
+        x, y, z = (torch.arange(k, device=dev) for k in (px, py, pz))
+        bx, by, bz = (torch.clamp(v // s, max=k - 1) for v, s, k in ((x, LBX, nb[0]), (y, LBY, nb[1]), (z, LBZ, nb[2])))
+        at = (((bx * nb[1])[:, None, None] + by[None, :, None]) * nb[2] + bz[None, None, :]) * line[0].numel() \
+            + ((z - bz * LBZ) * TCH * LL)[None, None, :] + ((x - bx * LBX) * LPY)[:, None, None] \
+            + (y - by * LBY)[None, :, None]
+        flat = line.reshape(-1)
+
+        def ch(c):
+            return flat[at + c * LL]
+
+        return torch.stack([ch(0) + ch(LCH), ch(1) + ch(LCH + 1), ch(2) + ch(LCH + 2), ch(3)], dim=-1), ch(4)
+
+    def capped_equals_uncapped(name, line, corners, nb, shape, p, d, has_absorb=False, min_bright=0.0):
+        """The capped K2 over the corner table with a cap of the whole budget
+        against the uncapped K2 over the line table, from the same sorted
+        state: pos, dir, remaining, alive and brightness equal bit for bit."""
+        n_r = p.shape[0]
+        order, _ = ml.sort_line_rays(p, nb)
+        st = (p[order].contiguous(), d[order].contiguous(),
+              torch.full((n_r,), BUDGET - 1, dtype=torch.int32, device=dev),
+              torch.ones((n_r,), dtype=torch.int32, device=dev), torch.ones((n_r,), dtype=torch.float32, device=dev))
+        k = dict(bend=(BEND,) * 3, step=(STEP,) * 3, min_bright=min_bright, has_absorb=has_absorb)
+        a = ml.march_lines_cuda(line, nb, shape, *st, **k)
+        b = ml.march_lines_cuda(corners, nb, shape, *st, max_steps=BUDGET, **k)
+        sync()
+        bad = [f for f, x, y in zip(("pos", "dir", "remaining", "alive", "brightness"), a, b) if not torch.equal(x, y)]
+        if bad:
+            raise AssertionError(f"the capped K2 over the corner table differs from K2 over the line table on {name} "
+                                 f"in {bad}")
+        print(f"phase 18a capped K2 over the corner table vs K2 over the line table, {name} ({n_r} rays, budget "
+              f"{BUDGET}, {int((st[2] - a[2]).sum())} steps): pos, dir, remaining, alive, brightness equal bit for bit")
+
+    # 18a. the corner build against its plain version and against a gather
+    # of K1's table, bit for bit; the capped K2 over it against K2 over K1's
+    # table on the phase 4 scenes (lens40 without and with its translucency)
+    kc_err = 0.0
+    absorb40 = absorption_fraction(trc40).contiguous()
+    for name, packed, a in (("256^3", packed256, None), ("lens40 + translucency", packed40, absorb40)):
+        got, nb = line_table_cuda.build_corner_table_cuda(packed, a)
+        ref, nb_ref = build_corner_table(packed, absorb=a)
+        line, _ = line_table_cuda.build_line_table_cuda(packed, a)
+        from_line = gather(line, nb)
+        sync()
+        if nb != nb_ref or not torch.equal(got.points, ref.points) or not torch.equal(got.points, from_line[0]):
+            raise AssertionError(f"the corner build differs from its plain version or from K1's table at {name}")
+        if a is not None and not (torch.equal(got.absorb, ref.absorb) and torch.equal(got.absorb, from_line[1])):
+            raise AssertionError(f"the corner build's absorption differs from its plain version or K1's at {name}")
+        kc_err = max(kc_err, (got.points - ref.points).abs().max().item())
+        print(f"phase 18a corner build {name}: points {tuple(got.points.shape)}"
+              f"{'' if a is None else ' and absorption'} equal to the plain build and to a gather of K1's table "
+              f"bit for bit")
+        del from_line, ref
+    line40, nb40 = line_table_cuda.build_line_table_cuda(packed40, absorb40)
+    corners40, _ = line_table_cuda.build_corner_table_cuda(packed40, absorb40)
+    for name, a, mb in (("lens40", False, 0.0), ("lens40 + translucency", True, 0.5)):
+        capped_equals_uncapped(name, line40, corners40, nb40, tuple(packed40.shape[:3]), pos40, dirs40, a, mb)
+    del line40, corners40, line
 
     # 18a. the capped K2 against the capped plain march on the phase 4
     # scenes, and over several launches against one uncapped launch
@@ -801,7 +881,9 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     pos, dirs = t(pos_np), t(dirs_np)
     n_rays = pos.shape[0]
     table, nb = line_table_cuda.build_line_table_cuda(packed256)
+    corners, _ = line_table_cuda.build_corner_table_cuda(packed256)
     on = dict(table=table, nb=nb, **kw)
+    on_c = dict(table=corners, nb=nb, **kw)
     sync()
     _build.launches.clear()
     single = ml.march_lines(packed256, pos, dirs, BUDGET, **on)
@@ -817,8 +899,15 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
           f"plain march iterations equal, pos max err {(single.end_position - plain.end_position).abs().max().item():.3g}"
           f"; {scat_steps} steps, {int((single.end_iteration == BUDGET).sum())} rays exhausted the budget")
     del plain
+    shape256 = tuple(packed256.shape[:3])
+    capped_equals_uncapped("the scattered rays", table, corners, nb, shape256, pos, dirs)
+    bench_pos, bench_dirs = bench_rays()
+    bp, bd = t(bench_pos), t(bench_dirs)
+    bd = bd * interp_linear(ior256, bp - 0.5)[..., None]
+    capped_equals_uncapped("the coherent bench bundle", table, corners, nb, shape256, bp - 1.0, bd)
+    del bp, bd
 
-    # the counted runs: K1 once, the capped K2 once a phase, no uncapped K2;
+    # the counted runs: the corner build once, the capped K2 once a phase;
     # at the default (one phase of the whole budget) and at 64 steps a phase
     for ps in (None, 64):
         sync()
@@ -828,7 +917,7 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
         launched = dict(_build.launches)
         steps_a_phase = ps or BUDGET
         phases = min(-(-(BUDGET - 1) // steps_a_phase), -(-int(single.end_iteration.max()) // steps_a_phase))
-        want = {"line_table_build": 1, "march_lines_fwd_capped": phases}
+        want = {"corner_table_build": 1, "march_lines_fwd_capped": phases}
         if launched != want:
             raise AssertionError(f"march_lines_compact (phase_steps {steps_a_phase}) launched {launched}, expected "
                                  f"{want}")
@@ -849,7 +938,7 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
                  torch.ones((n_rays,), dtype=torch.int32, device=dev),
                  torch.ones((n_rays,), dtype=torch.float32, device=dev))
         return ml._compact_loop(lambda st: ml.march_lines_cuda(
-            table, nb, tuple(packed256.shape[:3]), *(x.contiguous() for x in st), bend=(BEND,) * 3,
+            corners, nb, shape256, *(x.contiguous() for x in st), bend=(BEND,) * 3,
             step=(STEP,) * 3, min_bright=0.0, has_absorb=False, max_steps=ps), nb, state,
             -(-(BUDGET - 1) // ps))
 
@@ -863,7 +952,7 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
             raise AssertionError(f"compaction phase_steps {ps} differs from the single launch")
     print(f"phase 18a compaction at phase_steps {list(sweep)}: equal to the single launch bit for bit")
 
-    r1, s1 = ml.march_lines(packed256, pos, dirs, BUDGET, max_steps=100, return_state=True, **on)
+    r1, s1 = ml.march_lines(packed256, pos, dirs, BUDGET, max_steps=100, return_state=True, **on_c)
     r2 = ml.march_lines(packed256, r1.end_position, r1.end_direction, BUDGET, init_state=s1, **on)
     sync()
     bad = differs(r2, single)
@@ -882,7 +971,7 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
               f"{scat_steps / (sum(t_comp) / 2) / 1e6:.4f} Gsteps/s; single launch in the same turns "
               f"{sum(t_single) / 2:.4f} ms (turns {t_single}), {scat_steps / (sum(t_single) / 2) / 1e6:.4f} Gsteps/s "
               f"{card}")
-    api_ms = timed(lambda: ml.march_lines_compact(packed256, pos, dirs, BUDGET, **on), 5)
+    api_ms = timed(lambda: ml.march_lines_compact(packed256, pos, dirs, BUDGET, **on_c), 5)
     print(f"phase 18a time march_lines_compact (default: one phase, table given): {api_ms:.4f} ms, "
           f"{scat_steps / api_ms / 1e6:.4f} Gsteps/s {card}")
 
@@ -893,9 +982,9 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     rem = torch.full((n_rays,), BUDGET - 1, dtype=torch.int32, device=dev)
     alive = torch.ones((n_rays,), dtype=torch.int32, device=dev)
     br = torch.ones((n_rays,), dtype=torch.float32, device=dev)
-    k_args = (table, nb, tuple(packed256.shape[:3]), pos[order].contiguous(), dirs[order].contiguous(), rem, alive, br)
+    k_args = (corners, nb, shape256, pos[order].contiguous(), dirs[order].contiguous(), rem, alive, br)
     k_kw = dict(bend=(BEND,) * 3, step=(STEP,) * 3, min_bright=0.0, has_absorb=False)
-    t_k2, t_k2c = turns(lambda: ml.march_lines_cuda(*k_args, **k_kw),
+    t_k2, t_k2c = turns(lambda: ml.march_lines_cuda(table, *k_args[1:], **k_kw),
                         lambda: ml.march_lines_cuda(*k_args, max_steps=BUDGET, **k_kw), 10)
     times["k2c"] = sum(t_k2c) / 2
     t64 = timed(lambda: ml.march_lines_cuda(*k_args, max_steps=64, **k_kw), 10)
@@ -920,20 +1009,35 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     torch.testing.assert_close(capped[1], plain_capped.direction, rtol=0, atol=1e-6 * 16.0)
     scat_err = (capped[0] - plain_capped.pos).abs().max().item()
     scat_dir_err = (capped[1] - plain_capped.direction).abs().max().item()
-    capped_digests(dev, packed256, table, k_args, k_kw, capped, plain_capped)
+    capped_digests(dev, packed256, corners, k_args, k_kw, capped, plain_capped)
     k2c_err = max(k2c_err, scat_err)
     # its bound: the steps it executed, its ray state (36 B read and written
-    # a ray) and the line bricks its rays pass through
+    # a ray) and the corner records of the cells its rays pass through (65
+    # points along each ray's straight segment, ~0.25 voxel apart; a cell's
+    # corners are the lattice points of its clamped cell and the next ones)
     capped_steps = int((rem - capped[2]).sum())
-    frac = torch.linspace(0.0, 1.0, 17, device=dev)
+    frac = torch.linspace(0.0, 1.0, 65, device=dev)
     seg = (k_args[3][:, None, :] + frac[None, :, None] * (capped[0] - k_args[3])[:, None, :]).reshape(-1, 3)
-    k2c_bytes = 72 * n_rays + int(torch.unique(ml._brick_and_cell(seg, nb, (LBX, LBY, LBZ))[0]).numel()) \
-        * table[0].numel() * 4
+    lattice = corner_lattice(nb)
+    extent = torch.tensor([k - 2 for k in lattice], device=dev)
+    cells = torch.unique(torch.minimum(torch.clamp(torch.floor(seg).long(), min=0), extent), dim=0)
+    corner = torch.tensor([[(o >> 2) & 1, (o >> 1) & 1, o & 1] for o in range(8)], device=dev)
+    pts = (cells[:, None, :] + corner).reshape(-1, 3)
+    n_records = int(torch.unique((pts[:, 0] * lattice[1] + pts[:, 1]) * lattice[2] + pts[:, 2]).numel())
+    k2c_bytes = 72 * n_rays + 16 * n_records
     k2c_bound = kernel_bound(MARCH_OPS * capped_steps, k2c_bytes)
     print(f"phase 18a capped K2 over the whole scattered march vs the capped plain march ({times['k2c_plain']:.4f} "
-          f"ms, one run): remaining and alive exact, pos max err {scat_err:.3g}, dir max err {scat_dir_err:.3g}; {capped_steps} steps, "
-          f"{k2c_bytes} B of ray state and bricks {card}")
-    del table, capped, plain_capped, seg
+          f"ms, one run): remaining and alive exact, pos max err {scat_err:.3g}, dir max err {scat_dir_err:.3g}; "
+          f"{capped_steps} steps, {k2c_bytes} B of ray state and corner records ({n_records} of "
+          f"{corners.points.shape[0] * corners.points.shape[1] * corners.points.shape[2]}) {card}")
+    # the corner build's time, its plain version's and its bound: the packed
+    # field read once, the records written once
+    times["kc"] = timed(lambda: line_table_cuda.build_corner_table_cuda(packed256), 10)
+    times["kc_plain"] = timed(lambda: build_corner_table(packed256), 3)
+    kc_bound = kernel_bound(0, packed256.numel() * 4 + corners.points.numel() * 4)
+    print(f"phase 18a time corner build 256^3: {times['kc']:.4f} ms, plain {times['kc_plain']:.4f} ms; K1 (phase 7) "
+          f"{times['k1']:.4f} ms {card}")
+    del table, corners, capped, plain_capped, seg, cells, pts
 
     # 18b. scattered fwd+bwd: endpoint_render's value and gradient through
     # K1-K4 (no compaction: the JAX package has no adjoint for it)
@@ -995,7 +1099,6 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
             raise AssertionError(f"vrt-replay-torch {argv}: exit {rc}, {len(seen)} traces")
         return seen[0], dict(_build.launches), out.getvalue().strip()
 
-    bench_pos, bench_dirs = bench_rays()
     pos_fix = np.round(bench_pos.astype(np.float64) * 65536.0).astype(np.uint32)
     with tempfile.TemporaryDirectory() as tmp:
         for suffix in (".npz", ".vrt"):
@@ -1027,7 +1130,7 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     print(f"phase 18c replay of the built-in 100^3 ramp ({res.end_position.shape[0]} rays, mean end iteration "
           f"{res.end_iteration.double().mean().item():.1f}): launches {launched}; {line} "
           f"{torch.cuda.get_device_name(0)} {card}")
-    return {"launches": compact_launches, "err": k2c_err, "bound": k2c_bound}
+    return {"launches": compact_launches, "err": k2c_err, "bound": k2c_bound, "kc_err": kc_err, "kc_bound": kc_bound}
 
 
 def _free_port() -> int:
@@ -2453,17 +2556,22 @@ def main() -> None:
     ):
         kw = dict(bend_scale=BEND, step_scale=STEP)
         got = ml.march_lines(packed, fpos, fdirs, budget, translucency=tr, record_path=True, **kw)
+        shifted = ml.march_lines(packed, fpos, fdirs, budget, translucency=tr, record_path=True, path_offset=1.0, **kw)
         unrec = ml.march_lines(packed, fpos, fdirs, budget, translucency=tr, **kw)
         ref = march_float(packed, tr, fpos, fdirs, budget, chunk_steps=64, record_path=True, **kw)
         sync()
         torch.testing.assert_close(got.end_iteration, ref.end_iteration, rtol=0, atol=0)
         err = check_path(f"recording K2 {name} budget {budget}", got, ref.path, fpos, budget)
-        if not all(torch.equal(getattr(got, f), getattr(unrec, f)) for f in fields_):
+        if not all(torch.equal(getattr(r, f), getattr(unrec, f)) for f in fields_ for r in (got, shifted)):
             raise AssertionError(f"recording K2 {name} budget {budget}: end state differs from K2's")
+        if not torch.equal(shifted.path, got.path + 1.0):
+            raise AssertionError(f"recording K2 {name} budget {budget}: the path with offset 1.0 differs from "
+                                 f"path + 1.0")
         print(f"phase 16a recording K2 {name}, budget {budget}: iterations exact "
               f"({int(got.end_iteration.min())}-{int(got.end_iteration.max())}), path {tuple(got.path.shape)} max err "
-              f"{err:.3g}, back-fill exact; end state equal to K2's bit for bit")
-    del got, unrec, ref
+              f"{err:.3g}, back-fill exact; with offset 1.0 equal to path + 1.0 bit for bit; end state equal to "
+              f"K2's bit for bit")
+    del got, shifted, unrec, ref
 
     # 16b. the recorded float trace at full size: K1 and the recording K2
     sync()
@@ -2488,10 +2596,18 @@ def main() -> None:
     path_fwd_plain_ms = start.elapsed_time(stop)
     torch.testing.assert_close(pres.end_iteration, pplain.end_iteration, rtol=0, atol=0)
     k2p_err = check_path("recorded trace 256^3", pres, pplain.path, pos, BUDGET)
+    del pplain
+    # the scene's +1 voxel, now added by the recording K2 as it writes the
+    # path, against the path + 1.0 that the scene added before
+    direct = ml.march_lines(scene.packed, p, d, BUDGET, bend_scale=BEND, step_scale=STEP, record_path=True)
+    sync()
+    if not torch.equal(pres.path, direct.path + 1.0):
+        raise AssertionError("the recorded trace's path differs from the recording K2's path + 1.0")
     print(f"phase 16b recorded trace 256^3, {n_rays} rays, budget {BUDGET}: launches {path_launches}, first call "
           f"{path_first_s:.3f} s; path {tuple(pres.path.shape)} ({pres.path.numel() * 4 / 1e6:.1f} MB) max err vs "
-          f"plain {k2p_err:.3g}, back-fill exact; end state equal to the unrecorded trace's bit for bit")
-    del pres, pplain
+          f"plain {k2p_err:.3g}, back-fill exact, equal to march_lines' path + 1.0 bit for bit; end state equal to "
+          f"the unrecorded trace's bit for bit")
+    del pres, direct
 
     # 16c. the differentiable recorded trace at full size: K1-K4 once each,
     # gradients as without the path
@@ -2562,7 +2678,8 @@ def main() -> None:
     order, _ = ml.sort_line_rays(p, nb)
     k2_args = (table, nb, tuple(packed256.shape[:3]), p[order].contiguous(), d[order].contiguous(), rem, alive, br)
     k2_unrec, k2_rec = turns(lambda: ml.march_lines_cuda(*k2_args, **k2_kw),
-                             lambda: ml.march_lines_cuda(*k2_args, path_row=order, path_len=BUDGET + 1, **k2_kw), 10)
+                             lambda: ml.march_lines_cuda(*k2_args, path_row=order, path_len=BUDGET + 1,
+                                                         path_offset=1.0, **k2_kw), 10)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     march_float(packed256, None, p, d, BUDGET, bend_scale=BEND, step_scale=STEP, record_path=True)
@@ -2626,11 +2743,13 @@ def main() -> None:
         # the recording K2: K2's, plus each ray's int64 path row read and
         # its (budget + 1) × 3 float32 path written
         "k2p": kernel_bound(MARCH_OPS * steps, 80 * n_rays + line_bytes + n_rays * (BUDGET + 1) * 12),
-        # the capped K2: one phase over the scattered bundle (phase 18)
+        # the capped K2: one phase over the scattered bundle, and the corner
+        # build (phase 18)
         "k2c": k2c["bound"],
+        "kc": k2c["kc_bound"],
     }
     for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
-                       ("f1", "F1"), ("k2p", "recording K2"), ("k2c", "capped K2")):
+                       ("f1", "F1"), ("k2p", "recording K2"), ("k2c", "capped K2"), ("kc", "corner build")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
@@ -2649,6 +2768,8 @@ def main() -> None:
         ("k2p", "march_lines_fwd_path", "march_lines_fwd.cu", "kernels/march_lines.py:190", path_launches, k2p_err),
         ("k2c", "march_lines_fwd_capped", "march_lines_fwd.cu", "kernels/march_lines.py:190", k2c["launches"],
          k2c["err"]),
+        ("kc", "corner_table_build", "corner_table_build.cu", "kernels/line_table_pallas.py:108", k2c["launches"],
+         k2c["kc_err"]),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,

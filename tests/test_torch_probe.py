@@ -127,3 +127,26 @@ def test_k4_sweep_variant_source():
         + "}  // namespace" + src.rsplit("}  // namespace", 1)[1] + sweep_k4.EXPORT
     with pytest.raises(ValueError, match="NSTAGE"):
         sweep_k4.variant_source(src.replace("constexpr int NSTAGE", "constexpr int RING"), 2, 2)
+
+
+def test_fwd_probe_variant_sources():
+    """probe_fwd's variants of march_lines_fwd.cu: the pinned reload changes
+    the capped K2's corner-table address and nothing else, the staging
+    sweep sets PK and NBUF, and a source without them raises."""
+    from pathlib import Path
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.probes import probe_fwd
+
+    src = (Path(_build.__file__).parent / "csrc" / "march_lines_fwd.cu").read_text()
+    pinned = probe_fwd.pinned_source(src)
+    changed = [(a, b) for a, b in zip(src.splitlines(), pinned.splitlines()) if a != b]
+    assert len(changed) == 1 and changed[0][0].strip() == probe_fwd.PINS[0][0]
+    line_only = src.replace(probe_fwd.PINS[0][0], "")
+    assert probe_fwd.pinned_source(line_only) == line_only.replace(*probe_fwd.PINS[1])
+    v = probe_fwd.pk_source(src, 24, 2)
+    assert "constexpr int PK = 24;" in v and "constexpr int NBUF = 2;" in v
+    with pytest.raises(ValueError, match="NBUF"):
+        probe_fwd.pk_source(src.replace("constexpr int NBUF", "constexpr int NBUFS"), 8, 1)
+    with pytest.raises(ValueError, match="reload"):
+        probe_fwd.pinned_source(line_only.replace(probe_fwd.PINS[1][0], ""))

@@ -34,7 +34,7 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = tuple(
     _HERE / "csrc" / name
     for name in (
-        "line_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu",
+        "line_table_build.cu", "corner_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu",
         "march_points_fwd.cu", "march_points_bwd.cu", "march_fixed.cu",
     )
 )
@@ -51,10 +51,11 @@ _MARCH_FWD = (
     _I, _F, _F, _F, _F, _F, _F, _F, _I, _P,  # n, bend, step, min_bright, has_absorb, stream
 )
 #: the recording K2: the forward march's arguments with the path, its rows,
-#: its length and its row stride before n
-_MARCH_FWD_PATH = _MARCH_FWD[:17] + (_P, _P, _I, _I) + _MARCH_FWD[17:]
-#: the capped K2: the forward march's arguments with the step cap before n
-_MARCH_FWD_CAPPED = _MARCH_FWD[:17] + (_I,) + _MARCH_FWD[17:]
+#: its length, its row stride and the offset added to it before n
+_MARCH_FWD_PATH = _MARCH_FWD[:17] + (_P, _P, _I, _I, _F) + _MARCH_FWD[17:]
+#: the capped K2: the forward march's arguments with the corner table's
+#: absorption after its records and the step cap before n
+_MARCH_FWD_CAPPED = _MARCH_FWD[:1] + (_P,) + _MARCH_FWD[1:17] + (_I,) + _MARCH_FWD[17:]
 _MARCH_BWD = (
     _P, _P, _I, _I, _I,  # table, gtable, nb
     _P, _P, _P, _P, _P,  # end pos, end dir, nexec, d_pos, d_dir
@@ -63,6 +64,7 @@ _MARCH_BWD = (
 )
 _SIGNATURES = {
     "vrt_line_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "vrt_corner_table_build": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vrt_march_lines_fwd": _MARCH_FWD,
     "vrt_march_lines_fwd_path": _MARCH_FWD_PATH,
     "vrt_march_lines_fwd_capped": _MARCH_FWD_CAPPED,

@@ -18,11 +18,20 @@ version of the build kernel (``line_table_cuda.py``).  ``fold_line_grads``
 is the adjoint of its addressing, which turns a gradient table of the same
 shape into the packed field's gradient: the plain version of the fold
 kernel.
+
+The capped K2 marches over a ``CornerTable`` instead: the same points as one
+lattice, (nbx·10+1, nby·10+1, nbz·8+1) with z fastest, each point one
+16-byte record (dx_hi + dx_lo, dy_hi + dy_lo, dz_hi + dz_lo, opacity_hi),
+and, with absorption, a float array of the absorption's hi at the same
+points.  A cell's 8 corners are then 8 records, the two z-corners of each
+(x, y) adjacent.  The sums are the float32 adds that K2 makes when it loads
+a cell from the line table, so both tables give the march the same floats.
+``build_corner_table`` is its plain build.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -100,6 +109,42 @@ def build_line_table(
     t = t.unfold(0, LPX, LBX).unfold(1, LPY, LBY).unfold(2, LPZ, LBZ)
     t = t.permute(0, 1, 2, 6, 3, 4, 5).reshape(nbx * nby * nbz, LS, NLINES)
     return torch.nn.functional.pad(t, (0, LL - NLINES)), nb
+
+
+class CornerTable(NamedTuple):
+    """The capped K2's table (see the module docstring): ``points``
+    (PX, PY, PZ, 4) float32 records and ``absorb``, the (PX, PY, PZ)
+    float32 absorption hi, or None for a field without absorption."""
+
+    points: torch.Tensor
+    absorb: Optional[torch.Tensor]
+
+    @property
+    def device(self) -> torch.device:
+        return self.points.device
+
+
+def corner_lattice(nb) -> Tuple[int, int, int]:
+    """The corner table's point lattice (PX, PY, PZ) over the brick grid
+    ``nb``: the line bricks' padded point grid."""
+    return (nb[0] * LBX + 1, nb[1] * LBY + 1, nb[2] * LBZ + 1)
+
+
+def build_corner_table(
+    packed: torch.Tensor,
+    translucency: Optional[torch.Tensor] = None,
+    *,
+    absorb: Optional[torch.Tensor] = None,
+) -> Tuple[CornerTable, Tuple[int, int, int]]:
+    """The ``CornerTable`` of ``packed`` and its brick grid, from the values
+    that ``build_line_table`` stores at each point (``table_points``);
+    arguments as ``build_line_table``'s."""
+    absorb = table_inputs(packed, translucency, absorb)
+    nb = line_brick_grid(packed.shape)
+    t = table_points(packed, absorb, corner_lattice(nb))
+    points = torch.stack([t[..., 0] + t[..., LCH], t[..., 1] + t[..., LCH + 1], t[..., 2] + t[..., LCH + 2],
+                          t[..., 3]], dim=-1)
+    return CornerTable(points, None if absorb is None else t[..., 4].contiguous()), nb
 
 
 def _overlap_add(w: torch.Tensor, axis: int, step: int) -> torch.Tensor:

@@ -48,14 +48,15 @@ _LAYOUTS = {
 
 class _MarchDiff(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, packed, pos, dirs, translucency, budget, bend, step, min_bright, max_steps, layout, record_path):
+    def forward(ctx, packed, pos, dirs, translucency, budget, bend, step, min_bright, max_steps, layout, record_path,
+                path_offset):
         build, replay, fold = _LAYOUTS[layout]
         absorb = None if translucency is None else absorption_fraction(translucency).contiguous()
         table, nb = build(packed.contiguous(), absorb=absorb)
         res, raw = march_pallas(
             packed, pos, dirs, budget, bend_scale=bend, step_scale=step,
             translucency=translucency, minimum_brightness=min_bright, return_state=True,
-            table=table, nb=nb, layout=layout, record_path=record_path,
+            table=table, nb=nb, layout=layout, record_path=record_path, path_offset=path_offset,
         )
         nexec = torch.clamp(budget - 1 - raw["remaining"].to(torch.int32), min=0)
         ctx.table, ctx.nb = table, nb
@@ -85,7 +86,7 @@ class _MarchDiff(torch.autograd.Function):
         d_packed = ctx.fold(gtable, ctx.packed_shape, ctx.nb)
         # a cut replay left adjoints half propagated: make that loud
         poison = torch.where(residual.any(), float("nan"), 1.0)
-        return d_packed * poison, d_pos0 * poison, d_dir0 * poison, None, None, None, None, None, None, None, None
+        return d_packed * poison, d_pos0 * poison, d_dir0 * poison, None, None, None, None, None, None, None, None, None
 
 
 def march_pallas_diff(
@@ -101,6 +102,7 @@ def march_pallas_diff(
     max_steps: Optional[int] = None,
     layout: str = "points",
     record_path: bool = False,
+    path_offset: float = 0.0,
 ) -> TraceResult:
     """Differentiable march: a ``TraceResult`` whose ``end_position`` and
     ``end_direction`` carry gradients to ``packed`` (X, Y, Z, 4),
@@ -112,8 +114,8 @@ def march_pallas_diff(
     (default ``budget``: never cut), the counterpart of the JAX
     ``max_windows``.  ``record_path`` (line layout only): ``path`` is
     ``march_lines``' (N, budget + 1, 3) path from the recording forward
-    (the recording K2 on the card), without a gradient; the end positions
-    and directions keep theirs."""
+    (the recording K2 on the card, plus ``path_offset``), without a
+    gradient; the end positions and directions keep theirs."""
     if layout not in _LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
     if record_path and layout != "lines":
@@ -123,6 +125,7 @@ def march_pallas_diff(
     end_pos, end_dir, end_iter, light, path = _MarchDiff.apply(
         packed, start_position, start_direction, translucency, int(budget), bend, step,
         int(minimum_brightness), int(budget if max_steps is None else max_steps), layout, bool(record_path),
+        float(path_offset),
     )
     return TraceResult(
         end_position=end_pos, end_direction=end_dir, end_iteration=end_iter, remaining_light=light, path=path,

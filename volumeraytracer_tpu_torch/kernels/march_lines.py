@@ -5,9 +5,11 @@ The forward kernel (``csrc/march_lines_fwd.cu``) replaces the TPU kernel
 ``volumeraytracer_tpu/kernels/march_lines.py:_march_kernel_lines`` in three
 instantiations of one body: ``march_lines_fwd``; for ``max_steps``,
 ``march_lines_fwd_capped``, which stops each ray after that many steps of
-a launch (the TPU kernel's ``max_windows`` pause); and, for
-``record_path=True``, ``march_lines_fwd_path``, which also writes each
-ray's path of positions (the TPU kernel's record branch).  The adjoint
+a launch (the TPU kernel's ``max_windows`` pause) and reads the corner
+table (``line_table.CornerTable``, built by ``build_corner_table_cuda``)
+in place of the line table; and, for ``record_path=True``,
+``march_lines_fwd_path``, which also writes each ray's path of positions
+(the TPU kernel's record branch).  The adjoint
 kernel (``csrc/march_lines_bwd.cu``) replaces its ``_bwd_kernel_lines``.
 Each source file says what bounds it on the H100 and how its design
 answers that.  K2's plain version is ``ops.march.march_float`` with
@@ -24,9 +26,9 @@ K2 through ``march_lines_cuda``, restores the input order and turns the
 raw state into a ``TraceResult``.  The recording K2 writes each ray's path
 at the ray's input index, so the path needs no reordering.
 ``march_lines_compact`` is the counterpart of the JAX package's
-scattered-ray driver: phases of the capped K2, each resumed from the state
-the last one wrote, with the survivors sorted again by their current cell
-between phases.
+scattered-ray driver: phases of the capped K2 over the corner table, each
+resumed from the state the last one wrote, with the survivors sorted again
+by their current cell between phases.
 ``march_lines_bwd`` is the counterpart of ``_bwd_impl_lines``: it sorts
 the rays in the same order by their end position, launches K3 and
 restores the order.  The kernels need no padding of the ray batch: each
@@ -39,15 +41,18 @@ the plain replay here take the layout as arguments and serve both.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from ..ops.march import _finish, march_float_state
 from ..types import BRIGHTNESS_MAX, TraceResult
 from . import _build
-from .line_table import BRIGHT_MAX_F, LBX, LBY, LBZ, LCH, LL, LPY, LS, NLO, TCH, line_brick_grid, table_inputs
-from .line_table_cuda import build_line_table_cuda
+from .line_table import (
+    BRIGHT_MAX_F, LBX, LBY, LBZ, LCH, LL, LPY, LS, NLO, TCH, CornerTable, corner_lattice, line_brick_grid,
+    table_inputs,
+)
+from .line_table_cuda import build_corner_table_cuda, build_line_table_cuda
 
 #: sort key of rays with nothing to march or replay: after every other key
 DEAD_ID = torch.iinfo(torch.int64).max
@@ -63,27 +68,47 @@ PATH_ROW_ALIGN = 8
 LINE_LAYOUT = ((LBX, LBY, LBZ), (LPY, 1, TCH * LL), LL)
 
 
+def _corner_pointers(corners, nb, device, has_absorb):
+    """Check a ``CornerTable`` on the brick grid ``nb`` and return the
+    pointers of its records and its absorption (None without one)."""
+    if not isinstance(corners, CornerTable):
+        raise ValueError(f"the capped march takes a CornerTable (build_corner_table_cuda), got {type(corners)}")
+    lattice = corner_lattice(nb)
+    _build.check_tensor("corner table points", corners.points, torch.float32, (*lattice, 4), device)
+    if corners.absorb is None:
+        if has_absorb:
+            raise ValueError("the march has absorption but its corner table holds none")
+        return corners.points.data_ptr(), None
+    _build.check_tensor("corner table absorb", corners.absorb, torch.float32, lattice, device)
+    return corners.points.data_ptr(), corners.absorb.data_ptr()
+
+
 def launch_march(name, table, rows, nb, bounds, pos, dirs, rem, alive, br, *, bend, step, min_bright,
-                 has_absorb, path_row=None, path_len=0, max_steps=None):
+                 has_absorb, path_row=None, path_len=0, path_offset=0.0, max_steps=None):
     """Launch the forward march kernel ``name`` (K2 or K5) on CUDA tensors:
     table (NB, *rows) f32, pos/dirs (N, 3) f32, rem/alive (N,) int32, br
     (N,) f32 (brightness fraction, 1.0 = 0xFFFFFFFF).  Returns the end
     (pos, dirs, rem, alive, br) in new tensors.  ``path_len`` > 0 launches
     the recording kernel ``name + "_path"`` instead, which also writes a
     new (N, path_len, 3) f32 path, returned last: ray i's start position,
-    its position after each executed step, then its end position, in row
-    ``path_row[i]`` ((N,) int64, a permutation of 0..N−1).  The path is a
-    view of a buffer whose rows are ``PATH_ROW_ALIGN``-padded.
-    ``max_steps`` launches the capped kernel ``name + "_capped"``, whose
-    rays take at most that many steps and, still alive, keep their state
-    for the next launch."""
+    its position after each executed step, then its end position, each
+    plus ``path_offset``, in row ``path_row[i]`` ((N,) int64, a permutation
+    of 0..N−1).  The path is a view of a buffer whose rows are
+    ``PATH_ROW_ALIGN``-padded.  ``max_steps`` launches the capped kernel
+    ``name + "_capped"``, whose rays take at most that many steps and,
+    still alive, keep their state for the next launch; ``table`` is then a
+    ``CornerTable`` on the brick grid ``nb``."""
     if table.device.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors, got {table.device}")
     if max_steps is not None and path_len > 0:
         raise ValueError(f"{name}: a recorded path takes no max_steps")
     device = table.device
     n = pos.shape[0]
-    _build.check_tensor("table", table, torch.float32, (nb[0] * nb[1] * nb[2], *rows), device)
+    if max_steps is not None:
+        tables = _corner_pointers(table, nb, device, has_absorb)
+    else:
+        _build.check_tensor("table", table, torch.float32, (nb[0] * nb[1] * nb[2], *rows), device)
+        tables = (table.data_ptr(),)
     _build.check_tensor("pos", pos, torch.float32, (n, 3), device)
     _build.check_tensor("dirs", dirs, torch.float32, (n, 3), device)
     _build.check_tensor("rem", rem, torch.int32, (n,), device)
@@ -97,7 +122,8 @@ def launch_march(name, table, rows, nb, bounds, pos, dirs, rem, alive, br, *, be
         stride = -(-path_len // PATH_ROW_ALIGN) * PATH_ROW_ALIGN
         path = torch.empty((n, stride, 3), dtype=torch.float32, device=device)
         out = out + (path[:, :path_len],)
-        extra = (path.data_ptr(), path_row.data_ptr(), int(path_len), stride)
+        # x + (-0.0) is x for every float, -0.0 included: no offset
+        extra = (path.data_ptr(), path_row.data_ptr(), int(path_len), stride, float(path_offset) or -0.0)
     if max_steps is not None:
         name = name + "_capped"
         extra = (int(max_steps),)
@@ -105,7 +131,7 @@ def launch_march(name, table, rows, nb, bounds, pos, dirs, rem, alive, br, *, be
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, "vrt_" + name)(
-            table.data_ptr(), *nb, *bounds,
+            *tables, *nb, *bounds,
             *(t.data_ptr() for t in (pos, dirs, rem, alive, br)),
             *(t.data_ptr() for t in out[:5]), *extra,
             n, *bend, *step, min_bright, int(has_absorb), stream,
@@ -119,9 +145,10 @@ def march_lines_cuda(table: torch.Tensor, nb: Tuple[int, int, int], bounds: Tupl
                      alive, br, **kw):
     """Launch K2 on CUDA tensors: table (NB, 72, 128) f32, the rest as
     ``launch_march`` takes them; keywords bend, step, min_bright,
-    has_absorb, path_row, path_len for the recording K2, and max_steps for
-    the capped K2.  Returns the end (pos, dirs, rem, alive, br), and the
-    path when recording, in new tensors."""
+    has_absorb, path_row, path_len, path_offset for the recording K2, and
+    max_steps for the capped K2, whose ``table`` is a ``CornerTable``.
+    Returns the end (pos, dirs, rem, alive, br), and the path when
+    recording, in new tensors."""
     return launch_march("march_lines_fwd", table, (LS, LL), nb, bounds, pos, dirs, rem, alive, br, **kw)
 
 
@@ -204,7 +231,7 @@ def _plain_state(init_state):
 
 def march_on_table(packed, start_position, start_direction, budget, *, bend_scale, step_scale, translucency,
                    absorb, minimum_brightness, return_state, table, nb, build, launch, sort, record_path=False,
-                   init_state=None, max_steps=None):
+                   path_offset=0.0, init_state=None, max_steps=None):
     """The forward march driver of both layouts: ``march_lines``'s contract
     with the layout's table ``build`` (called as ``build(packed,
     absorb=...)``), forward kernel wrapper ``launch`` and ray order ``sort``
@@ -214,8 +241,10 @@ def march_on_table(packed, start_position, start_direction, budget, *, bend_scal
     ``translucency`` and not the float ``absorb``.  ``record_path`` asks
     ``launch`` for the (N, budget + 1, 3) path (``path_row``, ``path_len``
     keywords); on CPU tensors it is the first budget + 1 rows of the plain
-    recorded march.  ``init_state`` and ``max_steps`` pause and resume the
-    march (``launch`` takes ``max_steps``); neither takes ``record_path``."""
+    recorded march.  ``path_offset`` is added to the path (by the recording
+    kernel on the card, by torch on the CPU).  ``init_state`` and
+    ``max_steps`` pause and resume the march (``launch`` takes
+    ``max_steps``); neither takes ``record_path``."""
     if packed.ndim != 4 or packed.shape[-1] != 4:
         raise ValueError(f"the march needs a 3-D packed field (X, Y, Z, 4), got {tuple(packed.shape)}")
     if record_path and (init_state is not None or max_steps is not None):
@@ -231,7 +260,11 @@ def march_on_table(packed, start_position, start_direction, budget, *, bend_scal
             bend_scale=bend, step_scale=step, minimum_brightness=minimum_brightness, record_path=record_path,
             init_state=None if init_state is None else _plain_state(init_state), max_steps=max_steps,
         )
-        result = _finish(state, budget, path=None if path is None else path[:, : budget + 1])
+        if path is not None:
+            path = path[:, : budget + 1]
+            if path_offset:
+                path = path + path_offset
+        result = _finish(state, budget, path=path)
         if return_state:
             return result, {
                 "remaining": state.remaining.to(torch.int32),
@@ -258,7 +291,7 @@ def march_on_table(packed, start_position, start_direction, budget, *, bend_scal
             ("remaining", torch.int32), ("alive", torch.int32), ("brightness", torch.float32)))
         order, inv = sort(pos, nb, alive != 0)
         rem, alive, br = (x[order].contiguous() for x in (rem, alive, br))
-    extra = dict(path_row=order, path_len=budget + 1) if record_path else {}
+    extra = dict(path_row=order, path_len=budget + 1, path_offset=path_offset) if record_path else {}
     if max_steps is not None:
         extra = dict(max_steps=max_steps)
     outs = launch(
@@ -295,25 +328,29 @@ def march_lines(
     absorb: Optional[torch.Tensor] = None,
     minimum_brightness: int = 0,
     return_state: bool = False,
-    table: Optional[torch.Tensor] = None,
+    table: Optional[Union[torch.Tensor, CornerTable]] = None,
     nb: Optional[Tuple[int, int, int]] = None,
     record_path: bool = False,
     init_state: Optional[dict] = None,
     max_steps: Optional[int] = None,
+    path_offset: float = 0.0,
 ):
     """Forward float march with the semantics of ``ops.march.march_float``
     on a 3-D packed field (X, Y, Z, 4) and an optional int64 translucency
     grid (X, Y, Z), or on the card its float absorption fraction ``absorb``.
     With ``return_state=True`` it also returns
     ``{"remaining", "alive", "brightness"}``, the raw end state: rays
-    executed budget − 1 − remaining steps.  ``table``/``nb``: a line table
-    of ``packed`` (and the translucency) built already, which the card then
-    marches without a build; the CPU path marches ``packed`` itself.
+    executed budget − 1 − remaining steps.  ``table``/``nb``: a table of
+    ``packed`` (and the translucency) built already, which the card then
+    marches without a build: the line table (``build_line_table_cuda``), or
+    with ``max_steps`` the corner table (``build_corner_table_cuda``); the
+    CPU path marches ``packed`` itself.
     ``record_path``: ``TraceResult.path`` is the (N, budget + 1, 3) float32
     path, the JAX driver's contract: row 0 the start position, row t the
     position after step t, back-filled with the end position (the recording
     K2 on the card, the plain recorded march's first budget + 1 rows on the
-    CPU).
+    CPU), each plus ``path_offset`` (a frame shift, added as the path is
+    written on the card).
 
     Pause and resume (the JAX package's ``init_state`` with its
     ``max_windows`` cap): ``max_steps`` stops every ray after that many
@@ -322,7 +359,9 @@ def march_lines(
     call's ``return_state=True`` returned, continues its rays from
     ``start_position`` and ``start_direction``, which are then that call's
     end position and direction.  Rays that are not alive sort last.
-    Neither takes ``record_path``.  On the CPU the brightness fraction of
+    Neither takes ``record_path``.  The capped K2 marches the corner table,
+    which the card builds in place of the line table.  On the CPU the
+    brightness fraction of
     ``init_state`` is read back to the plain march's uint32 brightness, so
     a resumed light may differ from an uninterrupted one in its last bits
     (``march_lines_compact`` carries the plain state and does not)."""
@@ -330,8 +369,9 @@ def march_lines(
         packed, start_position, start_direction, budget, bend_scale=bend_scale, step_scale=step_scale,
         translucency=translucency, absorb=absorb, minimum_brightness=minimum_brightness,
         return_state=return_state, table=table, nb=nb,
-        build=build_line_table_cuda, launch=march_lines_cuda, sort=sort_line_rays, record_path=record_path,
-        init_state=init_state, max_steps=max_steps,
+        build=build_line_table_cuda if max_steps is None else build_corner_table_cuda, launch=march_lines_cuda,
+        sort=sort_line_rays, record_path=record_path, path_offset=path_offset, init_state=init_state,
+        max_steps=max_steps,
     )
 
 
@@ -373,7 +413,7 @@ def march_lines_compact(
     minimum_brightness: int = 0,
     phase_steps: Optional[int] = None,
     max_phases: Optional[int] = None,
-    table: Optional[torch.Tensor] = None,
+    table: Optional[CornerTable] = None,
     nb: Optional[Tuple[int, int, int]] = None,
 ) -> TraceResult:
     """The scattered-ray march: march every ray ``phase_steps`` steps, sort
@@ -384,9 +424,13 @@ def march_lines_compact(
     shorter phase lost to it on bench.py's scattered rays (PERF.md), whose
     rays share no cell for a sort to bring together.
     Same semantics as ``march_lines``, whose arguments it takes, and on
-    the card the same end state bit for bit: the table is built once (K1)
-    unless given, and each phase is one launch of the capped K2, resumed
-    from the state the last one wrote.  On CPU tensors
+    the card the same end state bit for bit: the corner table
+    (``line_table.CornerTable``) is built once (``build_corner_table_cuda``)
+    unless ``table``/``nb`` give it, and each phase is one launch of the
+    capped K2 over it, resumed from the state the last one wrote.  The
+    card's ``table`` is that corner table, not K1's line table: the capped
+    K2 reads a cell's 8 corners as 8 records, which the line table holds in
+    57 values of 7 rows.  On CPU tensors
     each phase is the plain march, paused and resumed with its own state,
     so the result equals the plain march's bit for bit there too.
 
@@ -430,8 +474,8 @@ def march_lines_compact(
         has_absorb = translucency is not None or absorb is not None
         if table is None:
             absorb = table_inputs(packed, translucency, absorb)
-            table, nb = build_line_table_cuda(packed.contiguous(),
-                                              absorb=None if absorb is None else absorb.contiguous())
+            table, nb = build_corner_table_cuda(packed.contiguous(),
+                                                absorb=None if absorb is None else absorb.contiguous())
         bounds = tuple(int(s) for s in packed.shape[:3])
         state = (pos, dirs, torch.full((n,), budget - 1, dtype=torch.int32, device=dev),
                  torch.ones((n,), dtype=torch.int32, device=dev), torch.ones((n,), dtype=torch.float32, device=dev))

@@ -133,6 +133,7 @@ def march_pallas(
     return_state: bool = False,
     layout: str = "points",
     record_path: bool = False,
+    path_offset: float = 0.0,
 ):
     """Forward float march over the point table, with the semantics of
     ``ops.march.march_float`` (opaque where the opacity is positive) on a
@@ -149,13 +150,15 @@ def march_pallas(
     dead rays, remaining light saturating at 0xFFFFFFFF, and with
     ``return_state=True`` the raw ``{"remaining", "alive", "brightness"}``
     (rays executed budget − 1 − remaining steps).  ``record_path`` needs
-    ``layout="lines"`` (``march_lines``' path), as in the JAX package."""
+    ``layout="lines"`` (``march_lines``' path, with its ``path_offset``),
+    as in the JAX package."""
     kw = dict(
         bend_scale=bend_scale, step_scale=step_scale, translucency=translucency, absorb=absorb,
         minimum_brightness=minimum_brightness, return_state=return_state, table=table, nb=nb,
     )
     if layout == "lines":
-        return march_lines(packed, start_position, start_direction, budget, record_path=record_path, **kw)
+        return march_lines(packed, start_position, start_direction, budget, record_path=record_path,
+                           path_offset=path_offset, **kw)
     if layout != "points":
         raise ValueError(f"unknown layout {layout!r}")
     if record_path:

@@ -233,10 +233,12 @@ class RaytraceScene:
         if native:
             return self._trace_float_native(p, dirs, bend, step, iterations)
         if use_cuda:
+            # the recording kernel writes the path +1 voxel into the scene
+            # frame as it stores it
             res = (march_lines_diff if differentiable else march_lines)(
                 self.packed, p, dirs, iterations, bend_scale=bend, step_scale=step,
                 translucency=self.translucency_cropped, minimum_brightness=minimum_brightness,
-                record_path=trace_path,
+                record_path=trace_path, path_offset=1.0,
             )
         else:
             res = march_ops.march_float(
@@ -251,7 +253,7 @@ class RaytraceScene:
             end_direction=res.end_direction,
             end_iteration=res.end_iteration,
             remaining_light=res.remaining_light,
-            path=None if res.path is None else res.path + 1.0,
+            path=res.path if res.path is None or use_cuda else res.path + 1.0,
             transmittance=res.transmittance,
         )
 

@@ -6,13 +6,13 @@ processes on one GPU and compare what each computed.
 
 Each of ``N`` child processes (default 2), one after the other, builds
 phase 18a's inputs (the 256³ lens, bench.py's 131,072 scattered rays
-sorted by line brick and cell) and runs ``chip_smoke.capped_digests``: K1's
-table, the capped K2 and the capped plain march, each twice, every side's
-outputs digested (sha256), and the largest end-direction difference
+sorted by line brick and cell) and runs ``chip_smoke.capped_digests``: the
+corner table, the capped K2 over it and the capped plain march, each twice,
+every side's outputs digested (sha256), and the largest end-direction difference
 between the capped K2 and the capped plain march, over all components and
 over those outside a per-component rtol 1e-6 + atol 1e-6 (the only ones
-``torch.testing.assert_close`` names when it fails).  It fails if a child fails, or if K1's table or the capped K2
-digest differently anywhere.
+``torch.testing.assert_close`` names when it fails).  It fails if a child
+fails, or if the corner table or the capped K2 digest differently anywhere.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def child() -> dict:
     packed = build_packed_field(torch.from_numpy(sm.lens_field()).to(dev))
     pos, dirs = (torch.from_numpy(a).to(dev) for a in build_scattered_rays())
     n = pos.shape[0]
-    table, nb = line_table_cuda.build_line_table_cuda(packed)
+    table, nb = line_table_cuda.build_corner_table_cuda(packed)
     order, _ = ml.sort_line_rays(pos, nb)
     state = (torch.full((n,), sm.BUDGET - 1, dtype=torch.int32, device=dev),
              torch.ones((n,), dtype=torch.int32, device=dev), torch.ones((n,), dtype=torch.float32, device=dev))
@@ -82,8 +82,8 @@ def main() -> None:
     if a.out:
         a.out.parent.mkdir(parents=True, exist_ok=True)
         a.out.write_text(json.dumps({"card": smi, "processes": reports, "digests": seen}, indent=1))
-    if len(seen["K1 table"]) > 1 or len(seen["capped K2"]) > 1:
-        raise SystemExit("probe_capped: K1's table or the capped K2 differ between processes")
+    if len(seen["corner table"]) > 1 or len(seen["capped K2"]) > 1:
+        raise SystemExit("probe_capped: the corner table or the capped K2 differ between processes")
 
 
 if __name__ == "__main__":
