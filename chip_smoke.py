@@ -64,16 +64,28 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      all, d_ior against the plain path's and the line path's; times of K5,
      K6, the plain point build and fold and the point train step;
  15. the fixed-point path, trace_rays' default mode: (a) F1 (the uint32
-     16.16 march) equal to the plain fixed march bit for bit on the phase 4
-     scenes at 16.16 positions, without and with translucency and minimum
-     brightness, and with a recorded path on a small batch; (b) the ramp
-     anchor of tests/test_scaling.py (1000×10×10, two counter-propagating
-     rays, budget 10^6) through trace_rays(mode="fixed") and dir_fixed=True:
-     one F1 launch each, iterations within 46718 ± 100, |v| = n at the end,
-     equal to kernel="plain" bit for bit; (c) the fixed main path at full
-     size, trace_rays(mode="fixed") on the bench bundle as 16.16 positions,
-     with exactly one F1 launch, equal to kernel="plain" bit for bit; (d)
-     times of F1, the plain fixed march and the fixed trace end to end;
+     16.16 march) and the recording F1 (march_fixed_path) equal to the plain
+     fixed march bit for bit on the phase 4 scenes at 16.16 positions,
+     without and with translucency and minimum brightness, and on a
+     uniform field with steps of every magnitude (overflowing, saturating
+     and NaN steps: the kernel's one rounding conversion against torch's
+     round and .to(torch.int64)), paths included, the recording F1 with
+     pos_offset 0x10000 equal to the path + 0x10000 modulo 2^32 and its end
+     state equal to F1's; the scene's fixed trace from the last half voxel
+     of an axis (F1's prologue samples |v| = n there as interp_fixed does,
+     NaN past axis 0) equal to kernel="plain", NaN where it is NaN; (b) the
+     ramp anchor of tests/test_scaling.py (1000×10×10, two
+     counter-propagating rays, budget 10^6) through trace_rays(mode="fixed")
+     and dir_fixed=True: one F1 launch each, iterations within 46718 ± 100,
+     |v| = n at the end, equal to kernel="plain" bit for bit; (c) the fixed
+     main path at full size, trace_rays(mode="fixed") on the bench bundle as
+     16.16 positions, with exactly one F1 launch, equal to kernel="plain"
+     bit for bit, and trace_rays(mode="fixed", trace_path=True) with exactly
+     one recording-F1 launch, equal to kernel="plain" bit for bit, its
+     1.613 GB path a view of the kernel's padded rows (no pass over it) and
+     its end state equal to the fixed trace's; (d) times of F1 and the
+     recording F1 in turns, the plain fixed marches and both fixed traces
+     end to end;
  16. the float path's recorded trace and soft termination: (a) the
      recording K2 (march_lines_fwd_path) against the plain recorded march on
      the phase 4 scenes (lens40 without and with its translucency, rays
@@ -225,6 +237,7 @@ when there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1752,7 +1765,7 @@ def main() -> None:
     )
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field, cropped_translucency
     from volumeraytracer_tpu_torch.ops.interp import interp_fixed, interp_linear
-    from volumeraytracer_tpu_torch.ops.march import march_fixed, march_float
+    from volumeraytracer_tpu_torch.ops.march import march_fixed, march_float, path_steps
     from volumeraytracer_tpu_torch.probes.probe_k4k6 import KERNELS, ptxas_by_kernel
 
     dev = torch.device("cuda", 0)
@@ -2405,24 +2418,68 @@ def main() -> None:
     lens40 = build_packed_field(t(ior40))
     trc40 = cropped_translucency(t(tr40, np.int64))
     p32 = t(np.round(lines_rays(16, hi=26.0, seed=3)[0] * 65536.0).astype(np.int64) - 0x10000, np.int64)
-    for name, packed, tr, pf, df, budget, mb, rec in (
-        ("lens40", lens40, None, p40, d40, 300, 0, False),
-        ("lens40 + opaque plane", packed40, trc40, p40, d40, 300, 0, False),
-        ("absorber + minimum_brightness", packed32a, trc32, p32, dirs32, 500, minb, False),
-        ("lens40 + opaque plane, trace_path", packed40, trc40, p40[:16], d40[:16], 300, 0, True),
+    # steps at every magnitude through a uniform field (no bend): |d| from
+    # 1e-30 to 1e30, so that 1/|d|^2 and the step overflow, the step's
+    # int64 saturates or reaches past 2^31, and a zero direction gives NaN
+    # steps: the kernel's one conversion against torch's round and
+    # .to(torch.int64) on the card
+    mags = np.float32(10.0) ** np.arange(-30, 31, 3, dtype=np.float32)
+    d_ext = np.concatenate([np.outer(mags, [1.0, 0.0, 0.0]), np.outer(-mags, [0.3, 1.0, -0.2]),
+                            np.zeros((1, 3))]).astype(np.float32)
+    uniform24 = build_packed_field(t(np.full((24, 24, 24), 1.5, np.float32)))
+    p_ext = t(np.tile(np.array([[0xB8000, 0xA0000, 0xC4321]], np.int64), (len(d_ext), 1)), np.int64)
+    for name, packed, tr, pf, df, budget, mb in (
+        ("lens40", lens40, None, p40, d40, 300, 0),
+        ("lens40 + opaque plane", packed40, trc40, p40, d40, 300, 0),
+        ("absorber + minimum_brightness", packed32a, trc32, p32, dirs32, 500, minb),
+        ("uniform 24^3, steps of every magnitude", uniform24, None, p_ext, t(d_ext), 40, 0),
     ):
-        kw = dict(invscale=[INV] * 3, minimum_brightness=mb, chunk_steps=64, record_path=rec)
+        kw = dict(invscale=[INV] * 3, minimum_brightness=mb, chunk_steps=64)
         got = mf.march_fixed(packed, tr, pf, df, budget, **kw)
         ref = march_fixed(packed, tr, pf, df, budget, **kw)
+        gotp = mf.march_fixed(packed, tr, pf, df, budget, record_path=True, **kw)
+        refp = march_fixed(packed, tr, pf, df, budget, record_path=True, **kw)
+        offp = mf.march_fixed(packed, tr, pf, df, budget, record_path=True, pos_offset=0x10000, **kw)
         sync()
-        diff = same(got, ref)
-        if diff:
-            raise AssertionError(f"F1 differs from the plain fixed march on {name}: {diff}")
+        for what, a, b in (("F1", got, ref), ("the recording F1", gotp, refp),
+                           ("the recording F1 with pos_offset 0x10000", offp, mf.with_offset(refp, 0x10000)),
+                           ("the recording F1's end state vs F1's", dataclasses.replace(gotp, path=None), got)):
+            diff = same(a, b)
+            if diff:
+                raise AssertionError(f"{what} differs from the plain fixed march on {name}: {diff}")
         it = got.end_iteration
-        print(f"phase 15a F1 {name}, {len(pf)} rays, budget {budget}: equal to the plain fixed march bit for bit"
-              f"{' (paths ' + str(tuple(got.path.shape)) + ' included)' if rec else ''}; iterations "
-              f"{int(it.min())}-{int(it.max())}")
-    del got, ref
+        print(f"phase 15a F1 and the recording F1 {name}, {len(pf)} rays, budget {budget}: equal to the plain fixed "
+              f"march bit for bit (paths {tuple(gotp.path.shape)} included, and + 0x10000 through pos_offset); the "
+              f"recording F1's end state equal to F1's; iterations {int(it.min())}-{int(it.max())}")
+    del got, ref, gotp, refp, offp
+
+    # the scene's prologue in F1 (the |v| = n sample, bit-equal to
+    # interp_fixed): starts in the last half voxel of an axis
+    # (tests/test_torch_fixed.py), whose sample reads the next row or NaN
+    f = 0x10000
+    half = np.array([[5 * f, 5 * f, 12 * f - 0x3000], [5 * f, 12 * f - 0x5000, 5 * f], [12 * f - 0x2000, 5 * f, 5 * f],
+                     [12 * f - 2, 12 * f - 2, 12 * f - 2], [5 * f, 6 * f, 11 * f + 0x7000]], np.uint32)
+    hscene = RaytraceScene(grin(12), device=dev)
+    for hd in (np.array([[16.0, 1.0, -1.0]] * 5, np.float32), np.array([[0x800, 0x100, -0x100]] * 5, np.int16)):
+        hkw = dict(invscale=[INV] * 3, iterations=50, dir_fixed=hd.dtype == np.int16)
+        _build.launches.clear()
+        with np.errstate(invalid="ignore"):
+            got = hscene.trace_rays(half, hd, **hkw)
+            ref = hscene.trace_rays(half, hd, kernel="plain", **hkw)
+        sync()
+        nan = torch.isnan(got.end_direction) if got.end_direction.is_floating_point() else None
+        bad = [f for f in fields_fixed if getattr(got, f) is not None and not torch.equal(
+            *(getattr(r, f).masked_fill(nan, 0) if f == "end_direction" and nan is not None else getattr(r, f)
+              for r in (got, ref)))]
+        if nan is not None and not torch.equal(nan, torch.isnan(ref.end_direction)):
+            bad.append("NaN directions")
+        if bad or dict(_build.launches) != {"march_fixed": 1}:
+            raise AssertionError(f"the fixed trace from the last half voxel ({hd.dtype}) differs from kernel='plain' "
+                                 f"in {bad} or launched {dict(_build.launches)}")
+        nans = "" if nan is None else f", {int(nan.any(-1).sum())} rays with NaN directions as interp_fixed reads"
+        print(f"phase 15a fixed trace from the last half voxel of an axis ({hd.dtype} directions): equal to "
+              f"kernel='plain' bit for bit{nans}; one F1 launch")
+    del hscene
 
     ramp = ramp_ior()
     rscene = RaytraceScene(ramp, device=dev)
@@ -2492,27 +2549,72 @@ def main() -> None:
           f"end position {float_gap:.4g} voxels")
     del fplain
 
-    # 15d. times: F1 alone, the plain fixed march, the fixed trace end to end
-    fp0 = (pos_fix - 0x8000) & 0xFFFFFFFF
-    fd = dirs * interp_fixed(ior256[..., None], fp0)
-    fp = ((fp0 - 0x8000) & 0xFFFFFFFF).contiguous()
-    fd_work = (fd * 65536.0).contiguous()
-    f1_args = (packed256, None, fp, fd_work, BUDGET)
-    f1_kw = dict(invscale=[INV] * 3, min_bright=0)
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    march_fixed(packed256, None, fp, fd, BUDGET, invscale=[INV] * 3)
-    stop.record()
+    # the fixed recorded trace at full size: trace_rays(mode="fixed",
+    # trace_path=True) through the recording F1 alone, which adds the
+    # scene's +0x10000 as it stores: the path is the kernel's padded rows
+    # (a pass over it would have made a new, dense tensor)
     sync()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    fpres = scene.trace_rays(pos_fix, dirs, trace_path=True, **fixed_kw)
+    sync()
+    fixed_path_first_s = time.perf_counter() - t0
+    fixed_path_launches = dict(_build.launches)
+    if fixed_path_launches != {"march_fixed_path": 1}:
+        raise AssertionError(f"the fixed recorded trace's launches {fixed_path_launches}, expected one recording F1")
+    fpath_len = 1 + path_steps(BUDGET, scene.options.chunk_steps)
+    fpath_rows = -(-fpath_len // mf.FIXED_PATH_ALIGN) * mf.FIXED_PATH_ALIGN
+    if tuple(fpres.path.shape) != (n_rays, fpath_len, 3) or fpres.path.stride() != (3 * fpath_rows, 3, 1):
+        raise AssertionError(f"the fixed path {tuple(fpres.path.shape)}, strides {fpres.path.stride()}: not the "
+                             f"kernel's rows of {fpath_rows} entries")
+    diff = same(dataclasses.replace(fpres, path=None), fres)
+    if diff:
+        raise AssertionError(f"the fixed recorded trace's end state differs from the fixed trace's: {diff}")
+    fpplain = scene.trace_rays(pos_fix, dirs, trace_path=True, kernel="plain", **fixed_kw)
+    sync()
+    diff = same(fpres, fpplain)
+    if diff:
+        raise AssertionError(f"the fixed recorded trace differs from kernel='plain' at full size: {diff}")
+    f1p_err = float((fpres.path - fpplain.path).abs().max().item())
+    print(f"phase 15c fixed recorded trace 256^3, {n_rays} rays, budget {BUDGET}: launches {fixed_path_launches}, "
+          f"first call {fixed_path_first_s:.3f} s; equal to kernel='plain' bit for bit, path "
+          f"{tuple(fpres.path.shape)} ({fpres.path.numel() * 8 / 1e9:.3f} GB) included, a view of the kernel's "
+          f"rows of {fpath_rows} entries; end state equal to the fixed trace's")
+    del fpres, fpplain
+
+    # 15d. times: F1 and the recording F1 alone in turns, the plain fixed
+    # marches, both fixed traces end to end
+    fp0 = (pos_fix - 0x8000) & 0xFFFFFFFF
+    fd = (dirs * interp_fixed(ior256[..., None], fp0)).contiguous()
+    fp = ((fp0 - 0x8000) & 0xFFFFFFFF).contiguous()
+    f1_args = (packed256, None, fp, fd, BUDGET)
+    f1_kw = dict(invscale=[INV] * 3, min_bright=0)
+    t_f1, t_f1p = turns(lambda: mf.march_fixed_cuda(*f1_args, **f1_kw),
+                        lambda: mf.march_fixed_cuda(*f1_args, path_len=fpath_len, **f1_kw), 10)
+    plain_ms = {}
+    for key, rec in (("f1_plain", False), ("f1p_plain", True)):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        march_fixed(packed256, None, fp, fd, BUDGET, invscale=[INV] * 3, record_path=rec)
+        stop.record()
+        sync()
+        plain_ms[key] = start.elapsed_time(stop)
     times.update({
-        "f1": timed(lambda: mf.march_fixed_cuda(*f1_args, **f1_kw), 10),
-        "f1_plain": start.elapsed_time(stop),
+        "f1": sum(t_f1) / 2, "f1p": sum(t_f1p) / 2, **plain_ms,
         "fixed_fwd": timed(lambda: scene.trace_rays(pos_fix, dirs, **fixed_kw), 5),
         "fixed_fwd_plain": timed(lambda: scene.trace_rays(pos_fix, dirs, kernel="plain", **fixed_kw), 1, warm=0),
+        "fixed_path_fwd": timed(lambda: scene.trace_rays(pos_fix, dirs, trace_path=True, **fixed_kw), 5),
+        "fixed_path_fwd_plain": timed(lambda: scene.trace_rays(pos_fix, dirs, trace_path=True, kernel="plain",
+                                                               **fixed_kw), 1, warm=0),
     })
-    for key, label in (("f1", "F1 march_fixed"), ("f1_plain", "F1 plain fixed march (one run)"),
+    for key, label in (("f1", f"F1 march_fixed (turns {t_f1})"),
+                       ("f1p", f"recording F1 march_fixed_path (turns {t_f1p})"),
+                       ("f1_plain", "F1 plain fixed march (one run)"),
+                       ("f1p_plain", "recording F1 plain recorded fixed march (one run)"),
                        ("fixed_fwd", "fixed trace_rays kernel=auto"),
-                       ("fixed_fwd_plain", "fixed trace_rays kernel=plain (one run)")):
+                       ("fixed_fwd_plain", "fixed trace_rays kernel=plain (one run)"),
+                       ("fixed_path_fwd", "fixed trace_rays kernel=auto, trace_path=True"),
+                       ("fixed_path_fwd_plain", "fixed trace_rays kernel=plain, trace_path=True (one run)")):
         print(f"phase 15d time {label}: {times[key]:.4f} ms, {n_rays / times[key] / 1e3:.4f} Mrays/s, "
               f"{fixed_steps / times[key] / 1e6:.4f} Gsteps/s {card}")
     # the packed-field voxels F1's rays read (the corners of the cells along
@@ -2736,10 +2838,13 @@ def main() -> None:
                            + field_bytes),
         "k5": kernel_bound(MARCH_OPS * steps, 72 * n_rays + point_bytes),
         "k6": kernel_bound(REPLAY_OPS * replayed6, 92 * n_rays + point_bytes + ptable.numel() * 4),
-        # F1 reads 36 B a ray (int64 pos, f32 dir) and writes 56 (pos, dir,
-        # int64 remaining, int32 alive, int64 brightness), and the voxels
-        # of the packed field its rays read, 16 B each
-        "f1": kernel_bound(MARCH_FIXED_OPS * fixed_steps, 92 * n_rays + f1_field_bytes),
+        # F1 reads 36 B a ray (int64 pos, f32 dir) and writes 52 (pos, dir,
+        # int64 iterations, int64 brightness), and the voxels of the packed
+        # field its rays read, 16 B each
+        "f1": kernel_bound(MARCH_FIXED_OPS * fixed_steps, 88 * n_rays + f1_field_bytes),
+        # the recording F1: F1's, plus each ray's path of 1 + 512 int64
+        # triples written
+        "f1p": kernel_bound(MARCH_FIXED_OPS * fixed_steps, 88 * n_rays + f1_field_bytes + n_rays * fpath_len * 24),
         # the recording K2: K2's, plus each ray's int64 path row read and
         # its (budget + 1) × 3 float32 path written
         "k2p": kernel_bound(MARCH_OPS * steps, 80 * n_rays + line_bytes + n_rays * (BUDGET + 1) * 12),
@@ -2749,13 +2854,14 @@ def main() -> None:
         "kc": k2c["kc_bound"],
     }
     for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
-                       ("f1", "F1"), ("k2p", "recording K2"), ("k2c", "capped K2"), ("kc", "corner build")):
+                       ("f1", "F1"), ("f1p", "recording F1"), ("k2p", "recording K2"), ("k2c", "capped K2"),
+                       ("kc", "corner build")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
-    print(f"bound F1 counted: {MARCH_FIXED_OPS} × {fixed_steps} float32 operations, {92 * n_rays} B of ray state "
-          f"and {f1_field_bytes} B of packed-field voxels ({(92 * n_rays + f1_field_bytes) / HBM_PEAK * 1e3:.4f} ms "
-          f"at {HBM_PEAK / 1e12:.2f} TB/s)")
+    print(f"bound F1 counted: {MARCH_FIXED_OPS} × {fixed_steps} float32 operations, {88 * n_rays} B of ray state "
+          f"and {f1_field_bytes} B of packed-field voxels ({(88 * n_rays + f1_field_bytes) / HBM_PEAK * 1e3:.4f} ms "
+          f"at {HBM_PEAK / 1e12:.2f} TB/s); the recording F1 also {n_rays * fpath_len * 24} B of path")
     src = "volumeraytracer_tpu_torch/kernels/csrc/"
     rows = (
         ("k1", "line_table_build", "line_table_build.cu", "kernels/line_table_pallas.py:108", train_launches, k1_err),
@@ -2765,6 +2871,7 @@ def main() -> None:
         ("k5", "march_points_fwd", "march_points_fwd.cu", "kernels/march_pallas.py:221", point_launches, k5_err),
         ("k6", "march_points_bwd", "march_points_bwd.cu", "kernels/march_bwd.py:115", point_launches, k6_err),
         ("f1", "march_fixed", "march_fixed.cu", "ops/march.py:286", fixed_launches, f1_err),
+        ("f1p", "march_fixed_path", "march_fixed.cu", "ops/march.py:231", fixed_path_launches, f1p_err),
         ("k2p", "march_lines_fwd_path", "march_lines_fwd.cu", "kernels/march_lines.py:190", path_launches, k2p_err),
         ("k2c", "march_lines_fwd_capped", "march_lines_fwd.cu", "kernels/march_lines.py:190", k2c["launches"],
          k2c["err"]),

@@ -150,3 +150,87 @@ def test_fwd_probe_variant_sources():
         probe_fwd.pk_source(src.replace("constexpr int NBUF", "constexpr int NBUFS"), 8, 1)
     with pytest.raises(ValueError, match="reload"):
         probe_fwd.pinned_source(line_only.replace(probe_fwd.PINS[1][0], ""))
+
+
+F1_SASS = """
+        Function : _ZN12_GLOBAL__N_118march_fixed_kernelEPK6float4iiiPKxPKfiiijS4_S6_PxPfS7_S7_S7_ijijfffj
+        /*0000*/                   MOV R1, c[0x0][0x28] ;                 /* 0x0 */
+        /*0010*/                   SHF.R.U32.HI R4, RZ, 0x10, R2 ;                 /* 0x0 */
+        /*0020*/                   ISETP.GE.U32.AND P0, PT, R4, R5, PT ;                 /* 0x0 */
+        /*0030*/               @P0 BRA 0x130 ;                 /* 0x0 */
+        /*0040*/                   IMAD R6, R4, R7, R8 ;                 /* 0x0 */
+        /*0050*/                   ISETP.NE.AND P1, PT, R6, R9, PT ;                 /* 0x0 */
+        /*0060*/              @!P1 BRA 0xa0 ;                 /* 0x0 */
+        /*0070*/                   LDG.E.128.CONSTANT R12, desc[UR4][R10.64] ;                 /* 0x0 */
+        /*0080*/                   LDG.E.128.CONSTANT R16, desc[UR4][R10.64+0x10] ;                 /* 0x0 */
+        /*0090*/                   MOV R9, R6 ;                 /* 0x0 */
+        /*00a0*/                   I2F.U32 R20, R21 ;                 /* 0x0 */
+        /*00b0*/                   FMUL R20, R20, 1.52587890625e-05 ;                 /* 0x0 */
+        /*00c0*/                   FADD R22, -R20, 1 ;                 /* 0x0 */
+        /*00d0*/                   F2I.S64 R24, R22 ;                 /* 0x0 */
+        /*00e0*/                   IADD3 R2, R2, R24, RZ ;                 /* 0x0 */
+        /*00f0*/                   BRA 0x10 ;                 /* 0x0 */
+        /*0100*/               @P2 LDG.E.128.CONSTANT R12, desc[UR4][R10.64] ;                 /* 0x0 */
+        /*0110*/                   FMUL R2, R2, R3 ;                 /* 0x0 */
+        /*0120*/               @P3 BRA 0x100 ;                 /* 0x0 */
+        /*0130*/                   EXIT ;                 /* 0x0 */
+"""
+
+
+def test_fixed_probe_loop_reader():
+    """probe_fixed's SASS reader on F1's step loop: the loop from the
+    backward branch's target, the reload block that the forward branch over
+    the most loads skips, the rest as the same-cell step with its opcode
+    families; a loop whose loads are predicated keeps them in its step."""
+    from volumeraytracer_tpu_torch.probes import probe_fixed
+
+    funcs = probe.sass_functions(F1_SASS)
+    assert set(funcs) == {"march_fixed"}
+    loops = probe_fixed.loop_steps(funcs["march_fixed"])
+    assert loops == [
+        {"head": "0x100", "loop": 3, "reload_block": 0, "step": 3, "block_loads": 0,
+         "step_ops": {"LDG": 1, "FMUL": 1, "BRA": 1}},
+        {"head": "0x10", "loop": 15, "reload_block": 3, "step": 12, "block_loads": 2,
+         "step_ops": {"ISETP": 2, "BRA": 3, "SHF": 1, "IMAD": 1, "I2F": 1, "FMUL": 1, "FADD": 1, "F2I": 1,
+                      "IADD3": 1}},
+    ]
+
+
+def test_fixed_probe_variant_sources():
+    """probe_fixed's variants of march_fixed.cu: the staging sweep sets PK
+    and NBUF (probe_fwd's pk_source on F1's source) and the contracted build
+    swaps -fmad=false for -fmad=true and nothing else; every PK it sweeps
+    is even, so that each run is whole 16-byte units."""
+    from pathlib import Path
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import march_fixed as kf
+    from volumeraytracer_tpu_torch.probes import probe_fixed, probe_fwd
+
+    src = (Path(_build.__file__).parent / "csrc" / "march_fixed.cu").read_text()
+    for pk, nbuf in probe_fixed.PK_SWEEP:
+        v = probe_fwd.pk_source(src, pk, nbuf)
+        assert f"constexpr int PK = {pk};" in v and f"constexpr int NBUF = {nbuf};" in v
+        assert pk % 2 == 0
+    flags = probe_fixed.fmad_flags(_build.NVCC_FLAGS)
+    assert "-fmad=true" in flags and "-fmad=false" not in flags
+    assert [f for f in flags if f != "-fmad=true"] == [f for f in _build.NVCC_FLAGS if f != "-fmad=false"]
+    with pytest.raises(ValueError, match="fmad"):
+        probe_fixed.fmad_flags(flags)
+
+
+def test_ptxas_reader_tells_the_f1_instantiations_apart():
+    """F1's four instantiations (recording or not, 32- or 64-bit cell
+    indices) are four entries of ptxas' report, each under its own name."""
+    names = ("march_fixed_kernel", "march_fixed_path_kernel", "march_fixed_wide_kernel", "march_fixed_path_wide_kernel")
+    log = "".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(k)}{k}EPK6float4iii' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for _ZN12_GLOBAL__N_1{len(k)}{k}EPK6float4iii\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {40 + r} registers, 600 bytes cmem[0]\n"
+        for r, k in enumerate(names)
+    )
+    got = probe.ptxas_by_kernel(log)
+    assert {k: v["registers"] for k, v in got.items()} == {
+        "march_fixed": 40, "march_fixed_path": 41, "march_fixed_wide": 42, "march_fixed_path_wide": 43}
+    assert set(got) <= set(probe.KERNELS)

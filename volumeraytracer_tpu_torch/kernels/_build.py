@@ -43,7 +43,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_L, _U = ctypes.c_longlong, ctypes.c_uint
+_U = ctypes.c_uint
 _MARCH_FWD = (
     _P, _I, _I, _I, _I, _I, _I,  # table, nb, bounds
     _P, _P, _P, _P, _P,  # state in
@@ -62,6 +62,15 @@ _MARCH_BWD = (
     _P, _P, _P, _P,  # d_pos0, d_dir0, recon_pos, residual
     _I, _I, _F, _F, _F, _F, _F, _F, _P,  # n, max_steps, bend, step, stream
 )
+_MARCH_FIXED = (
+    _P, _I, _I, _I, _P,  # packed, bounds, translucency (or null)
+    _P, _I, _I, _I, _U,  # the |v| = n field (or null), its bounds, the start's shift
+    _P, _P, _P, _P, _P, _P,  # pos, dir in; pos, dir, iterations, brightness out
+    _U, _I, _U, _F, _F, _F, _U, _P,  # pos_offset, n, budget, invscale, min_bright, stream
+)
+#: the recording F1: F1's arguments with the path's padded rows and their
+#: length in entries after the outputs
+_MARCH_FIXED_PATH = _MARCH_FIXED[:16] + (_P, _I) + _MARCH_FIXED[16:]
 _SIGNATURES = {
     "vrt_line_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vrt_corner_table_build": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -72,11 +81,8 @@ _SIGNATURES = {
     "vrt_line_table_fold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vrt_march_points_fwd": _MARCH_FWD,
     "vrt_march_points_bwd": _MARCH_BWD,
-    "vrt_march_fixed": (
-        _P, _I, _I, _I, _P,  # packed, bounds, translucency (or null)
-        _P, _P, _P, _P, _P, _P, _P,  # pos, dir in; pos, dir, rem, alive, brightness out
-        _P, _L, _I, _U, _F, _F, _F, _U, _P,  # path (or null), path_len, n, budget, invscale, min_bright, stream
-    ),
+    "vrt_march_fixed": _MARCH_FIXED,
+    "vrt_march_fixed_path": _MARCH_FIXED_PATH,
 }
 
 #: launches of each kernel by name since the last ``clear()``

@@ -112,7 +112,8 @@ class RaytraceScene:
         # kept for the replay dump only, which needs the values as given
         self._translucency_raw = translucency if self.options.write_instance else None
         self.packed = build_packed_field(ior, translucency)
-        self.translucency_cropped = None if translucency is None else cropped_translucency(translucency)
+        # contiguous once, so that no trace copies it for the kernels
+        self.translucency_cropped = None if translucency is None else cropped_translucency(translucency).contiguous()
         self.diff_bounds = tuple(int(s) for s in self.packed.shape[:-1])
 
     @classmethod
@@ -124,12 +125,18 @@ class RaytraceScene:
         return cls(ior, tr, options, device=device)
 
     def _validate_fixed(self, pos: torch.Tensor) -> None:
-        """Every 16.16 start coordinate must lie in [1, bound) voxels."""
+        """Every 16.16 start coordinate must lie in [1, bound) voxels: the
+        batch's extremes by axis in one reduction and one read, the first
+        ray out of range only when there is one."""
+        if pos.shape[0] == 0:
+            return
+        lo, hi = torch.stack(torch.aminmax(pos, dim=0)).tolist()
+        if min(lo) >= FIX_ONE and all(h + 1 < b * FIX_ONE for h, b in zip(hi, self.bounds)):
+            return
         bounds = torch.tensor(self.bounds, dtype=torch.int64, device=pos.device)
         bad = ((pos < FIX_ONE) | (pos + 1 >= bounds * FIX_ONE)).any(-1)
-        if bool(bad.any()):
-            i = int(torch.nonzero(bad)[0, 0])
-            raise ValueError(f"ray {i}: {(pos[i].double() / FIX_ONE).tolist()} is not in 0 to {self.bounds}")
+        i = int(torch.nonzero(bad)[0, 0])
+        raise ValueError(f"ray {i}: {(pos[i].double() / FIX_ONE).tolist()} is not in 0 to {self.bounds}")
 
     def trace_rays(
         self,
@@ -206,8 +213,12 @@ class RaytraceScene:
                            kernel, iterations)
 
         if mode == "fixed":
-            pos = as_fixed(start_position, self.device).reshape(-1, self.dim)
+            # numpy positions are checked on the host before they are
+            # uploaded, as the JAX package checks them; tensors where they lie
+            on_host = not isinstance(start_position, torch.Tensor)
+            pos = as_fixed(start_position, "cpu" if on_host else self.device).reshape(-1, self.dim)
             self._validate_fixed(pos)
+            pos = pos.to(self.device)
             march = dict(invscale=invscale, iterations=iterations, minimum_brightness=minimum_brightness,
                          trace_path=trace_path, chunk_steps=chunk_steps, use_cuda=use_cuda)
             if dir_fixed:
@@ -280,25 +291,27 @@ class RaytraceScene:
         """The fixed march from 16.16 start positions ``pos`` (int64, scene
         frame) and float directions ``dirs``: −0x8000, sample n there for
         |v| = n, −0x8000 again (or −0x10000 without normalising): net −1
-        voxel into the packed frame; +0x10000 on the way out, paths too."""
+        voxel into the packed frame; +0x10000 on the way out, paths too.
+        F1 does all of it in its one launch (``start_shift``, ``ior``,
+        ``pos_offset``), bit for bit as the plain march's passes do it."""
+        if use_cuda:
+            return fixed_kernel.march_fixed_cuda(
+                self.packed, self.translucency_cropped, pos, dirs.contiguous(), iterations, invscale=invscale,
+                min_bright=minimum_brightness,
+                path_len=1 + march_ops.path_steps(iterations, chunk_steps) if trace_path else 0,
+                pos_offset=FIX_ONE, start_shift=FIX_ONE, ior=self.ior.contiguous() if normalize_length else None,
+            )
         if normalize_length:
             p = (pos - FIX_HALF) & UINT32_MASK
             dirs = dirs * interp_fixed(self.ior[..., None], p)
             p = (p - FIX_HALF) & UINT32_MASK
         else:
             p = (pos - FIX_ONE) & UINT32_MASK
-        march = fixed_kernel.march_fixed if use_cuda else march_ops.march_fixed
-        res = march(
+        res = march_ops.march_fixed(
             self.packed, self.translucency_cropped, p, dirs, iterations, invscale=invscale,
             minimum_brightness=minimum_brightness, chunk_steps=chunk_steps, record_path=trace_path,
         )
-        return TraceResult(
-            end_position=(res.end_position + FIX_ONE) & UINT32_MASK,
-            end_direction=res.end_direction,
-            end_iteration=res.end_iteration,
-            remaining_light=res.remaining_light,
-            path=None if res.path is None else (res.path + FIX_ONE) & UINT32_MASK,
-        )
+        return fixed_kernel.with_offset(res, FIX_ONE)
 
     def _trace_fixed_dir_quantized(self, pos, start_direction, normalize_length, **march) -> TraceResult:
         """The fixed march with int16 8.8 directions, as the JAX package runs

@@ -57,9 +57,11 @@ REPO = Path(__file__).resolve().parents[2]
 
 #: the port's kernels by the fragment of their (mangled) names; a name takes
 #: the first fragment it holds, so the recording and the capped K2 come
-#: before K2
+#: before K2, and F1's recording and wide (64-bit index) instantiations
+#: before F1
 KERNELS = ("line_table_build", "corner_table_build", "march_lines_fwd_path", "march_lines_fwd_capped", "march_lines_fwd",
-           "march_lines_bwd", "line_table_fold", "march_points_fwd", "march_points_bwd", "march_fixed")
+           "march_lines_bwd", "line_table_fold", "march_points_fwd", "march_points_bwd",
+           "march_fixed_path_wide", "march_fixed_wide", "march_fixed_path", "march_fixed")
 #: instruction families counted in K4's SASS
 FAMILIES = ("LDGSTS", "LDG", "STG", "LDS", "STS", "BAR", "LDGDEPBAR", "DEPBAR", "MUFU", "I2F", "F2I")
 
