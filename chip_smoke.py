@@ -106,25 +106,42 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      within 1e-5, and kernel="cuda" raising; (e) times of the recording K2
      and K2 in turns, the plain recorded march and the recorded trace end
      to end;
- 17. the models, which run no CUDA kernel of the port (the JAX package runs
-     them in XLA): (a) kernel="native", the host C++ library that the port
+ 17. the models (the JAX package runs them in XLA): (a) kernel="native",
+     the host C++ library that the port
      builds with g++ into volumeraytracer_tpu_torch/_build/native (its build
      time), on the phase 5 bundle at 256³, budget 512, against
      kernel="auto" at tests/test_native.py:85-88's tolerances with no kernel
      launched, timed at the default Options.max_cpu and at 1, and
      NativeScene and the native harmonic solve against the port's on small
-     grids; (b) the camera forward at the width of BASELINE config 3, one
+     grids; (b) the camera forward through R1 (render_fwd, the camera's
+     accumulating march) at the width of BASELINE config 3, one
      1024×1024 camera through the 256³ lens, budget 512, σ and a
      three-channel emission (tests/test_render_image.py:21-32's blob with its
-     optical depths scaled to the grid), background (0.1, 0.05, 0): the
+     optical depths scaled to the grid), background (0.1, 0.05, 0): R1
+     launched once by render_image (one group of 3 channels), once by
+     the emission-off render and once by render_transmittance with and
+     without σ (equal to the image's march and T bit for bit), the
      transmittance in [0, 1] with min < 0.5 and max > 0.85, the
      emission-off image equal to T, channel 1 = 0.5 · channel 0 and channel
-     2 = 0, four row tiles through render_rays_image equal to the whole, no
-     kernel launched, and at config 1's size (64³, 128×128) the card against
-     the port's CPU run; (c) the camera gradient at that width: image_loss's
-     gradient to ior, σ and the emission finite and nonzero, then three Adam
-     steps of fit_field_image with falling losses, the step's time and peak
-     memory (checkpointed chunks of 32 steps); (d) solve_harmonic: 200 sweeps
+     2 = 0, four row tiles through render_rays_image equal to the whole;
+     R1 against its plain version (the plain march with τ and the
+     radiance) on the same start state, the end position, direction and
+     iteration bit for bit, τ and the radiance within rtol 1e-6 / atol
+     1e-6; times of R1 alone, its plain version and the frame; and at
+     config 1's size (64³, 128×128) R1 on the card against the port's
+     CPU run; (c) the camera gradient at that width: image_loss's gradient
+     to ior, σ and the emission finite and nonzero, R1 and R2 (render_bwd,
+     the reverse replay) launched once each, its time and peak memory; R2
+     against its plain replay on R1's end state with seeded cotangents
+     (d pos0 and d dir0 bit for bit, the field gradients within 1e-4 of
+     their largest value, the opacity channel's 0); the gradient through
+     R1 and R2 against the plain march's autograd at 256×256 within 1e-3
+     of the largest; render_transmittance's gradient there (R1 and R2
+     once each, with and without σ; differentiable=False R1 alone); times
+     of R2 alone (the zeroing of its gradient
+     fields included), its plain replay and the value and gradient; three
+     Adam steps of fit_field_image with falling losses, the step's time and
+     peak memory; (d) solve_harmonic: 200 sweeps
      at 256³ and their time, and a 64³ run that stops on its error after the
      same sweep as on the CPU, within 1e-5 of it and 1e-4 of the native
      float64 solve; (e) OpticalVolume: tests/test_optical_volume.py's ramp
@@ -226,7 +243,8 @@ The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
 the point training step, F1 on the fixed trace, the recording K2 on the
 recorded float trace, the capped K2 and the corner build on
-march_lines_compact over the scattered rays), error against its plain
+march_lines_compact over the scattered rays, R1 on phase 17b's frame and
+R2 on phase 17c's image_loss gradient), error against its plain
 version, times, its bound (the larger of its float32 operations over 67
 TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
 executed steps; the recording K2's bytes include its path) and its library
@@ -265,6 +283,45 @@ MARCH_FIXED_OPS = 104
 #: the ramp anchor of tests/test_scaling.py: traversal steps, and the |v|
 #: ratio's tolerance for float and for int16 8.8 directions
 ANCHOR_STEPS, ANCHOR_TOL, ANCHOR_TOL_DIR16 = 46718, 3e-5, 1e-5 + 1.0 / 256
+
+
+def render_ops(sigma: bool, channels: int) -> int:
+    """float32 operations of one step of R1 (csrc/render_fwd.cu), counted as
+    MARCH_OPS is: the bounds test (3 floors, 6 compares), the march step
+    (22 for the weights, 60 for the corner sums, the opacity compare, 6 for
+    the bend, 6 for 1/|u|², 9 for the step), the segment (10 for d, |d|²
+    and its square root, 6 for the midpoint, 3 floors); with a field the
+    midpoint's weights (22); with sigma its corner sum and dτ (16) and τ's
+    update; with an emission exp, expm1, T·w (3) and 17 a channel (the
+    corner sum, the product and the radiance's update)."""
+    ops = 132
+    if sigma or channels:
+        ops += 22
+    if sigma:
+        ops += 17
+    if channels:
+        ops += 3 + 17 * channels
+    return ops
+
+
+def render_bwd_ops(sigma: bool, emission: bool) -> int:
+    """float32 operations of one replayed step of R2 (csrc/render_bwd.cu),
+    counted the same way: the reconstruction and the segment (37), x's
+    weights and their derivatives (34), g (45), v (6), the step's adjoint
+    (6 for xb', 33 for t, ub and h, 136 for the 8 corners' G and gradients,
+    9 for xb); with a field the midpoint's weights and derivatives (34),
+    τ before, exp, expm1 and T·w (4), q·T (1), the segment's adjoint (7)
+    and 0.5·midb (3); with sigma its corner sum and dτ (16) and its adjoint
+    (72: dτ̄, τ̄, s̄, the midpoint's gradient, the 8 corners' sums); with an
+    emission q (15) and its adjoint (67)."""
+    ops = 306
+    if sigma or emission:
+        ops += 49
+    if sigma:
+        ops += 88
+    if emission:
+        ops += 82
+    return ops
 
 
 def kernel_bound(ops, nbytes):
@@ -403,13 +460,20 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
 
     from volumeraytracer_tpu_torch import (
         OpticalVolume, PinholeCamera, RaytraceScene, TraceResult, endpoint_render, fit_field, fit_field_image,
-        image_loss, load_ray_state, native, render_image, render_rays_image, save_ray_state, solve_harmonic,
+        image_loss, load_ray_state, native, render_image, render_rays_image, render_transmittance, save_ray_state,
+        solve_harmonic,
     )
     from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import render as rk
+    from volumeraytracer_tpu_torch.models import camera as camera_mod
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field
 
     sync = torch.cuda.synchronize
     close = torch.testing.assert_close
+
+    def err_scale(got, ref):
+        """max |got − ref| and the bound 1e-3·max |ref|."""
+        return (got - ref).abs().max().item(), 1e-3 * ref.abs().max().item()
 
     def no_launch(what):
         if any(_build.launches.values()):
@@ -471,7 +535,8 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     print(f"phase 17a NativeScene 24x12x12 vs the port's trace on the card: iterations {nit.tolist()} equal; native "
           f"harmonic 12x12, {hit} sweeps, max diff vs the port's {np.abs(hv - href.cpu().numpy()).max():.3g}")
 
-    # 17b. the camera forward at full width: one 1024x1024 camera of config 3
+    # 17b. the camera forward at full width: one 1024x1024 camera of config 3,
+    # through R1
     n = lens.shape[0]
     ior = t(lens)
     packed = scene.packed
@@ -482,6 +547,7 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     cam = PinholeCamera(origin=(1.5, n / 2, n / 2), forward=(1.0, 0.0, 0.0), up=(0.0, 0.0, 1.0), width=width,
                         height=width, fov=0.45, speed=0.5)
     rkw = dict(budget=BUDGET, invscale=INV, sigma=sigma, emission=emission, background=bg)
+    r = {"times": {}}
     with torch.no_grad():
         sync()
         _build.launches.clear()
@@ -489,7 +555,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         out = render_image(packed, ior, cam, **rkw)
         sync()
         render_first_s = time.perf_counter() - t0
-        no_launch("render_image")
+        r["r1_launches"] = frame_launches = dict(_build.launches)
+        if frame_launches != {"render_fwd": 1}:
+            raise AssertionError(f"render_image's launches {frame_launches}, expected R1 once (3 channels, one group)")
         img, trans = out["image"], out["transmittance"]
         image = img.cpu().numpy()
         if tuple(img.shape) != (width, width, 3) or not bool(torch.isfinite(img).all()):
@@ -500,7 +568,10 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         close(img[..., 1], 0.5 * img[..., 0], rtol=1e-5, atol=1e-7)
         if not bool((img[..., 2] == 0).all()):
             raise AssertionError("channel 2 (no emission, no background) is not 0")
+        _build.launches.clear()
         out0 = render_image(packed, ior, cam, budget=BUDGET, invscale=INV, sigma=sigma, emission=None, background=None)
+        if dict(_build.launches) != {"render_fwd": 1}:
+            raise AssertionError(f"the emission-off render's launches {dict(_build.launches)}, expected R1 once")
         if not (torch.equal(out0["image"], out0["transmittance"]) and torch.equal(out0["transmittance"], trans)):
             raise AssertionError("the emission-off image is not the transmittance")
         cpos, cdirs = cam.rays(device=dev)
@@ -508,12 +579,66 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         close(torch.cat(tiles), img.reshape(-1, 3), rtol=2e-6, atol=1e-6)
         cam_steps = int((out["end_iteration"] - 1).clamp(min=0).sum())
         exhausted = int((out["end_iteration"] == BUDGET).sum())
-        del out0, tiles
-        render_ms = timed(lambda: render_image(packed, ior, cam, **rkw), 2)
-        print(f"phase 17b camera {width}x{width} through {n}^3, budget {BUDGET}: no kernel launched, first call "
-              f"{render_first_s:.3f} s; T in [{trans.min().item():.4g}, {trans.max().item():.4g}], image max "
-              f"{img.max().item():.4g}; emission-off image = T; channel 1 = 0.5 channel 0, channel 2 = 0; 4 row "
-              f"tiles equal to the whole; {cam_steps} steps, {exhausted} rays exhausted the budget")
+        # render_transmittance through R1: with σ its T is the image's, and
+        # without σ (R1 with no field) the end state is the same march's
+        trans_launches = []
+        for s_ in (sigma, None):
+            _build.launches.clear()
+            tr_out = render_transmittance(packed, ior, cpos, cdirs, budget=BUDGET, invscale=INV, sigma=s_)
+            trans_launches.append(dict(_build.launches))
+            for key in ("end_position", "end_direction", "end_iteration"):
+                if not torch.equal(tr_out[key], out[key].reshape(tr_out[key].shape)):
+                    raise AssertionError(f"render_transmittance (sigma {s_ is not None}) {key} differs from "
+                                         f"render_image's")
+            if (tr_out["transmittance"] is None) == (s_ is not None) or (
+                    s_ is not None and not torch.equal(tr_out["transmittance"], trans.reshape(-1))):
+                raise AssertionError(f"render_transmittance (sigma {s_ is not None}): transmittance differs")
+        if trans_launches != [{"render_fwd": 1}] * 2:
+            raise AssertionError(f"render_transmittance's launches {trans_launches}, expected R1 once each")
+        del out0, tiles, tr_out
+        print(f"phase 17b camera {width}x{width} through {n}^3, budget {BUDGET}: launches {frame_launches}, first call "
+              f"{render_first_s:.3f} s (the kernel build is phase 2's); T in [{trans.min().item():.4g}, "
+              f"{trans.max().item():.4g}], image max {img.max().item():.4g}; emission-off image = T (R1 without "
+              f"channels); channel 1 = 0.5 channel 0, channel 2 = 0; 4 row tiles equal to the whole; "
+              f"render_transmittance with and without σ one R1 launch each, equal to the image's march and T; "
+              f"{cam_steps} steps, {exhausted} rays exhausted the budget")
+
+        # R1 against its plain version (the plain march with τ and the
+        # radiance) on the same start state
+        p0, d0, bend, step = camera_mod._start(ior, cpos, cdirs, INV)
+        p0, d0 = p0.contiguous(), d0.contiguous()
+        r1_args = (packed, sigma, emission, p0, d0, BUDGET)
+        r1_kw = dict(bend=bend, step=step)
+        got = rk.render_cuda(*r1_args, **r1_kw)
+        sync()
+        t0 = time.perf_counter()
+        ref = rk.render_plain(*r1_args, **r1_kw)
+        sync()
+        r["times"]["r1_plain"] = (time.perf_counter() - t0) * 1e3
+        for key, a, b in zip(("end position", "end direction", "end iteration"), got[:3], ref[:3]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"R1 {key} differs from the plain march's: max {(a - b).abs().max().item():.3g}")
+        close(got[3], ref[3], rtol=1e-6, atol=1e-6)
+        close(got[4], ref[4], rtol=1e-6, atol=1e-6)
+        tau_err, rad_err = ((a - b).abs().max().item() for a, b in zip(got[3:], ref[3:]))
+        r["r1_err"] = max(tau_err, rad_err)
+        if not torch.equal(got[2], out["end_iteration"]):
+            raise AssertionError("R1 alone and render_image disagree on the iterations")
+        print(f"phase 17b R1 vs the plain march {width}x{width}: end position, direction and iteration equal bit for "
+              f"bit; τ {'bit for bit' if torch.equal(got[3], ref[3]) else f'max err {tau_err:.3g}'}, radiance "
+              f"{'bit for bit' if torch.equal(got[4], ref[4]) else f'max err {rad_err:.3g}'} (rtol 1e-6, atol 1e-6)")
+        del ref
+        r["times"]["r1"] = timed(lambda: rk.render_cuda(*r1_args, **r1_kw), 5)
+        render_ms = timed(lambda: render_image(packed, ior, cam, **rkw), 5)
+        r["steps"] = cam_steps
+        # R1's bound: its operations a step, and each ray's state read and
+        # written (24 B in; 36 B and 4 a channel out) with the fields read
+        # once, counted whole
+        field_bytes = (packed.numel() + sigma.numel() + emission.numel()) * 4
+        r["r1_bound"] = kernel_bound(render_ops(True, 3) * cam_steps, (60 + 12) * width * width + field_bytes)
+        print(f"phase 17b time R1 render_fwd alone {width}x{width}: {r['times']['r1']:.4f} ms, "
+              f"{cam_steps / r['times']['r1'] / 1e6:.4f} Gsteps/s; plain march (one run) "
+              f"{r['times']['r1_plain']:.1f} ms {card}")
         print(f"phase 17b time render_image {width}x{width} (σ, 3-channel emission): {render_ms:.4f} ms, "
               f"{width * width / render_ms / 1e3:.4f} Mrays/s, {cam_steps / render_ms / 1e6:.4f} Gsteps/s {card}")
 
@@ -534,8 +659,8 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         close(got["transmittance"], ref["transmittance"], rtol=1e-5, atol=1e-6)
         close(got["end_position"], ref["end_position"], rtol=0, atol=1e-4)
         close(got["end_iteration"], ref["end_iteration"], rtol=0, atol=0)
-        print(f"phase 17b camera 128x128 through 64^3 (config 1): card vs CPU image max err "
-              f"{(got['image'] - ref['image']).abs().max().item():.3g}, T "
+        print(f"phase 17b camera 128x128 through 64^3 (config 1): R1 on the card vs the CPU's plain march, image max "
+              f"err {(got['image'] - ref['image']).abs().max().item():.3g}, T "
               f"{(got['transmittance'] - ref['transmittance']).abs().max().item():.3g}, end pos "
               f"{(got['end_position'] - ref['end_position']).abs().max().item():.3g}, iterations equal")
         del outs, got, ref
@@ -546,6 +671,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         true_ior = t(1.0 + 0.55 * np.exp(-4.0 * (xx * xx + yy * yy + zz * zz)))
         del xx, yy, zz
         target = render_image(build_packed_field(true_ior), true_ior, cam, **rkw)["image"]
+        small = width // 4
+        cam_s = dataclasses.replace(cam, width=small, height=small)
+        target_s = render_image(build_packed_field(true_ior), true_ior, cam_s, **rkw)["image"]
         del true_ior, out, img, trans
     leaves = [x.clone().requires_grad_(True) for x in (ior, sigma, emission)]
     torch.cuda.reset_peak_memory_stats()
@@ -558,16 +686,142 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     sync()
     grad_s = time.perf_counter() - t0
     grad_peak = torch.cuda.max_memory_allocated()
-    no_launch("image_loss's gradient")
+    r["r2_launches"] = grad_launches = dict(_build.launches)
+    if grad_launches != {"render_fwd": 1, "render_bwd": 1}:
+        raise AssertionError(f"image_loss's gradient launched {grad_launches}, expected R1 and R2 once each")
     for name, leaf in zip(("ior", "sigma", "emission"), leaves):
         g = leaf.grad
         if not (bool(torch.isfinite(g).all()) and g.abs().max().item() > 0):
             raise AssertionError(f"d(image loss)/d{name} is not finite and nonzero")
     print(f"phase 17c image_loss gradient {width}x{width} through {n}^3: loss {loss.item():.6g}, max |d/d ior| "
           f"{leaves[0].grad.abs().max().item():.4g}, |d/d sigma| {leaves[1].grad.abs().max().item():.4g}, "
-          f"|d/d emission| {leaves[2].grad.abs().max().item():.4g}, all finite; no kernel launched; value+grad "
-          f"{grad_s:.3f} s, peak memory {grad_peak / 2**30:.2f} GiB (chunks of 32 steps) {card}")
+          f"|d/d emission| {leaves[2].grad.abs().max().item():.4g}, all finite; launches {grad_launches}; value+grad "
+          f"{grad_s:.3f} s (first call), peak memory {grad_peak / 2**30:.2f} GiB {card}")
     del leaves, loss
+
+    # R2 against its plain replay on R1's end state, with seeded cotangents
+    with torch.no_grad():
+        end_pos, end_dir, iters, tau, _ = rk.render_cuda(*r1_args, **r1_kw)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        n_px = width * width
+        cot = [torch.randn(sh, generator=gen, device=dev) for sh in ((n_px, 3), (n_px, 3), (n_px,), (n_px, 3))]
+        nexec = (iters - 1).clamp(min=0).to(torch.int32)
+        r2_args = (packed, sigma, emission, p0, end_pos, end_dir, nexec, tau, *cot)
+        got = rk.render_bwd_cuda(*r2_args, **r1_kw)
+        sync()
+        t0 = time.perf_counter()
+        ref = rk.render_replay_plain(*r2_args, **r1_kw)
+        sync()
+        r["times"]["r2_plain"] = (time.perf_counter() - t0) * 1e3
+        r2_err = 0.0
+        notes = []
+        for key, a, b in zip(("d packed", "d sigma", "d emission", "d pos0", "d dir0"), got, ref):
+            err, scale = (a - b).abs().max().item(), b.abs().max().item()
+            r2_err = max(r2_err, err)
+            if key in ("d pos0", "d dir0"):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"R2 {key} differs from the plain replay's: max {err:.3g} of {scale:.3g}")
+                notes.append(f"{key} bit for bit")
+            else:
+                # the cells by the camera collect ~10^6 rays' terms, summed
+                # in float32 in two orders (R2 a cell at a time, then
+                # atomics; the plain replay with index_add_ a step):
+                # 3-5e-5 of the largest apart on the first card run
+                if not err <= 1e-4 * scale:
+                    raise AssertionError(f"R2 {key} vs the plain replay: max err {err:.3g} above 1e-4 of {scale:.3g}")
+                notes.append(f"{key} max err {err:.3g} of {scale:.3g}")
+        if not bool((got[0][..., 3] == 0).all()):
+            raise AssertionError("R2 gave the opacity channel a gradient")
+        r["r2_err"] = r2_err
+        del got, ref
+        replayed = int(nexec.sum())
+        r["times"]["r2"] = timed(lambda: rk.render_bwd_cuda(*r2_args, **r1_kw), 3)
+        # R2's bound: its operations a replayed step; each ray's start, end
+        # state, steps and cotangents read (96 B and 4 a channel) and its
+        # gradients written, the fields read and their gradients written once
+        r["r2_bound"] = kernel_bound(render_bwd_ops(True, True) * replayed, (96 + 12) * n_px + 2 * field_bytes)
+        print(f"phase 17c R2 vs the plain replay {width}x{width} (seeded cotangents): " + "; ".join(notes)
+              + "; opacity channel 0")
+        print(f"phase 17c time R2 render_bwd alone {width}x{width} (zeroing of the gradient fields included): "
+              f"{r['times']['r2']:.4f} ms, {replayed / r['times']['r2'] / 1e6:.4f} Gsteps/s; plain replay (one run) "
+              f"{r['times']['r2_plain']:.1f} ms {card}")
+        del r2_args, cot, end_pos, end_dir, iters, tau, nexec
+
+    # the kernels' gradient against the plain march's autograd at a quarter
+    # of the width, where the plain gradient takes seconds
+    grads = {}
+    for route in ("kernels", "plain"):
+        leaves = [x.clone().requires_grad_(True) for x in (ior, sigma, emission)]
+        saved = rk.use_kernels
+        if route == "plain":
+            rk.use_kernels = lambda device, dim: False
+        try:
+            sync()
+            _build.launches.clear()
+            t0 = time.perf_counter()
+            loss = image_loss(leaves[0], cam_s, target_s, budget=BUDGET, invscale=INV, sigma=leaves[1],
+                              emission=leaves[2], background=bg, chunk_steps=32)
+            loss.backward()
+            sync()
+            grads[route] = (loss.item(), [leaf.grad for leaf in leaves], dict(_build.launches),
+                            time.perf_counter() - t0)
+        finally:
+            rk.use_kernels = saved
+    if grads["kernels"][2] != {"render_fwd": 1, "render_bwd": 1} or grads["plain"][2]:
+        raise AssertionError(f"launches {grads['kernels'][2]} (kernels) and {grads['plain'][2]} (plain)")
+    close(torch.tensor(grads["kernels"][0]), torch.tensor(grads["plain"][0]), rtol=1e-5, atol=0)
+    notes = []
+    for name, a, b in zip(("ior", "sigma", "emission"), grads["kernels"][1], grads["plain"][1]):
+        err, bound = err_scale(a, b)
+        if not (bool(torch.isfinite(a).all()) and err <= bound):
+            raise AssertionError(f"image_loss d/d{name} {small}x{small}: kernels vs plain max err {err:.3g} above "
+                                 f"{bound:.3g}")
+        notes.append(f"d/d {name} max err {err:.3g} (bound {bound:.3g})")
+    print(f"phase 17c image_loss gradient {small}x{small} through {n}^3, R1 + R2 vs the plain march's autograd: "
+          + "; ".join(notes) + f"; value+grad {grads['kernels'][3]:.3f} s vs {grads['plain'][3]:.3f} s {card}")
+    del grads, leaves, loss, target_s
+
+    # render_transmittance's gradient through R1 and R2, with and without
+    # σ, at a quarter of the width
+    cpos_s, cdirs_s = cam_s.rays(device=dev)
+    for s_ in (sigma, None):
+        leaf = ior.clone().requires_grad_(True)
+        sync()
+        _build.launches.clear()
+        tr_out = render_transmittance(build_packed_field(leaf), leaf, cpos_s, cdirs_s, budget=BUDGET, invscale=INV,
+                                      sigma=s_)
+        loss = tr_out["end_position"][:, 1].sum() + (tr_out["transmittance"].sum() if s_ is not None else 0.0)
+        loss.backward()
+        sync()
+        if dict(_build.launches) != {"render_fwd": 1, "render_bwd": 1}:
+            raise AssertionError(f"render_transmittance's gradient (sigma {s_ is not None}) launched "
+                                 f"{dict(_build.launches)}, expected R1 and R2 once each")
+        if not (bool(torch.isfinite(leaf.grad).all()) and leaf.grad.abs().max().item() > 0):
+            raise AssertionError("render_transmittance's d/d ior is not finite and nonzero")
+    _build.launches.clear()
+    tr_out = render_transmittance(packed, ior, cpos_s, cdirs_s, budget=BUDGET, invscale=INV, sigma=sigma,
+                                  differentiable=False)
+    if dict(_build.launches) != {"render_fwd": 1} or tr_out["transmittance"].requires_grad:
+        raise AssertionError(f"render_transmittance(differentiable=False) launched {dict(_build.launches)}")
+    print(f"phase 17c render_transmittance {small}x{small}: its gradient (end positions and T, with and without "
+          f"σ) launched R1 and R2 once each; differentiable=False R1 alone")
+    del leaf, loss, tr_out
+
+    leaves = [x.clone().requires_grad_(True) for x in (ior, sigma, emission)]
+
+    def value_and_grad():
+        for leaf in leaves:
+            leaf.grad = None
+        image_loss(leaves[0], cam, target, budget=BUDGET, invscale=INV, sigma=leaves[1], emission=leaves[2],
+                   background=bg).backward()
+
+    torch.cuda.reset_peak_memory_stats()
+    grad_ms = timed(value_and_grad, 3)
+    grad_peak = torch.cuda.max_memory_allocated()
+    print(f"phase 17c time image_loss value+grad {width}x{width}: {grad_ms:.4f} ms, peak memory "
+          f"{grad_peak / 2**30:.2f} GiB {card}")
+    r["times"]["grad"] = grad_ms
+    del leaves
     torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.perf_counter()
@@ -702,7 +956,7 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     print(f"phase 17f fit_field on the card, 4 steps then resumed to 8: equal to a straight 8-step run (max diff "
           f"{np.abs(resumed.ior - full.ior).max():.3g}), checkpoints kept {kept}; ray state saved and loaded between "
           f"two legs of 100: equal to one trace of 200")
-    return image
+    return image, r
 
 
 def capped_digests(dev, packed256, table, k_args, k_kw, capped, plain_capped) -> dict:
@@ -2803,9 +3057,11 @@ def main() -> None:
         print(f"phase 16e time {label}: {times[key]:.4f} ms, {n_rays / times[key] / 1e3:.4f} Mrays/s, "
               f"{steps / times[key] / 1e6:.4f} Gsteps/s {card}")
 
-    # 17. the models: native, cameras, image fitting, harmonic, OpticalVolume,
-    # checkpoints (the kernels line below reads the counts saved above)
-    image = phase17(dev, t, timed, card, lens, scene, pos, dirs, res)
+    # 17. the models: native, cameras through R1 and R2, image fitting,
+    # harmonic, OpticalVolume, checkpoints (the kernels line below reads the
+    # counts saved above and R1's and R2's from phase 17)
+    image, r17 = phase17(dev, t, timed, card, lens, scene, pos, dirs, res)
+    times.update(r17["times"])
 
     # 18. the scattered rays (compaction over the capped K2, fwd+bwd) and
     # capture and replay (write_instance, vrt-replay-torch)
@@ -2852,10 +3108,13 @@ def main() -> None:
         # build (phase 18)
         "k2c": k2c["bound"],
         "kc": k2c["kc_bound"],
+        # R1 and R2 at phase 17's 1024² camera (σ and 3 channels)
+        "r1": r17["r1_bound"],
+        "r2": r17["r2_bound"],
     }
     for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
                        ("f1", "F1"), ("f1p", "recording F1"), ("k2p", "recording K2"), ("k2c", "capped K2"),
-                       ("kc", "corner build")):
+                       ("kc", "corner build"), ("r1", "R1"), ("r2", "R2")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
@@ -2877,6 +3136,8 @@ def main() -> None:
          k2c["err"]),
         ("kc", "corner_table_build", "corner_table_build.cu", "kernels/line_table_pallas.py:108", k2c["launches"],
          k2c["kc_err"]),
+        ("r1", "render_fwd", "render_fwd.cu", "models/camera.py:229", r17["r1_launches"], r17["r1_err"]),
+        ("r2", "render_bwd", "render_bwd.cu", "models/camera.py:229", r17["r2_launches"], r17["r2_err"]),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,

@@ -35,7 +35,7 @@ SOURCES = tuple(
     _HERE / "csrc" / name
     for name in (
         "line_table_build.cu", "corner_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu",
-        "march_points_fwd.cu", "march_points_bwd.cu", "march_fixed.cu",
+        "march_points_fwd.cu", "march_points_bwd.cu", "march_fixed.cu", "render_fwd.cu", "render_bwd.cu",
     )
 )
 BUILD_DIR = _HERE.parent / "_build"
@@ -71,6 +71,23 @@ _MARCH_FIXED = (
 #: the recording F1: F1's arguments with the path's padded rows and their
 #: length in entries after the outputs
 _MARCH_FIXED_PATH = _MARCH_FIXED[:16] + (_P, _I) + _MARCH_FIXED[16:]
+#: R1: the packed field, sigma and the emission (each a pointer or null and
+#: its shape), the emission's channel count, the group's first channel and
+#: its channels, the start state, the outputs, n, budget, bend, step
+_RENDER_FWD = (
+    _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,  # packed, sigma, emission, C, c0, nc
+    _P, _P, _P, _P, _P, _P, _P,  # pos, dir in; pos, dir, iterations, tau, radiance out
+    _I, _I, _F, _F, _F, _F, _F, _F, _P,  # n, budget, bend, step, stream
+)
+#: R2: the fields as R1 takes them, the start position, the end state, its
+#: cotangents, the gradients of the fields and of the start, n, bend, step
+_RENDER_BWD = (
+    _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I,  # packed, sigma, emission, C, its gradient's row
+    _P, _P, _P, _P, _P,  # start pos, end pos, end dir, nexec, tau
+    _P, _P, _P, _P,  # d_pos, d_dir, d_tau, d_rad
+    _P, _P, _P, _P, _P,  # g_packed, g_sigma, g_emission, d_pos0, d_dir0
+    _I, _F, _F, _F, _F, _F, _F, _P,  # n, bend, step, stream
+)
 _SIGNATURES = {
     "vrt_line_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vrt_corner_table_build": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -83,6 +100,8 @@ _SIGNATURES = {
     "vrt_march_points_bwd": _MARCH_BWD,
     "vrt_march_fixed": _MARCH_FIXED,
     "vrt_march_fixed_path": _MARCH_FIXED_PATH,
+    "vrt_render_fwd": _RENDER_FWD,
+    "vrt_render_bwd": _RENDER_BWD,
 }
 
 #: launches of each kernel by name since the last ``clear()``

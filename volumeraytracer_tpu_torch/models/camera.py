@@ -12,21 +12,27 @@ state, per segment (midpoint rule, media constant along it):
     I += T_end · background     at the end
 
 Gradients flow to ``ior`` (through the bending), σ and the emission.  The
-march runs in checkpointed chunks (``ops.march._run_while(remat=True)``)
+JAX package runs this march in XLA, with no kernel.  CUDA tensors of a 3-D
+volume run it as two kernels (``kernels/render.py``): R1 marches and
+accumulates, R2 replays the march backwards for the gradient;
+``chunk_steps`` has no effect there.  CPU tensors and 2-D volumes run the
+plain march in checkpointed chunks (``ops.march._run_while(remat=True)``)
 that stop once every ray is dead, where the JAX package scans a fixed
-number of chunks: a dead ray's segment is empty and adds nothing.  Plain
-torch on the tensors' device (the JAX package runs it in XLA, with no
-kernel).
+number of chunks: a dead ray's segment is empty and adds nothing.  The
+route is decided by the tensors' device and dimension, before anything
+launches; on the card a failed build or launch raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels import render as render_k
 from ..ops import march as march_ops
 from ..ops.interp import interp_linear
 from ..types import BRIGHTNESS_MAX
@@ -116,22 +122,27 @@ def render_transmittance(packed, ior, positions, directions, *, budget: int, inv
     end_position (scene frame), end_direction, end_iteration and
     transmittance.  With ``sigma`` (a float absorption field on the packed
     grid, or a scalar) the transmittance T = exp(−Σ σ(mid)·Δs) is carried
-    and differentiable (and the march always checkpointed); without it,
-    ``None``."""
+    and differentiable (on the CPU the march is then always checkpointed);
+    without it, ``None``.  On the card ``differentiable=False`` runs R1
+    alone, with no gradient."""
     dim = positions.shape[-1]
     sigma = _as_field(sigma, dim, packed.device)
     pos, dirs, bend, step = _start(ior, positions, directions, invscale)
-    if sigma is None:
+    if render_k.use_kernels(packed.device, dim):
+        end_pos, end_dir, end_iter, tau, _ = _render_kernels(packed, sigma, None, pos, dirs, budget, bend, step,
+                                                             chunk_steps, differentiable)
+    elif sigma is None:
         res = march_ops.march_float(packed, None, pos, dirs, budget, bend_scale=bend, step_scale=step,
                                     chunk_steps=chunk_steps, differentiable=differentiable)
-        trans = None
+        end_pos, end_dir, end_iter = res.end_position, res.end_direction, res.end_iteration
     else:
-        res, trans, _ = _march_accumulate(packed, sigma, None, pos, dirs, budget, bend, step, chunk_steps)
+        res, tau, _ = _march_accumulate(packed, sigma, None, pos, dirs, budget, bend, step, chunk_steps)
+        end_pos, end_dir, end_iter = res.end_position, res.end_direction, res.end_iteration
     return {
-        "end_position": res.end_position + 1.0,
-        "end_direction": res.end_direction,
-        "end_iteration": res.end_iteration,
-        "transmittance": trans,
+        "end_position": end_pos + 1.0,
+        "end_direction": end_dir,
+        "end_iteration": end_iter,
+        "transmittance": torch.exp(-tau) if sigma is not None else None,
     }
 
 
@@ -165,8 +176,16 @@ def render_rays_image(packed, ior, positions, directions, *, budget, invscale=2.
     dim = positions.shape[-1]
     sigma = _as_field(sigma, dim, packed.device)
     emission = _as_field(emission, dim, packed.device)
+    if emission is not None and emission.ndim == packed.ndim - 1:
+        emission = emission[..., None]
     pos, dirs, bend, step = _start(ior, positions, directions, invscale)
-    res, trans, radiance = _march_accumulate(packed, sigma, emission, pos, dirs, budget, bend, step, chunk_steps)
+    if render_k.use_kernels(packed.device, dim):
+        end_pos, end_dir, end_iter, tau, radiance = _render_kernels(packed, sigma, emission, pos, dirs, budget, bend,
+                                                                    step, chunk_steps)
+    else:
+        res, tau, radiance = _march_accumulate(packed, sigma, emission, pos, dirs, budget, bend, step, chunk_steps)
+        end_pos, end_dir, end_iter = res.end_position, res.end_direction, res.end_iteration
+    trans = torch.exp(-tau) if sigma is not None else None
     image = None
     if radiance is not None:
         image = radiance
@@ -181,16 +200,27 @@ def render_rays_image(packed, ior, positions, directions, *, budget, invscale=2.
     return {
         "image": image,
         "transmittance": trans,
-        "end_position": res.end_position + 1.0,
-        "end_direction": res.end_direction,
-        "end_iteration": res.end_iteration,
+        "end_position": end_pos + 1.0,
+        "end_direction": end_dir,
+        "end_iteration": end_iter,
     }
+
+
+def _render_kernels(packed, sigma, emission, pos, dirs, budget, bend, step, chunk_steps, differentiable=True):
+    """The render on the card: R1, with R2 for the gradient unless
+    ``differentiable`` is False.  Returns (end position (packed frame),
+    end direction, end iteration, τ, (N, C) radiance or ``None``)."""
+    with contextlib.nullcontext() if differentiable else torch.no_grad():
+        out = render_k.render_diff(packed, sigma, emission, pos, dirs, budget, bend=bend, step=step,
+                                   chunk_steps=chunk_steps)
+    return (*out[:4], out[4] if emission is not None else None)
 
 
 def _march_accumulate(packed, sigma, emission, pos, dirs, budget, bend_scale, step_scale, chunk_steps):
     """The plain float march with the optical depth and the emitted
-    radiance in its state, in checkpointed chunks: (TraceResult,
-    transmittance or ``None``, (N, C) radiance or ``None``)."""
+    radiance in its state, in checkpointed chunks: (TraceResult, (N,)
+    optical depth τ (0 without σ), (N, C) radiance or ``None``).  R1's
+    plain version (``kernels/render.py:render_plain``)."""
     n = pos.shape[0]
     dev = packed.device
     if emission is not None and emission.ndim == packed.ndim - 1:
@@ -239,6 +269,5 @@ def _march_accumulate(packed, sigma, emission, pos, dirs, budget, bend_scale, st
 
     state = march_ops._run_while(one, state, budget, chunk_steps, remat=True)
     res = march_ops._finish(march_ops.MarchState(*state[:6]), budget)
-    trans = torch.exp(-state.tau) if sigma is not None else None
-    return res, trans, (state.rad if emission is not None else None)
+    return res, state.tau, (state.rad if emission is not None else None)
 

@@ -61,7 +61,7 @@ REPO = Path(__file__).resolve().parents[2]
 #: before F1
 KERNELS = ("line_table_build", "corner_table_build", "march_lines_fwd_path", "march_lines_fwd_capped", "march_lines_fwd",
            "march_lines_bwd", "line_table_fold", "march_points_fwd", "march_points_bwd",
-           "march_fixed_path_wide", "march_fixed_wide", "march_fixed_path", "march_fixed")
+           "march_fixed_path_wide", "march_fixed_wide", "march_fixed_path", "march_fixed", "render_fwd", "render_bwd")
 #: instruction families counted in K4's SASS
 FAMILIES = ("LDGSTS", "LDG", "STG", "LDS", "STS", "BAR", "LDGDEPBAR", "DEPBAR", "MUFU", "I2F", "F2I")
 
@@ -150,8 +150,14 @@ def cell_change_block(ins) -> dict:
 
 def ptxas_by_kernel(log: str) -> dict:
     """ptxas -v output → {kernel: {"registers", "smem_bytes", "spill_stores",
-    "spill_loads"}}."""
+    "spill_loads"}}.  A kernel of several template instantiations (R1's
+    channel counts, R2's fields) reads the largest value of each among
+    them, so that a spill in any of them shows."""
     out, name = {}, None
+
+    def put(key, value):
+        out[name][key] = max(value, out[name].get(key, value))
+
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)", line)
         if m:
@@ -163,12 +169,13 @@ def ptxas_by_kernel(log: str) -> dict:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            put("spill_stores", int(m.group(1)))
+            put("spill_loads", int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out[name]["registers"] = int(m.group(1))
+            put("registers", int(m.group(1)))
             smem = re.search(r"(\d+) bytes smem", line)
-            out[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
+            put("smem_bytes", int(smem.group(1)) if smem else 0)
     return out
 
 
