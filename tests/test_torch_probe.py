@@ -1,7 +1,8 @@
 """The probes' host-side parts on the CPU: the point table's two ray orders
 against numpy lexsorts, the readers of cuobjdump's SASS listing and of
-ptxas' report on small listings of the same form, and the K4 sweep's
-variants of the fold's source."""
+ptxas' report on small listings of the same form, the K4 sweep's
+variants of the fold's source, and the render probe's count of R2's
+atomics under its three flush schemes."""
 
 import re
 
@@ -234,3 +235,58 @@ def test_ptxas_reader_tells_the_f1_instantiations_apart():
     assert {k: v["registers"] for k, v in got.items()} == {
         "march_fixed": 40, "march_fixed_path": 41, "march_fixed_wide": 42, "march_fixed_path_wide": 43}
     assert set(got) <= set(probe.KERNELS)
+
+
+def test_render_probe_atomic_counts():
+    """probe_render's count of R2's global atomics under the three flush
+    schemes, on 128 rays that step together through the cells (s, 0, 0) of
+    an 8 × 4 × 4 grid for 4 steps: a thread's caches flush 4 cells a ray,
+    8 atomics each; a warp groups its 32 rays' flushes of one cell at one
+    step; the block's box of one window holds the 5 × 2 × 2 points of the
+    4 cells' corners.  A shuffled order leaves the box's count as it is."""
+    from volumeraytracer_tpu_torch.probes import probe_render
+
+    steps = torch.full((128,), 4, dtype=torch.int64)
+    cells = (torch.arange(4)[:, None] * 16).expand(4, 128).clone()
+    for order in (torch.arange(128), torch.randperm(128, generator=torch.Generator().manual_seed(1))):
+        counts = probe_render.atomic_counts(torch, cells, (8, 4, 4), steps, order)
+        assert counts == {"thread": 8 * 4 * 128, "warp": 8 * 4 * 4, "box": 20, "box_windows": 1,
+                          "box_windows_over_cap": 0, "flushes": 4 * 128}
+    # a ray that stops after 2 steps flushes its 2 cells only
+    steps[0] = 2
+    assert probe_render.atomic_counts(torch, cells, (8, 4, 4), steps, torch.arange(128))["thread"] == 8 * (4 * 127 + 2)
+
+
+def test_render_probe_ptxas_reader():
+    """probe_render's ptxas reader keeps each instantiation of R1 and R2
+    apart."""
+    from volumeraytracer_tpu_torch.probes import probe_render
+
+    log = "".join(
+        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117render_{k}_kernelI{args}EEvPKf' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for _ZN12_GLOBAL__N_117render_{k}_kernelI{args}EEvPKf\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers, 176 bytes smem, 600 bytes cmem[0]\n"
+        for k, args, regs, spill in (("fwd", "Li3ELb1ELb1E", 108, 0), ("bwd", "Lb1ELb1ELb1E", 165, 0),
+                                     ("bwd", "Lb0ELb0ELb0E", 96, 8)))
+    assert probe_render.ptxas_instances(log) == {
+        "render_fwd<Li3ELb1ELb1E>": {"spill_stores": 0, "spill_loads": 0, "registers": 108, "smem_bytes": 176},
+        "render_bwd<Lb1ELb1ELb1E>": {"spill_stores": 0, "spill_loads": 0, "registers": 165, "smem_bytes": 176},
+        "render_bwd<Lb0ELb0ELb0E>": {"spill_stores": 8, "spill_loads": 0, "registers": 96, "smem_bytes": 176}}
+
+
+def test_render_probe_variant_sources():
+    """Each of probe_render's variants finds its text in today's R1 or R2
+    source once and changes it; R1's nested-loop variant holds F1's form."""
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.probes import probe_render
+
+    for name, src, fn_name, edits, _ in probe_render.VARIANTS:
+        text = (_build._HERE / "csrc" / src).read_text()
+        new = probe_render.variant_source(text, edits)
+        assert new != text and fn_name in text, name
+    r1 = (_build._HERE / "csrc" / "render_fwd.cu").read_text()
+    nested = probe_render.variant_source(r1, [(None, probe_render.NESTED_R1_LOOP)])
+    assert "stopped = true" in nested and "stopped = true" not in r1
+    with pytest.raises(ValueError, match="variant text"):
+        probe_render.variant_source(r1, [("no such text", "")])

@@ -328,18 +328,29 @@ def test_ptxas_reader_keeps_the_largest_of_an_instantiation_set():
 
 
 #: what the CUDA sources need from the CUDA headers, for the host: one
-#: thread at a time, each block's threads in turn
+#: thread at a time, a block of one thread (VRT_BLOCK_THREADS), so that the
+#: warp's collectives hold one lane; R2 counts its global atomics
+#: (VRT_COUNT_ATOMICS)
 HOST_SHIM = r"""
 #pragma once
 #include <math.h>
 #include <stdint.h>
 #include <limits.h>
+#include <string.h>
+#include <algorithm>
+using std::max;
+using std::min;
+#define VRT_BLOCK_THREADS 1
+#define VRT_COUNT_ATOMICS 1
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __shared__ static
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline float2 make_float2(float x, float y) { return {x, y}; }
 struct Idx3 { int x; };
@@ -348,6 +359,17 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline float atomicAdd(float* p, float v) { float o = *p; *p = o + v; return o; }
 inline void atomicAdd(float4* p, float4 v) { p->x += v.x; p->y += v.y; p->z += v.z; p->w += v.w; }
 inline void atomicAdd(float2* p, float2 v) { p->x += v.x; p->y += v.y; }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  unsigned long long o = *p; *p = o + v; return o;
+}
+inline void __syncwarp(unsigned = 0) {}
+inline unsigned __match_any_sync(unsigned, int) { return 1u; }
+inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
+inline int __any_sync(unsigned, bool p) { return p; }
+template <class T> inline T __shfl_sync(unsigned, T v, int) { return v; }
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
+inline int __reduce_max_sync(unsigned, int v) { return v; }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __float2int_rz(float f) {
   if (isnan(f)) return 0;
   if (f >= 2147483648.0f) return INT_MAX;
@@ -357,11 +379,17 @@ inline int __float2int_rz(float f) {
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+template <class T> inline int cudaMemcpyFromSymbol(void* dst, const T& sym, size_t n) {
+  memcpy(dst, &sym, n); return 0;
+}
+template <class T> inline int cudaMemcpyToSymbol(T& sym, const void* src, size_t n) {
+  memcpy(&sym, src, n); return 0;
+}
 template <class F> struct Launcher {
   int n; F f;
   template <class... A> void operator()(A... a) const {
-    for (int b = 0; b * 128 < n; ++b)
-      for (int t = 0; t < 128; ++t) { blockIdx.x = b; threadIdx.x = t; f(a...); }
+    for (int b = 0; b * VRT_BLOCK_THREADS < n; ++b)
+      for (int t = 0; t < VRT_BLOCK_THREADS; ++t) { blockIdx.x = b; threadIdx.x = t; f(a...); }
   }
 };
 template <class F> Launcher<F> make_launcher(int n, F f) { return {n, f}; }
@@ -369,14 +397,10 @@ template <class F> Launcher<F> make_launcher(int n, F f) { return {n, f}; }
 """
 
 
-@pytest.fixture(scope="module")
-def host_kernels(tmp_path_factory):
+def _host_library(tmp):
     """R1's and R2's CUDA sources compiled for the host by g++ (no
-    contraction), through HOST_SHIM, as a library with the kernels' C
-    functions."""
-    if shutil.which("g++") is None:
-        pytest.skip("no g++ on this host")
-    tmp = tmp_path_factory.mktemp("render_host")
+    contraction) through HOST_SHIM, as a library with the kernels' C
+    functions and R2's count of its atomics."""
     (tmp / "cuda_runtime.h").write_text(HOST_SHIM)
     objs = []
     for src in ("render_fwd.cu", "render_bwd.cu"):
@@ -393,7 +417,16 @@ def host_kernels(tmp_path_factory):
     for name in ("vrt_render_fwd", "vrt_render_bwd"):
         getattr(lib, name).argtypes = _build._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
+    lib.vrt_render_bwd_atomics.argtypes, lib.vrt_render_bwd_atomics.restype = (ctypes.c_void_p,), ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """The host library of the sources as they are."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    return _host_library(tmp_path_factory.mktemp("render_host"))
 
 
 def _host_fields(case, rng):
@@ -408,21 +441,29 @@ def _host_fields(case, rng):
         "own_shapes": (rng.uniform(0.0, 0.2, (5, 7, 9)).astype(np.float32),
                        rng.uniform(0.0, 1.0, (9, 4, 6, 2)).astype(np.float32)),
         "scalar_grids": (np.full((2, 2, 2), 0.05, np.float32), np.full((2, 2, 2, 1), 0.5, np.float32)),
+        "shuffled": (sigma, np.stack([emission, 0.5 * emission, 0.25 * emission], -1)),
+        "em3_own_grid": (sigma, rng.uniform(0.0, 1.0, (11, 9, 13, 3)).astype(np.float32)),
+        "sigma_em2": (sigma, np.stack([emission, 0.5 * emission], -1)),
     }[case]
 
 
 @pytest.mark.parametrize("case", ["lens", "sigma_em3", "em_no_sigma", "em2", "em4", "em5", "own_shapes",
-                                  "scalar_grids"])
+                                  "scalar_grids", "shuffled", "em3_own_grid", "sigma_em2"])
 def test_kernel_sources_on_the_host_match_the_plain_versions(case, host_kernels, monkeypatch):
-    """R1 and R2 from their CUDA sources (g++, one thread at a time) through
-    the wrappers' card branches (``_launch_fwd``, ``_launch_bwd``: the
-    checks, allocations and launches) on CPU tensors, on the lens with an opaque
-    plane: R1's end position, direction, iterations and τ equal to
-    ``render_plain``'s bit for bit and its radiance within 1e-6 (the
-    host's expf against torch's exp); R2's d pos0 and d dir0 within 1e-6
-    of their largest value and its field gradients within 1e-5 of theirs
-    against ``render_replay_plain`` (atomics summed a cell at a time, exp
-    as before); R1 launched once a group of four channels, R2 once."""
+    """R1 and R2 from their CUDA sources (g++, one thread at a time, a block
+    of one thread) through the wrappers' card branches (``_launch_fwd``,
+    ``_launch_bwd``: the checks, allocations and launches) on CPU tensors,
+    over ``render_order``'s order ("shuffled": a random permutation) and,
+    where σ and the emission share a grid with C ≤ 3, the record (C = 1,
+    2 and 3), on the lens with an opaque plane: R1's end position,
+    direction, iterations and τ equal to ``render_plain``'s bit for bit
+    and its radiance within 1e-6 (the host's expf against torch's exp);
+    R2's d pos0 and d dir0 within 1e-6 of their largest value and its
+    field gradients within 1e-5 of theirs against ``render_replay_plain``
+    (sums in another order, exp as before), R2's count of its global
+    atomics 8 a flush of a cache, at least one a cache a ray that moved;
+    R1 launched once a group of four channels (once with the record), R2
+    once."""
     rng = np.random.default_rng(11)
     ior, _, _ = scene(16)
     sig, em = _host_fields(case, rng)
@@ -439,11 +480,17 @@ def test_kernel_sources_on_the_host_match_the_plain_versions(case, host_kernels,
     monkeypatch.setattr(_build, "_lib", host_kernels)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=None))
+    if case == "shuffled":
+        order = torch.from_numpy(rng.permutation(p0.shape[0]).astype(np.int32))
+    else:
+        order = rk.render_order(p0, d0, packed.shape)
+    record = rk.field_record(s, e)
+    assert (record is not None) == (case in ("sigma_em3", "scalar_grids", "shuffled", "sigma_em2"))
     _build.launches.clear()
-    got = rk._launch_fwd(packed, s, e, p0, d0, BUDGET, bend=bend, step=step)
+    got = rk._launch_fwd(packed, s, e, p0, d0, BUDGET, bend=bend, step=step, order=order, record=record)
     ref = rk.render_plain(packed, s, e, p0, d0, BUDGET, bend=bend, step=step)
     channels = 0 if e is None else e.shape[-1]
-    assert dict(_build.launches) == {"render_fwd": len(rk.channel_groups(channels))}
+    assert dict(_build.launches) == {"render_fwd": 1 if record is not None else len(rk.channel_groups(channels))}
     for name, a, b in zip(("end position", "end direction", "iterations", "tau"), got[:4], ref[:4]):
         assert torch.equal(a, b), name
     assert tuple(got[4].shape) == tuple(ref[4].shape) == (p0.shape[0], channels)
@@ -456,9 +503,16 @@ def test_kernel_sources_on_the_host_match_the_plain_versions(case, host_kernels,
     d_rad = None if e is None else torch.randn((n, channels), generator=gen)
     nexec = (got[2] - 1).clamp(min=0).to(torch.int32)
     args = (s, e, p0, got[0], got[1], nexec, got[3], *cot, d_rad)
-    kern = rk._launch_bwd(packed, *args, bend=bend, step=step)
+    atomics = ctypes.c_ulonglong(0)
+    host_kernels.vrt_render_bwd_atomics(ctypes.byref(atomics))
+    kern = rk._launch_bwd(packed, *args, bend=bend, step=step, order=order, record=record)
     plain = rk.render_replay_plain(packed, *args, bend=bend, step=step)
     assert _build.launches["render_bwd"] == 1
+    host_kernels.vrt_render_bwd_atomics(ctypes.byref(atomics))
+    # the packed cache, and the record's or σ's and the emission's own (an
+    # emission of C other than 2-4 channels sends them one at a time)
+    caches = 1 + (1 if record is not None else (s is not None) + (channels if channels in (1, 5) else channels > 0))
+    assert atomics.value % 8 == 0 and atomics.value >= 8 * caches * int((nexec > 0).sum()), atomics.value
     for name, a, b, tol in zip(("d packed", "d sigma", "d emission", "d pos0", "d dir0"), kern, plain,
                                (1e-5, 1e-5, 1e-5, 1e-6, 1e-6)):
         if b is None:

@@ -72,17 +72,22 @@ _MARCH_FIXED = (
 #: length in entries after the outputs
 _MARCH_FIXED_PATH = _MARCH_FIXED[:16] + (_P, _I) + _MARCH_FIXED[16:]
 #: R1: the packed field, sigma and the emission (each a pointer or null and
-#: its shape), the emission's channel count, the group's first channel and
-#: its channels, the start state, the outputs, n, budget, bend, step
+#: its shape), the emission's channel count, the group's first channel, the
+#: record (or null), the ray order, the start state, the outputs, n,
+#: budget, bend, step, the group's channels
 _RENDER_FWD = (
-    _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,  # packed, sigma, emission, C, c0, nc
+    _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I,  # packed, sigma, emission, C, c0
+    _P, _P,  # record, order
     _P, _P, _P, _P, _P, _P, _P,  # pos, dir in; pos, dir, iterations, tau, radiance out
-    _I, _I, _F, _F, _F, _F, _F, _F, _P,  # n, budget, bend, step, stream
+    _I, _I, _F, _F, _F, _F, _F, _F, _I, _P,  # n, budget, bend, step, nc, stream
 )
-#: R2: the fields as R1 takes them, the start position, the end state, its
-#: cotangents, the gradients of the fields and of the start, n, bend, step
+#: R2: the fields as R1 takes them, the emission gradient's row, the
+#: record and its gradient (or null), the ray order, the start position,
+#: the end state, its cotangents, the gradients of the fields and of the
+#: start, n, bend, step
 _RENDER_BWD = (
     _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I,  # packed, sigma, emission, C, its gradient's row
+    _P, _P, _P,  # record, its gradient, order
     _P, _P, _P, _P, _P,  # start pos, end pos, end dir, nexec, tau
     _P, _P, _P, _P,  # d_pos, d_dir, d_tau, d_rad
     _P, _P, _P, _P, _P,  # g_packed, g_sigma, g_emission, d_pos0, d_dir0

@@ -18,7 +18,8 @@
 // packed frame), where a reconstruction a rounding away lies in the
 // neighbouring cell and bends with that cell's gradient (tests/
 // test_torch_render_kernel.py holds d pos0 against a float64 march).
-// One thread per ray starts from R1's end
+// One thread per ray (ray order[t] for thread t: the wrapper's tile order,
+// kernels/render.py:render_order) starts from R1's end
 // state (x', u, tau) and the cotangents of the end position and direction
 // (xb, vb), of tau (tb: the transmittance's -T * Tbar, and the image's
 // background term through T_end) and of the radiance (rb_c, one a channel,
@@ -59,31 +60,64 @@
 // operations with sigma and an emission (chip_smoke.py's render_bwd_ops
 // counts them from this file), so operations, ahead of the fields read
 // and their gradients written once (the wrapper zeroes them: 0.26 GB of
-// packed gradient and 0.26 GB of 3-channel emission, in rows of 4, at
-// 256^3).  What holds it back in practice is the atomics: a camera's ray
-// at speed 0.5 enters another cell at nearly every step (K3's rays stay
-// ~30), so the caches flush nearly every step.
-// The design is K3's, in F1's form: registers hold the packed cell's
-// corners (channels 0-2) and their 24 gradients, sigma's 8 corners and 8
-// gradients around the midpoint, and the emission's 8 projected corners
-// P_o and 8 sums of W_o * tw; each cache is flushed with float atomics
-// (one float4 a corner for the packed gradient, whose opacity lane adds
-// 0, and for an emission of 3 or 4 channels, whose gradient the driver
-// allocates in rows of 4; float2s for 2 channels) and reloaded when the
-// replay enters another cell of its field (a scalar
-// field's (2, 2, 2) grid never changes cell, so all of a ray's steps add
-// to it with one flush, not 8 atomics a step).  A loop over cells holds
-// every load and flush, around a step loop that has neither: the step loop
-// leaves when the step it has reconstructed lies in another cell of any
-// field, and the outer loop replays that step after the reload without
-// reconstructing it again.  Its time beside its bound is in PERF.md.
+// packed gradient and 0.26 GB of the sigma-and-emission record at 256^3).
+// What held the first design back was the count of global atomic
+// instructions: a camera's ray at speed 0.5 enters another cell at nearly
+// every step (K3's rays stay ~30), so one thread's caches flushed ~24
+// atomic instructions a step, ~100 G a second at the L2.  This design
+// combines a warp's gradients on chip before any global atomic:
+//
+// * Rays in tiles: the wrapper orders the rays by start cell, then by a
+//   Morton code of their direction, so a warp holds an 8 x 4 tile of a
+//   camera's pixels, whose rays share cells.
+// * Aligned replay: the warp replays forward step s = M - 1 - j in
+//   iteration j (M: its largest step count); a lane joins once s is below
+//   its own count.  Each lane replays its own steps in its own order, so
+//   d pos0 and d dir0 are unchanged to the bit.
+// * Registers hold each field's corners, and shared memory each lane's
+//   sums of their gradients, while the ray stays in a cell (the sums in
+//   shared memory leave the record's instantiation three blocks of 128
+//   threads an SM with no spills).  Where sigma and the emission share a
+//   grid and C <= 3, the wrapper interleaves them into one record (sigma,
+//   e_0, e_1, e_2), so one cache of 8 float4 corners serves both and a
+//   corner's gradients are one float4.
+// * Grouped flushes: when lanes leave cells, the warp groups the lanes
+//   that leave the same cell (__match_any_sync), sums each group's rows
+//   where they lie, one lane a corner and a quarter of the warp, and sends
+//   each corner's sum with one float4 global atomic.
+//
+// sigma or an emission alone, or on other grids, or with C > 3, keeps its
+// own register cache and flushes it with global atomics (a float4 a corner
+// for an emission of 3 or 4 channels, whose gradient the wrapper allocates
+// in rows of 4; float2s for 2 channels); a scalar field's (2, 2, 2) grid
+// never changes cell, so all of a ray's steps add to it with one flush.
+// The host build (tests) defines VRT_BLOCK_THREADS as 1, so that a shim
+// that runs one thread at a time runs this source: a warp's grouping then
+// holds one lane.  A build that defines VRT_COUNT_ATOMICS (the render
+// probe's, the host tests') counts R2's global atomic instructions, read
+// with vrt_render_bwd_atomics.  Its time beside its bound is in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+#ifdef VRT_BLOCK_THREADS
+constexpr int THREADS = VRT_BLOCK_THREADS;
+#else
 constexpr int THREADS = 128;
+#endif
+constexpr int LANES = THREADS < 32 ? THREADS : 32;
+constexpr int WARPS = (THREADS + LANES - 1) / LANES;
+constexpr unsigned FULL = LANES == 32 ? 0xffffffffu : (1u << LANES) - 1u;
+
+// the counting build's global atomic instructions since the last read
+#ifdef VRT_COUNT_ATOMICS
+__device__ unsigned long long vrt_bwd_atomics;
+#define COUNT_ATOMICS(k) atomicAdd(&vrt_bwd_atomics, (unsigned long long)(k))
+#else
+#define COUNT_ATOMICS(k) ((void)0)
+#endif
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -99,6 +133,10 @@ __device__ __forceinline__ int base_cell(float f0, float f1, float f2, int s0, i
 
 __device__ __forceinline__ int corner_cells(int o, int s1, int s2) {
   return ((o >> 2) & 1) * s1 * s2 + ((o >> 1) & 1) * s2 + (o & 1);
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4 b) {
+  a.x = a.x + b.x; a.y = a.y + b.y; a.z = a.z + b.z; a.w = a.w + b.w;
 }
 
 // the corner weights (product order, dz fastest) and their derivatives
@@ -131,21 +169,41 @@ __device__ __forceinline__ float dot8(const float (&a)[8], const float (&v)[8]) 
   return s;
 }
 
-template <bool SIGMA, bool EM>
+template <bool SIGMA, bool EM, bool REC>
 __global__ void __launch_bounds__(THREADS)
 render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
                   const float* __restrict__ sigma, int SX, int SY, int SZ,
                   const float* __restrict__ em, int EX, int EY, int EZ, int C, int GC,
+                  const float4* __restrict__ rec, float4* __restrict__ g_rec,
+                  const int* __restrict__ order,
                   const float* __restrict__ pos0, const float* __restrict__ end_pos,
                   const float* __restrict__ end_dir, const int* __restrict__ nexec, const float* __restrict__ tau_end,
                   const float* __restrict__ d_pos, const float* __restrict__ d_dir,
                   const float* __restrict__ d_tau, const float* __restrict__ d_rad,
                   float* __restrict__ g_packed, float* __restrict__ g_sigma,
                   float* __restrict__ g_em, float* __restrict__ dpos0,
-                  float* __restrict__ ddir0, int n, float ex, float ey, float ez, float sx,
-                  float sy, float sz) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
+                  float* __restrict__ ddir0, int n, float ex,
+                  float ey, float ez, float sx, float sy, float sz) {
+  const int tid = threadIdx.x;
+  const int lane = tid % LANES, warp = tid / LANES;
+  // Shared memory: each lane's gradient accumulators, which are also the
+  // rows its flushes stage (the packed cell's corners, channels 0-2;
+  // sigma's and the emission's sums, W_o * sbar and W_o * tw, in lanes 0
+  // and 1 of the midpoint cell's corners, made the record's rows (sigma,
+  // e_0, e_1, e_2) in place when they flush), each warp's corner-major
+  // with a row of LANES + 1 float4s (lane l's corner o at (o, l): no two of
+  // 8 lanes reading one lane's corners, or writing one corner, share a
+  // bank).  Each lane zeroes its own rows.
+  constexpr int NA = SIGMA || EM ? 2 : 1;
+  __shared__ float4 acc_s[WARPS * NA * 8 * (LANES + 1)];
+  float4* const acc_p = acc_s + warp * NA * 8 * (LANES + 1) + lane;
+  float4* const acc_r = acc_p + 8 * (LANES + 1);
+#pragma unroll
+  for (int o = 0; o < NA * 8; ++o) acc_p[o * (LANES + 1)] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  const bool valid = blockIdx.x * THREADS + tid < n;
+  const int i = valid ? order[blockIdx.x * THREADS + tid] : 0;
+  const int steps = valid ? nexec[i] : 0;
   float px = end_pos[3 * i], py = end_pos[3 * i + 1], pz = end_pos[3 * i + 2];
   float ux = end_dir[3 * i], uy = end_dir[3 * i + 1], uz = end_dir[3 * i + 2];
   float ax = d_pos[3 * i], ay = d_pos[3 * i + 1], az = d_pos[3 * i + 2];
@@ -153,27 +211,32 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
   float tau = SIGMA ? tau_end[i] : 0.0f;
   float tb = SIGMA ? d_tau[i] : 0.0f;
   const float* const rb = EM ? d_rad + (long long)i * C : nullptr;
-  const int steps = nexec[i];
+  // the radiance cotangent as the record's lanes 1-3 take it
+  float rr[3] = {0.0f, 0.0f, 0.0f};
+  if (REC) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) rr[ch] = ch < C ? __ldg(rb + ch) : 0.0f;
+  }
 
   // the caches: the packed cell's channels 0-2 and their gradients;
   // sigma's corners and gradients around the midpoint; the emission's
-  // projected corners and sums of W_o * tw; each with its cell (-1: none)
-  float chv[8][3], gp[24];
+  // projected corners and sums of W_o * tw; each with its cell (-1: none).
+  // With the record sigma's cache holds the record's cell (sk) for both.
+  float chv[8][3];
   int pk = -1;
-  float sc[8], gs[8];
+  float sc[8];
   int sk = -1;
-  float pe[8], ge[8];
+  float pe[8];
   int ek = -1;
   // the reconstructed step: x, 1/|u|^2, the segment and its midpoint's
   // floor, and the cells of x and of the midpoint
   float cx, cy, cz, ilen, dx, dy, dz, ds2, ds, mx, my, mz, m0, m1, m2;
   int pb = 0, sb = 0, eb = 0;
 
-  // reconstruct step `k` (counted from the end): x, or the start for the
-  // march's first step
-  auto recon = [&](int k) {
+  // reconstruct the next step: x, or the start for the march's first step
+  auto recon = [&](bool first) {
     ilen = 1.0f / (ux * ux + uy * uy + uz * uz);
-    if (k == steps - 1) {
+    if (first) {
       cx = pos0[3 * i]; cy = pos0[3 * i + 1]; cz = pos0[3 * i + 2];
     } else {
       cx = px - ux * sx * ilen;
@@ -189,71 +252,130 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
     mz = 0.5f * (pz + cz);
     m0 = floorf(mx); m1 = floorf(my); m2 = floorf(mz);
     if (SIGMA) sb = base_cell(m0, m1, m2, SX, SY, SZ);
-    if (EM) eb = base_cell(m0, m1, m2, EX, EY, EZ);
+    if (EM && !REC) eb = base_cell(m0, m1, m2, EX, EY, EZ);
   };
 
-  // a corner's channels 0-2 and the opacity's 0 in one vector atomic
-  auto flush_packed = [&]() {
-    if (pk < 0) return;
+  // the warp's grouped flush of field f (0: packed, 1: the record): the
+  // lanes with `need` leave cell `c` with their 8 corner rows in `rows`
+  // (this lane's row of corner 0); the rows of the lanes that leave one
+  // cell are summed and sent with one global atomic a corner, corner o by
+  // lanes o, o + 8, o + 16 and o + 24 (each the group's lanes of one
+  // quarter of the warp, then combined by shuffles), and the leaving
+  // lanes' rows zeroed.  All lanes of the warp call it together.
+  auto group_flush = [&](bool need, int c, int f, float4* rows) {
+    constexpr int PARTS = LANES / 8 > 0 ? LANES / 8 : 1;
+    float4* const g = f ? g_rec : reinterpret_cast<float4*>(g_packed);
+    const int s1 = f ? SY : Y, s2 = f ? SZ : Z;
+    const unsigned peers = __match_any_sync(FULL, need ? c : -1);
+    unsigned leaders = __ballot_sync(FULL, need && __ffs(peers) - 1 == lane);
+    __syncwarp(FULL);
+    const float4* const stage = rows - lane;
+    while (leaders) {
+      const int l = __ffs(leaders) - 1;
+      leaders &= leaders - 1;
+      const unsigned grp = __shfl_sync(FULL, peers, l);
+      const int cell = __shfl_sync(FULL, c, l);
+      const int q = PARTS > 1 ? lane / 8 : 0;
+      for (int o = lane % 8; o < 8; o += LANES < 8 ? LANES : 8) {
+        unsigned m = PARTS > 1 ? grp & (0xffu << (8 * q)) : grp;
+        float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        while (m) {
+          const int a = __ffs(m) - 1;
+          m &= m - 1;
+          add4(sum, stage[o * (LANES + 1) + a]);
+        }
+        for (int off = 8; off < LANES; off <<= 1) {
+          sum.x = sum.x + __shfl_xor_sync(FULL, sum.x, off);
+          sum.y = sum.y + __shfl_xor_sync(FULL, sum.y, off);
+          sum.z = sum.z + __shfl_xor_sync(FULL, sum.z, off);
+          sum.w = sum.w + __shfl_xor_sync(FULL, sum.w, off);
+        }
+        if (q == 0) atomicAdd(g + (cell + corner_cells(o, s1, s2)), sum);
+      }
+      if (lane == 0) COUNT_ATOMICS(8);
+      __syncwarp(FULL);
+    }
+    if (need) {
 #pragma unroll
-    for (int o = 0; o < 8; ++o) {
-      atomicAdd(reinterpret_cast<float4*>(g_packed) + (pk + corner_cells(o, Y, Z)),
-                make_float4(gp[o * 3], gp[o * 3 + 1], gp[o * 3 + 2], 0.0f));
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) gp[o * 3 + ch] = 0.0f;
+      for (int o = 0; o < 8; ++o) rows[o * (LANES + 1)] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   };
-  auto flush_sigma = [&]() {
-    if (!SIGMA || sk < 0) return;
+
+  // the record's rows from this lane's sums, in place, for a flush
+  auto record_rows = [&]() {
 #pragma unroll
     for (int o = 0; o < 8; ++o) {
-      atomicAdd(g_sigma + sk + corner_cells(o, SY, SZ), gs[o]);
-      gs[o] = 0.0f;
+      const float4 a = acc_r[o * (LANES + 1)];
+      acc_r[o * (LANES + 1)] = make_float4(a.x, a.y * rr[0], a.y * rr[1], a.y * rr[2]);
     }
+  };
+
+  // sigma's and the emission's own caches (no record): this lane's global
+  // atomics, as the first design sent them
+  auto flush_sigma = [&]() {
+    if (!SIGMA || REC || sk < 0) return;
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      atomicAdd(g_sigma + sk + corner_cells(o, SY, SZ), acc_r[o * (LANES + 1)].x);
+      acc_r[o * (LANES + 1)].x = 0.0f;
+    }
+    COUNT_ATOMICS(8);
   };
   // a corner's channels in vector atomics where the gradient's rows are
   // 4 or 2 floats (GC: the driver pads 3 channels to 4), one at a time
   // otherwise
   auto flush_em = [&]() {
-    if (!EM || ek < 0) return;
+    if (!EM || REC || ek < 0) return;
     float r[4];
 #pragma unroll
     for (int ch = 0; ch < 4; ++ch) r[ch] = ch < C && GC <= 4 ? __ldg(rb + ch) : 0.0f;
 #pragma unroll
     for (int o = 0; o < 8; ++o) {
       const long long row = (long long)(ek + corner_cells(o, EY, EZ)) * GC;
+      const float ge = acc_r[o * (LANES + 1)].y;
+      acc_r[o * (LANES + 1)].y = 0.0f;
       if (GC == 4) {
         atomicAdd(reinterpret_cast<float4*>(g_em + row),
-                  make_float4(ge[o] * r[0], ge[o] * r[1], ge[o] * r[2], ge[o] * r[3]));
+                  make_float4(ge * r[0], ge * r[1], ge * r[2], ge * r[3]));
       } else if (GC == 2) {
-        atomicAdd(reinterpret_cast<float2*>(g_em + row), make_float2(ge[o] * r[0], ge[o] * r[1]));
+        atomicAdd(reinterpret_cast<float2*>(g_em + row), make_float2(ge * r[0], ge * r[1]));
       } else {
-        for (int ch = 0; ch < C; ++ch) atomicAdd(g_em + row + ch, ge[o] * __ldg(rb + ch));
+        for (int ch = 0; ch < C; ++ch) atomicAdd(g_em + row + ch, ge * __ldg(rb + ch));
       }
-      ge[o] = 0.0f;
     }
+    COUNT_ATOMICS(GC == 4 || GC == 2 ? 8 : 8 * C);
   };
 
-  // flush the caches whose cell the reconstructed step left, and load
-  // the cells it entered
-  auto reload = [&]() {
-    if (pb != pk) {
-      flush_packed();
-      pk = pb;
+  // load the cells the reconstructed step entered (their caches flushed)
+  auto load_packed = [&]() {
+    pk = pb;
 #pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        const float* t = packed + (long long)(pk + corner_cells(o, Y, Z)) * 4;
+    for (int o = 0; o < 8; ++o) {
+      const float* t = packed + (long long)(pk + corner_cells(o, Y, Z)) * 4;
 #pragma unroll
-        for (int ch = 0; ch < 3; ++ch) chv[o][ch] = __ldg(t + ch);
-      }
+      for (int ch = 0; ch < 3; ++ch) chv[o][ch] = __ldg(t + ch);
     }
-    if (SIGMA && sb != sk) {
+  };
+  auto load_record = [&]() {
+    sk = sb;
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      const float4 r = __ldg(rec + sk + corner_cells(o, SY, SZ));
+      sc[o] = r.x;
+      float p = rr[0] * r.y;
+      if (C > 1) p = p + rr[1] * r.z;
+      if (C > 2) p = p + rr[2] * r.w;
+      pe[o] = p;
+    }
+  };
+  auto reload_own = [&]() {
+    if (SIGMA && !REC && sb != sk) {
       flush_sigma();
       sk = sb;
 #pragma unroll
       for (int o = 0; o < 8; ++o) sc[o] = __ldg(sigma + sk + corner_cells(o, SY, SZ));
     }
-    if (EM && eb != ek) {
+    if (EM && !REC && eb != ek) {
       flush_em();
       ek = eb;
 #pragma unroll
@@ -268,14 +390,20 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
 
   // replay the reconstructed step, its caches loaded
   auto replay = [&]() {
-    Weights k;
-    weights(cx - floorf(cx), cy - floorf(cy), cz - floorf(cz), k);
-    float g0 = k.w[0] * chv[0][0], g1 = k.w[0] * chv[0][1], g2 = k.w[0] * chv[0][2];
+    // x's weights, computed again for the step's adjoint below rather
+    // than held over the segment's (the same values: fewer registers)
+    const float fx = cx - floorf(cx), fy = cy - floorf(cy), fz = cz - floorf(cz);
+    float g0, g1, g2;
+    {
+      Weights k;
+      weights(fx, fy, fz, k);
+      g0 = k.w[0] * chv[0][0]; g1 = k.w[0] * chv[0][1]; g2 = k.w[0] * chv[0][2];
 #pragma unroll
-    for (int o = 1; o < 8; ++o) {
-      g0 = g0 + k.w[o] * chv[o][0];
-      g1 = g1 + k.w[o] * chv[o][1];
-      g2 = g2 + k.w[o] * chv[o][2];
+      for (int o = 1; o < 8; ++o) {
+        g0 = g0 + k.w[o] * chv[o][0];
+        g1 = g1 + k.w[o] * chv[o][1];
+        g2 = g2 + k.w[o] * chv[o][2];
+      }
     }
     const float nvx = ux - g0 * ex;
     const float nvy = uy - g1 * ey;
@@ -299,26 +427,31 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
       float q = 0.0f;
       if (EM) q = dot8(pe, m.w);
       const float wb = q * t_prev;
-      float dsb = wb;
+      float dsb = wb, sbar = 0.0f;
       float mbx = 0.0f, mby = 0.0f, mbz = 0.0f;
       if (SIGMA) {
         const float tbar = q * wseg;
         const float dtaub = tb + wb * expf(-dtau);
         tb = tb - t_prev * tbar;
-        const float sbar = dtaub * ds;
+        sbar = dtaub * ds;
         dsb = dtaub * s;
         mbx = sbar * dot8(m.dx, sc);
         mby = sbar * dot8(m.dy, sc);
         mbz = sbar * dot8(m.dz, sc);
-#pragma unroll
-        for (int o = 0; o < 8; ++o) gs[o] = gs[o] + m.w[o] * sbar;
       }
       if (EM) {
         mbx = mbx + tw * dot8(m.dx, pe);
         mby = mby + tw * dot8(m.dy, pe);
         mbz = mbz + tw * dot8(m.dz, pe);
+      }
+      // the midpoint corners' sums, sigma's and the emission's, together
 #pragma unroll
-        for (int o = 0; o < 8; ++o) ge[o] = ge[o] + m.w[o] * tw;
+      for (int o = 0; o < 8; ++o) {
+        float2* const a = reinterpret_cast<float2*>(acc_r + o * (LANES + 1));
+        float2 v = *a;
+        if (SIGMA) v.x = v.x + m.w[o] * sbar;
+        if (EM) v.y = v.y + m.w[o] * tw;
+        *a = v;
       }
       if (ds2 > 0.0f) {
         dbx = dsb * dx / ds;
@@ -338,6 +471,8 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
     const float uby = by + sy * ilen * ayt - 2.0f * uy * il2 * tt;
     const float ubz = bz + sz * ilen * azt - 2.0f * uz * il2 * tt;
     const float h0 = ex * ubx, h1 = ey * uby, h2 = ez * ubz;
+    Weights k;
+    weights(fx, fy, fz, k);
     float Gx = 0.0f, Gy = 0.0f, Gz = 0.0f;
 #pragma unroll
     for (int o = 0; o < 8; ++o) {
@@ -345,9 +480,11 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
       Gx = Gx + k.dx[o] * mo;
       Gy = Gy + k.dy[o] * mo;
       Gz = Gz + k.dz[o] * mo;
-      gp[o * 3 + 0] = gp[o * 3 + 0] + k.w[o] * h0;
-      gp[o * 3 + 1] = gp[o * 3 + 1] + k.w[o] * h1;
-      gp[o * 3 + 2] = gp[o * 3 + 2] + k.w[o] * h2;
+      float4 a = acc_p[o * (LANES + 1)];
+      a.x = a.x + k.w[o] * h0;
+      a.y = a.y + k.w[o] * h1;
+      a.z = a.z + k.w[o] * h2;
+      acc_p[o * (LANES + 1)] = a;
     }
 
     ax = axt + Gx + (hx - dbx);
@@ -359,56 +496,66 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
     tau = tau_b;
   };
 
-#pragma unroll
-  for (int j = 0; j < 24; ++j) gp[j] = 0.0f;
-#pragma unroll
-  for (int o = 0; o < 8; ++o) {
-    gs[o] = 0.0f;
-    ge[o] = 0.0f;
-  }
-
-  // the replay over cells: the outer loop flushes and loads, the inner
-  // loop replays with neither; `have`: a reconstructed step waits for
-  // its cells' loads
-  int done = 0;
-  bool have = false;
-  while (done < steps) {
-    if (!have) recon(done);
-    reload();
-    have = false;
-    replay();
-    ++done;
-    while (done < steps) {
-      recon(done);
-      if (pb != pk || (SIGMA && sb != sk) || (EM && eb != ek)) { have = true; break; }
-      replay();
-      ++done;
+  // the aligned replay: lane t replays from iteration M - steps of the
+  // warp's M
+  const int M = __reduce_max_sync(FULL, steps);
+  const int j0 = M - steps;
+  for (int j = 0; j < M; ++j) {
+    const bool active = j >= j0;
+    if (active) recon(j == M - 1);
+    const bool np = active && pb != pk;
+    if (__any_sync(FULL, np)) {
+      group_flush(np && pk >= 0, pk, 0, acc_p);
+      if (np) load_packed();
     }
+    if (REC) {
+      const bool nr = active && sb != sk;
+      if (__any_sync(FULL, nr)) {
+        if (nr && sk >= 0) record_rows();
+        group_flush(nr && sk >= 0, sk, 1, acc_r);
+        if (nr) load_record();
+      }
+    } else if (active) {
+      reload_own();
+    }
+    if (active) replay();
   }
-  flush_packed();
-  flush_sigma();
-  flush_em();
+  // the caches' last cells
+  group_flush(pk >= 0, pk, 0, acc_p);
+  if (REC) {
+    if (sk >= 0) record_rows();
+    group_flush(sk >= 0, sk, 1, acc_r);
+  } else {
+    flush_sigma();
+    flush_em();
+  }
 
-  dpos0[3 * i] = ax; dpos0[3 * i + 1] = ay; dpos0[3 * i + 2] = az;
-  ddir0[3 * i] = bx; ddir0[3 * i + 1] = by; ddir0[3 * i + 2] = bz;
+  if (valid) {
+    dpos0[3 * i] = ax; dpos0[3 * i + 1] = ay; dpos0[3 * i + 2] = az;
+    ddir0[3 * i] = bx; ddir0[3 * i + 1] = by; ddir0[3 * i + 2] = bz;
+  }
 }
 
-#define RENDER_BWD_ARGS                                                                     \
-  (const float*)packed, X, Y, Z, (const float*)sigma, SX, SY, SZ, (const float*)em, EX, EY, \
-      EZ, C, GC, (const float*)pos0, (const float*)end_pos, (const float*)end_dir, (const int*)nexec,               \
-      (const float*)tau_end, (const float*)d_pos, (const float*)d_dir, (const float*)d_tau,  \
-      (const float*)d_rad, (float*)g_packed, (float*)g_sigma, (float*)g_em, (float*)dpos0,   \
-      (float*)ddir0, n, ex, ey, ez, sx, sy, sz
+#define RENDER_BWD_ARGS                                                                        \
+  (const float*)packed, X, Y, Z, (const float*)sigma, SX, SY, SZ, (const float*)em, EX, EY,    \
+      EZ, C, GC, (const float4*)rec, (float4*)g_rec, (const int*)order, (const float*)pos0,     \
+      (const float*)end_pos, (const float*)end_dir, (const int*)nexec, (const float*)tau_end,   \
+      (const float*)d_pos, (const float*)d_dir, (const float*)d_tau, (const float*)d_rad,       \
+      (float*)g_packed, (float*)g_sigma, (float*)g_em, (float*)dpos0, (float*)ddir0, n, ex, ey, \
+      ez, sx, sy, sz
 
-template <bool SIGMA, bool EM>
-int launch(const void* packed, int X, int Y, int Z, const void* sigma, int SX, int SY, int SZ,
-           const void* em, int EX, int EY, int EZ, int C, int GC, const void* pos0,
-           const void* end_pos, const void* end_dir, const void* nexec, const void* tau_end, const void* d_pos,
-           const void* d_dir, const void* d_tau, const void* d_rad, void* g_packed,
-           void* g_sigma, void* g_em, void* dpos0, void* ddir0, int n, float ex, float ey,
-           float ez, float sx, float sy, float sz, void* stream) {
+#define RENDER_BWD_PARAMS                                                                       \
+  const void *packed, int X, int Y, int Z, const void *sigma, int SX, int SY, int SZ,           \
+      const void *em, int EX, int EY, int EZ, int C, int GC, const void *rec, void *g_rec,      \
+      const void *order, const void *pos0, const void *end_pos, const void *end_dir,            \
+      const void *nexec, const void *tau_end, const void *d_pos, const void *d_dir,             \
+      const void *d_tau, const void *d_rad, void *g_packed, void *g_sigma, void *g_em,          \
+      void *dpos0, void *ddir0, int n, float ex, float ey, float ez, float sx, float sy, float sz
+
+template <bool SIGMA, bool EM, bool REC>
+int launch(RENDER_BWD_PARAMS, void* stream) {
   if (n > 0) {
-    render_bwd_kernel<SIGMA, EM><<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
+    render_bwd_kernel<SIGMA, EM, REC><<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
         RENDER_BWD_ARGS);
   }
   return (int)cudaGetLastError();
@@ -416,25 +563,38 @@ int launch(const void* packed, int X, int Y, int Z, const void* sigma, int SX, i
 
 }  // namespace
 
-// Launches the instantiation for (sigma given, emission given) and returns
-// cudaGetLastError(), or cudaErrorInvalidValue before any launch when an
-// emission comes with no channel or its gradient's row length GC is not
-// 4 for 3 or 4 channels and C otherwise.  The packed gradient and a row
+// Launches the instantiation for (sigma given, emission given, the
+// record given) and returns cudaGetLastError(), or cudaErrorInvalidValue
+// before any launch when an emission comes with no channel or its
+// gradient's row length GC is not 4 for 3 or 4 channels and C otherwise,
+// or when the record comes without sigma and an emission of 1-3 channels
+// on its grid.  `order` is a permutation of the n rays (thread t replays
+// ray order[t]); `rec` the (SX, SY, SZ, 4) record (sigma, e_0 .. e_{C-1},
+// zeros) or null, with its gradient `g_rec` in the same layout (g_sigma
+// and g_em are then unused).  The packed gradient, the record and a row
 // length of 4 or 2 need 16- and 8-byte aligned buffers.
-extern "C" int vrt_render_bwd(
-    const void* packed, int X, int Y, int Z, const void* sigma, int SX, int SY, int SZ,
-    const void* em, int EX, int EY, int EZ, int C, int GC, const void* pos0, const void* end_pos,
-    const void* end_dir,
-    const void* nexec, const void* tau_end, const void* d_pos, const void* d_dir,
-    const void* d_tau, const void* d_rad, void* g_packed, void* g_sigma, void* g_em, void* dpos0,
-    void* ddir0, int n, float ex, float ey, float ez, float sx, float sy, float sz, void* stream) {
+extern "C" int vrt_render_bwd(RENDER_BWD_PARAMS, void* stream) {
   if (em != nullptr && (C < 1 || GC != (C == 3 || C == 4 ? 4 : C))) return (int)cudaErrorInvalidValue;
-  if (sigma != nullptr) {
-    if (em != nullptr)
-      return launch<true, true>(packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, GC, pos0, end_pos, end_dir, nexec, tau_end, d_pos, d_dir, d_tau, d_rad, g_packed, g_sigma, g_em, dpos0, ddir0, n, ex, ey, ez, sx, sy, sz, stream);
-    return launch<true, false>(packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, GC, pos0, end_pos, end_dir, nexec, tau_end, d_pos, d_dir, d_tau, d_rad, g_packed, g_sigma, g_em, dpos0, ddir0, n, ex, ey, ez, sx, sy, sz, stream);
+  if (rec != nullptr) {
+    if (sigma == nullptr || em == nullptr || g_rec == nullptr || C > 3 || EX != SX || EY != SY || EZ != SZ)
+      return (int)cudaErrorInvalidValue;
+    return launch<true, true, true>(RENDER_BWD_ARGS, stream);
   }
-  if (em != nullptr)
-    return launch<false, true>(packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, GC, pos0, end_pos, end_dir, nexec, tau_end, d_pos, d_dir, d_tau, d_rad, g_packed, g_sigma, g_em, dpos0, ddir0, n, ex, ey, ez, sx, sy, sz, stream);
-  return launch<false, false>(packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, GC, pos0, end_pos, end_dir, nexec, tau_end, d_pos, d_dir, d_tau, d_rad, g_packed, g_sigma, g_em, dpos0, ddir0, n, ex, ey, ez, sx, sy, sz, stream);
+  if (sigma != nullptr) {
+    if (em != nullptr) return launch<true, true, false>(RENDER_BWD_ARGS, stream);
+    return launch<true, false, false>(RENDER_BWD_ARGS, stream);
+  }
+  if (em != nullptr) return launch<false, true, false>(RENDER_BWD_ARGS, stream);
+  return launch<false, false, false>(RENDER_BWD_ARGS, stream);
 }
+
+#ifdef VRT_COUNT_ATOMICS
+// The counting build's: the global atomic instructions of R2's launches
+// since the last call into *out, and the count zeroed.
+extern "C" int vrt_render_bwd_atomics(unsigned long long* out) {
+  cudaMemcpyFromSymbol(out, vrt_bwd_atomics, sizeof(*out));
+  const unsigned long long zero = 0;
+  cudaMemcpyToSymbol(vrt_bwd_atomics, &zero, sizeof(zero));
+  return (int)cudaGetLastError();
+}
+#endif

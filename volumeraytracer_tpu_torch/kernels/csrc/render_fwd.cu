@@ -9,8 +9,12 @@
 // :_march_accumulate over ops/march.py:_float_step) launches each op of
 // every step, with two interp_linear gathers a step and a host sync a
 // chunk.  One thread per ray, over the float32 packed field (no brick
-// table), in F1's form.  Each thread loops, while its ray is alive and
-// has budget, over
+// table), in F1's form.  Thread t takes ray order[t], the wrapper's tile
+// order (kernels/render.py:render_order: by start cell, then by a Morton
+// code of the direction, so that a warp holds an 8 x 4 tile of a camera's
+// pixels, whose rays share cells), and reads and writes that ray's rows
+// in place.  Each thread loops, while its ray is alive and has budget,
+// over
 //
 //   stop unless 0 <= x and floor(x) < bound - 1 on every axis
 //   interp = sum over corners (product order, dz fastest) of
@@ -51,13 +55,16 @@
 // corners of the ray's packed cell (keyed by its flat index), the 8
 // corners of sigma and the 8 x NC of the emission around the segment's
 // midpoint (each keyed by the clamped base cell in its own grid; a scalar
-// field's never changes).  A loop over cells holds every load, around a
-// step loop that loads nothing (PR 14's finding for F1: loads under a test
-// inside one loop are predicated into every step): the step loop leaves
-// when the ray enters another packed cell, or when the step it has just
-// proposed (x', u, mid) has its midpoint in another cell of sigma or of
-// the emission; the outer loop then loads what changed and commits that
-// step without computing it again.  Cell indices are 32-bit (the driver
+// field's never changes).  Where sigma and the emission share a grid and
+// C <= 3, the wrapper interleaves them into one record (sigma, e_0, e_1,
+// e_2) and R1 loads a midpoint cell's corners as 8 float4s, not 8 + 8 C
+// scalars at a stride of C (REC).  One loop steps: it loads the packed
+// cell's corners where the ray entered another cell, proposes the step
+// (x', u, mid), loads the midpoint's corners where they changed and
+// commits.  (A loop over cells around a load-free step loop, F1's form,
+// took 5.65 ms to this form's 4.80 at phase 17's camera, whose rays
+// change cell at nearly every step, and 14.15 to 7.16 ms at 8 steps a
+// cell: PERF.md.)  Cell indices are 32-bit (the wrapper
 // checks that each field has fewer than 2^31 cells); a load's address is
 // 64-bit.  Its time beside its bound is in PERF.md.
 
@@ -66,7 +73,11 @@
 
 namespace {
 
+#ifdef VRT_BLOCK_THREADS
+constexpr int THREADS = VRT_BLOCK_THREADS;
+#else
 constexpr int THREADS = 128;
+#endif
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -94,18 +105,20 @@ __device__ __forceinline__ int corner_cells(int o, int s1, int s2) {
   return ((o >> 2) & 1) * s1 * s2 + ((o >> 1) & 1) * s2 + (o & 1);
 }
 
-template <int NC, bool SIGMA>
+template <int NC, bool SIGMA, bool REC>
 __global__ void __launch_bounds__(THREADS)
 render_fwd_kernel(const float4* __restrict__ packed, int X, int Y, int Z,
                   const float* __restrict__ sigma, int SX, int SY, int SZ,
                   const float* __restrict__ em, int EX, int EY, int EZ, int C, int c0,
+                  const float4* __restrict__ rec, const int* __restrict__ order,
                   const float* __restrict__ pos_in, const float* __restrict__ dir_in,
                   float* __restrict__ pos_out, float* __restrict__ dir_out,
                   long long* __restrict__ iter_out, float* __restrict__ tau_out,
                   float* __restrict__ rad_out, int n, int budget, float bx, float by,
                   float bz, float sx, float sy, float sz) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
+  const int t = blockIdx.x * THREADS + threadIdx.x;
+  if (t >= n) return;
+  const int i = order[t];
   float px = pos_in[3 * i], py = pos_in[3 * i + 1], pz = pos_in[3 * i + 2];
   float vx = dir_in[3 * i], vy = dir_in[3 * i + 1], vz = dir_in[3 * i + 2];
   // the reference consumes one budget slot for the start path entry
@@ -170,19 +183,31 @@ render_fwd_kernel(const float4* __restrict__ packed, int X, int Y, int Z,
     if (SIGMA || NC > 0) {
       const float f0 = floorf(mx), f1 = floorf(my), f2 = floorf(mz);
       if (SIGMA) sb = base_cell(f0, f1, f2, SX, SY, SZ);
-      if (NC > 0) eb = base_cell(f0, f1, f2, EX, EY, EZ);
+      if (NC > 0 && !REC) eb = base_cell(f0, f1, f2, EX, EY, EZ);
     }
     return true;
   };
 
   // the midpoint's corners, where its cells changed
   auto load_mid = [&]() {
-    if (SIGMA && sb != sk) {
+    if (REC && sb != sk) {
+      // the record's corners: sigma and the channels in one float4
+      sk = sb;
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const float4 r = __ldg(rec + sk + corner_cells(o, SY, SZ));
+        sc[o] = r.x;
+        if (NC > 0) ec[o][0] = r.y;
+        if (NC > 1) ec[o][NC > 1 ? 1 : 0] = r.z;
+        if (NC > 2) ec[o][NC > 2 ? 2 : 0] = r.w;
+      }
+    }
+    if (SIGMA && !REC && sb != sk) {
       sk = sb;
 #pragma unroll
       for (int o = 0; o < 8; ++o) sc[o] = __ldg(sigma + sk + corner_cells(o, SY, SZ));
     }
-    if (NC > 0 && eb != ek) {
+    if (NC > 0 && !REC && eb != ek) {
       ek = eb;
 #pragma unroll
       for (int o = 0; o < 8; ++o) {
@@ -225,32 +250,20 @@ render_fwd_kernel(const float4* __restrict__ packed, int X, int Y, int Z,
     }
   };
 
-  // the march over cells: the outer loop loads (the packed cell's corners
-  // as the ray enters it, the midpoint's where a proposed step needs
-  // them) and the inner loop steps with no load; `have`: a step was
-  // proposed and waits for its midpoint's corners
-  bool have = false, stopped = false;
+  // the march: load what the step needs where its cell changed (the
+  // packed cell's corners as the ray enters it, the midpoint's where the
+  // proposed step's midpoint lies in another cell), then step
   for (;;) {
-    if (!have) {
-      const int base = cell();
-      if (base < 0) break;
-      if (base != pk) {
-        pk = base;
+    const int base = cell();
+    if (base < 0) break;
+    if (base != pk) {
+      pk = base;
 #pragma unroll
-        for (int o = 0; o < 8; ++o) c[o] = __ldg(packed + pk + corner_cells(o, Y, Z));
-      }
-      if (!propose()) break;
+      for (int o = 0; o < 8; ++o) c[o] = __ldg(packed + pk + corner_cells(o, Y, Z));
     }
+    if (!propose()) break;
     load_mid();
-    have = false;
     commit();
-    for (;;) {
-      if (cell() != pk) break;
-      if (!propose()) { stopped = true; break; }
-      if ((SIGMA && sb != sk) || (NC > 0 && eb != ek)) { have = true; break; }
-      commit();
-    }
-    if (stopped) break;
   }
 
   pos_out[3 * i] = px; pos_out[3 * i + 1] = py; pos_out[3 * i + 2] = pz;
@@ -263,35 +276,34 @@ render_fwd_kernel(const float4* __restrict__ packed, int X, int Y, int Z,
 
 #define RENDER_FWD_ARGS                                                                   \
   (const float4*)packed, X, Y, Z, (const float*)sigma, SX, SY, SZ, (const float*)em, EX, \
-      EY, EZ, C, c0, (const float*)pos_in, (const float*)dir_in, (float*)pos_out,        \
+      EY, EZ, C, c0, (const float4*)rec, (const int*)order, (const float*)pos_in, (const float*)dir_in, (float*)pos_out,        \
       (float*)dir_out, (long long*)iter_out, (float*)tau_out, (float*)rad_out, n, budget, \
       bx, by, bz, sx, sy, sz
 
-template <int NC, bool SIGMA>
-int launch(const void* packed, int X, int Y, int Z, const void* sigma, int SX, int SY, int SZ,
-           const void* em, int EX, int EY, int EZ, int C, int c0, const void* pos_in,
-           const void* dir_in, void* pos_out, void* dir_out, void* iter_out, void* tau_out,
-           void* rad_out, int n, int budget, float bx, float by, float bz, float sx, float sy,
-           float sz, void* stream) {
+#define RENDER_FWD_PARAMS                                                                     \
+  const void *packed, int X, int Y, int Z, const void *sigma, int SX, int SY, int SZ,         \
+      const void *em, int EX, int EY, int EZ, int C, int c0, const void *rec,                 \
+      const void *order, const void *pos_in, const void *dir_in, void *pos_out,               \
+      void *dir_out, void *iter_out, void *tau_out, void *rad_out, int n, int budget,         \
+      float bx, float by, float bz, float sx, float sy, float sz
+
+template <int NC, bool SIGMA, bool REC>
+int launch(RENDER_FWD_PARAMS, void* stream) {
   if (n > 0) {
-    render_fwd_kernel<NC, SIGMA><<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
+    render_fwd_kernel<NC, SIGMA, REC><<<(n + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
         RENDER_FWD_ARGS);
   }
   return (int)cudaGetLastError();
 }
 
 template <bool SIGMA>
-int launch_nc(int nc, const void* packed, int X, int Y, int Z, const void* sigma, int SX, int SY,
-              int SZ, const void* em, int EX, int EY, int EZ, int C, int c0, const void* pos_in,
-              const void* dir_in, void* pos_out, void* dir_out, void* iter_out, void* tau_out,
-              void* rad_out, int n, int budget, float bx, float by, float bz, float sx, float sy,
-              float sz, void* stream) {
+int launch_nc(int nc, RENDER_FWD_PARAMS, void* stream) {
   switch (nc) {
-    case 0: return launch<0, SIGMA>(packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, c0, pos_in, dir_in, pos_out, dir_out, iter_out, tau_out, rad_out, n, budget, bx, by, bz, sx, sy, sz, stream);
-    case 1: return launch<1, SIGMA>(packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, c0, pos_in, dir_in, pos_out, dir_out, iter_out, tau_out, rad_out, n, budget, bx, by, bz, sx, sy, sz, stream);
-    case 2: return launch<2, SIGMA>(packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, c0, pos_in, dir_in, pos_out, dir_out, iter_out, tau_out, rad_out, n, budget, bx, by, bz, sx, sy, sz, stream);
-    case 3: return launch<3, SIGMA>(packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, c0, pos_in, dir_in, pos_out, dir_out, iter_out, tau_out, rad_out, n, budget, bx, by, bz, sx, sy, sz, stream);
-    case 4: return launch<4, SIGMA>(packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, c0, pos_in, dir_in, pos_out, dir_out, iter_out, tau_out, rad_out, n, budget, bx, by, bz, sx, sy, sz, stream);
+    case 0: return launch<0, SIGMA, false>(RENDER_FWD_ARGS, stream);
+    case 1: return launch<1, SIGMA, false>(RENDER_FWD_ARGS, stream);
+    case 2: return launch<2, SIGMA, false>(RENDER_FWD_ARGS, stream);
+    case 3: return launch<3, SIGMA, false>(RENDER_FWD_ARGS, stream);
+    case 4: return launch<4, SIGMA, false>(RENDER_FWD_ARGS, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -299,22 +311,24 @@ int launch_nc(int nc, const void* packed, int X, int Y, int Z, const void* sigma
 }  // namespace
 
 // Launches the instantiation for (sigma given, nc channels from c0 of the
-// emission's C; nc = 0 without emission) and returns cudaGetLastError(),
-// or cudaErrorInvalidValue before any launch for nc outside [0, 4] or
-// beyond C.
-extern "C" int vrt_render_fwd(
-    const void* packed, int X, int Y, int Z, const void* sigma, int SX, int SY, int SZ,
-    const void* em, int EX, int EY, int EZ, int C, int c0, int nc, const void* pos_in,
-    const void* dir_in, void* pos_out, void* dir_out, void* iter_out, void* tau_out,
-    void* rad_out, int n, int budget, float bx, float by, float bz, float sx, float sy, float sz,
-    void* stream) {
+// emission's C; nc = 0 without emission; the record given) and returns
+// cudaGetLastError(), or cudaErrorInvalidValue before any launch for nc
+// outside [0, 4] or beyond C, or for a record without sigma and an
+// emission of nc = C <= 3 channels on its grid.  `order` is a permutation
+// of the n rays (thread t marches ray order[t]); `rec` the (SX, SY, SZ, 4)
+// record (sigma, e_0 .. e_{C-1}, zeros), 16-byte aligned, or null.
+extern "C" int vrt_render_fwd(RENDER_FWD_PARAMS, int nc, void* stream) {
   if (nc < 0 || nc > 4 || (nc > 0 && (em == nullptr || c0 < 0 || c0 + nc > C)))
     return (int)cudaErrorInvalidValue;
-  if (sigma != nullptr)
-    return launch_nc<true>(nc, packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, c0, pos_in,
-                           dir_in, pos_out, dir_out, iter_out, tau_out, rad_out, n, budget, bx, by,
-                           bz, sx, sy, sz, stream);
-  return launch_nc<false>(nc, packed, X, Y, Z, sigma, SX, SY, SZ, em, EX, EY, EZ, C, c0, pos_in,
-                          dir_in, pos_out, dir_out, iter_out, tau_out, rad_out, n, budget, bx, by,
-                          bz, sx, sy, sz, stream);
+  if (rec != nullptr) {
+    if (sigma == nullptr || nc < 1 || nc > 3 || c0 != 0 || nc != C || EX != SX || EY != SY || EZ != SZ)
+      return (int)cudaErrorInvalidValue;
+    switch (nc) {
+      case 1: return launch<1, true, true>(RENDER_FWD_ARGS, stream);
+      case 2: return launch<2, true, true>(RENDER_FWD_ARGS, stream);
+      default: return launch<3, true, true>(RENDER_FWD_ARGS, stream);
+    }
+  }
+  if (sigma != nullptr) return launch_nc<true>(nc, RENDER_FWD_ARGS, stream);
+  return launch_nc<false>(nc, RENDER_FWD_ARGS, stream);
 }

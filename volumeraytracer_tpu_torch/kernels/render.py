@@ -19,11 +19,19 @@ design answers that):
   channels.  Its plain version is ``render_replay_plain``, the same
   replay step by step in torch, in the kernel's operation order.
 
-``_RenderDiff`` runs R1 forward and R2 backward; ``render_diff`` applies
-it.  Each wrapper runs its plain version for tensors on the CPU and
-launches its kernel, or raises, for CUDA tensors.  ``use_kernels`` is the
-camera's route: CUDA tensors of a 3-D volume take the kernels, everything
-else the plain march of ``models/camera.py``.
+On the card both kernels take the rays in one order, ``render_order``
+(by start cell, then by a Morton code of the direction: a camera's rays
+in pixel tiles, which share cells), thread t taking ray ``order[t]`` in
+place, with no gather; and where σ and the emission share a grid with at
+most 3 channels, both read them as one (X, Y, Z, 4) record,
+``field_record`` (σ, e₀, e₁, e₂), whose gradient R2 returns as views
+(dσ the strided lane 0).  ``_RenderDiff`` runs R1 forward and R2
+backward, computing the order and the record once; ``render_diff``
+applies it.  Each wrapper runs its plain version for tensors on the CPU
+(in input order) and launches its kernel, or raises, for CUDA tensors.
+``use_kernels`` is the camera's route: CUDA tensors of a 3-D volume
+take the kernels, everything else the plain march of
+``models/camera.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +45,12 @@ from . import _build, march_lines
 
 #: the channels one R1 launch carries in registers
 GROUP_CHANNELS = 4
+#: the record's channels: σ and at most this many of the emission's
+RECORD_CHANNELS = 3
+#: projected direction coordinates closer than this take one rank in
+#: ``render_order`` (a pixel's column or row, whatever the rounding of its
+#: float32 direction)
+ORDER_TOL = 1e-5
 
 
 def use_kernels(device, dim: int) -> bool:
@@ -52,6 +66,97 @@ def channel_groups(channels: int) -> list:
     if channels == 0:
         return [(0, 0)]
     return [(c0, min(GROUP_CHANNELS, channels - c0)) for c0 in range(0, channels, GROUP_CHANNELS)]
+
+
+def _spread_bits(v: torch.Tensor) -> torch.Tensor:
+    """The bits of int64 ``v`` (< 2^31) moved to the even positions."""
+    v = v & 0x7FFFFFFF
+    for shift, mask in ((16, 0x0000FFFF0000FFFF), (8, 0x00FF00FF00FF00FF), (4, 0x0F0F0F0F0F0F0F0F),
+                        (2, 0x3333333333333333), (1, 0x5555555555555555)):
+        v = (v | (v << shift)) & mask
+    return v
+
+
+def _dense_rank(x: torch.Tensor, tol: float) -> torch.Tensor:
+    """Each value's rank among the distinct values of ``x`` (N,) (int64), a
+    value within ``tol`` of the next smaller one sharing its rank: one
+    sort, a cumulative sum and a scatter.  (A sort of an (N, 2) tensor
+    along its first dimension took ~100 ms for 10⁶ rays on the H100, two
+    of contiguous columns ~1 ms.)"""
+    vals, idx = torch.sort(x.contiguous())
+    starts = torch.ones(x.shape, dtype=torch.int64, device=x.device)
+    starts[1:] = (vals[1:] - vals[:-1] > tol).to(torch.int64)
+    return torch.empty_like(starts).scatter_(0, idx, torch.cumsum(starts, 0) - 1)
+
+
+def render_order(pos: torch.Tensor, dirs: torch.Tensor, packed_shape) -> torch.Tensor:
+    """The order in which R1 and R2 take the rays (N,) int32, a
+    permutation: by the start's cell of the packed grid ``packed_shape``
+    (X, Y, Z[, 4]; floor clamped to [0, s − 2] per axis), then by the
+    face of the direction's largest component, then by a Morton code of
+    the direction projected on that face (the next two components in
+    cyclic order over its magnitude), each coordinate as its rank among
+    the rays' values (``ORDER_TOL``).  A camera's rays share their start,
+    and a pinhole camera's projected directions are its pixel grid, so the
+    order is the pixel grid in Morton tiles: an aligned run of 32 rays is an 8 × 4 tile
+    and one of 128 a 16 × 8 tile.  In torch on the rays' device, with no
+    wait for the device: a sort for each coordinate's ranks, then one
+    stable sort of the key, or two where the widths that the grid and N
+    allow the cell and the Morton code need more than 62 bits."""
+    if pos.ndim != 2 or pos.shape[-1] != 3 or dirs.shape != pos.shape:
+        raise ValueError(f"render_order takes (N, 3) positions and directions, got {tuple(pos.shape)}, "
+                         f"{tuple(dirs.shape)}")
+    if pos.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=pos.device)
+    s = [int(v) for v in packed_shape[:3]]
+    cells = torch.floor(pos).clamp_(-2.0 ** 40, 2.0 ** 40).to(torch.int64).clamp_(min=0)
+    for a in range(3):
+        cells[:, a].clamp_(max=s[a] - 2)
+    axis = torch.argmax(dirs.abs(), dim=-1, keepdim=True)
+    # the major component, then the next two in cyclic order, over its
+    # magnitude
+    comp = torch.gather(dirs, 1, torch.cat([axis, (axis + 1) % 3, (axis + 2) % 3], dim=1))
+    major = comp[:, 0]
+    proj = comp[:, 1:] / torch.where(major != 0, major.abs(), torch.ones_like(major))[:, None]
+    cell = (cells[:, 0] * s[1] + cells[:, 1]) * s[2] + cells[:, 2]
+    start = cell * 8 + axis[:, 0] * 2 + (major < 0).to(torch.int64)
+    morton = _spread_bits(_dense_rank(proj[:, 0], ORDER_TOL)) | (_spread_bits(_dense_rank(proj[:, 1], ORDER_TOL)) << 1)
+    # the keys' widths from the grid and N (a rank is below N)
+    high, low = (s[0] * s[1] * s[2] * 8 - 1).bit_length(), 2 * (pos.shape[0] - 1).bit_length()
+    if high + low <= 62:
+        return torch.argsort((start << low) | morton, stable=True).to(torch.int32)
+    order = torch.argsort(morton, stable=True)
+    return order[torch.argsort(start[order], stable=True)].to(torch.int32)
+
+
+def _has_record(sigma, emission) -> bool:
+    """Whether σ (X, Y, Z) and the emission (X, Y, Z, C) share a grid with
+    1 ≤ C ≤ ``RECORD_CHANNELS``: the kernels then read them as one record."""
+    return (sigma is not None and emission is not None and sigma.ndim == 3 and emission.ndim == 4
+            and tuple(sigma.shape) == tuple(emission.shape[:3])
+            and 1 <= int(emission.shape[-1]) <= RECORD_CHANNELS)
+
+
+def field_record(sigma: Optional[torch.Tensor], emission: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """σ (X, Y, Z) and the emission (X, Y, Z, C) interleaved into one (X, Y,
+    Z, 4) float32 record (σ, e₀, …, e_{C−1}, zeros) where both are given on
+    one grid with C ≤ ``RECORD_CHANNELS``; else None.  R1 loads a corner's
+    σ and channels as one float4, R2 adds their gradients with one float4
+    atomic."""
+    if not _has_record(sigma, emission):
+        return None
+    channels = int(emission.shape[-1])
+    parts = [sigma.to(torch.float32)[..., None], emission.to(torch.float32)]
+    if channels < RECORD_CHANNELS:
+        parts.append(torch.zeros((*sigma.shape, RECORD_CHANNELS - channels), dtype=torch.float32,
+                                 device=sigma.device))
+    return torch.cat(parts, dim=-1)
+
+
+def record_grads(g_record: torch.Tensor, channels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The views of a record's gradient (X, Y, Z, 4): dσ (X, Y, Z), lane 0
+    at a stride of 4, and d emission (X, Y, Z, C), lanes 1 to C."""
+    return g_record[..., 0], g_record[..., 1:1 + channels]
 
 
 def _vec3(v) -> Tuple[float, float, float]:
@@ -78,6 +183,18 @@ def _check_fields(packed, sigma, emission, device):
         raise ValueError("packed must be 16-byte aligned (R1 reads float4s)")
 
 
+def _check_order_record(order, record, sigma, emission, n, device):
+    """Raise unless ``order`` is (n,) int32 and ``record`` None or the (X,
+    Y, Z, 4) f32 record of sigma and the emission, 16-byte aligned."""
+    _build.check_tensor("order", order, torch.int32, (n,), device)
+    if record is not None:
+        if not _has_record(sigma, emission):
+            raise ValueError("a record needs sigma and an emission of 1-3 channels on one grid")
+        _build.check_tensor("record", record, torch.float32, (*sigma.shape, 4), device)
+        if record.data_ptr() % 16:
+            raise ValueError("the record must be 16-byte aligned (the kernels read float4s)")
+
+
 def _field_args(sigma, emission) -> tuple:
     """sigma's and the emission's pointers and shapes as R1 and R2 take
     them, and the emission's channel count."""
@@ -100,27 +217,34 @@ def render_plain(packed, sigma, emission, pos, dirs, budget, *, bend, step, chun
 
 def render_cuda(packed: torch.Tensor, sigma: Optional[torch.Tensor], emission: Optional[torch.Tensor],
                 pos: torch.Tensor, dirs: torch.Tensor, budget: int, *, bend: Sequence[float],
-                step: Sequence[float], chunk_steps: int = 64):
+                step: Sequence[float], chunk_steps: int = 64, order: Optional[torch.Tensor] = None,
+                record: Optional[torch.Tensor] = None):
     """R1: march the rays (N, 3) f32 from ``pos`` (packed frame) along
     ``dirs`` (|v| = n applied) through ``packed`` (X, Y, Z, 4) f32 for at
     most ``budget`` − 1 steps, with the optical depth of ``sigma`` (SX, SY,
     SZ) f32 or None and the radiance of ``emission`` (EX, EY, EZ, C) f32 or
     None.  Returns (end position (N, 3), end direction (N, 3), end
     iteration (N,) int64, τ (N,) f32, radiance (N, C) f32, (N, 0) without
-    an emission), in new tensors.  CPU tensors run ``render_plain``; on
-    the card one launch per channel group, ``chunk_steps`` has no effect
-    there."""
+    an emission), in new tensors.  CPU tensors run ``render_plain`` in
+    input order; on the card one launch per channel group (one with the
+    record), over ``order`` (``render_order``'s when None) and the record
+    (``field_record``'s when None); ``chunk_steps`` has no effect there."""
     if packed.device.type == "cpu":
         return render_plain(packed, sigma, emission, pos, dirs, budget, bend=bend, step=step,
                             chunk_steps=chunk_steps)
     if packed.device.type != "cuda":
         raise ValueError(f"render_fwd needs CUDA tensors, got {packed.device}")
-    return _launch_fwd(packed, sigma, emission, pos, dirs, budget, bend=bend, step=step)
+    if order is None:
+        order = render_order(pos, dirs, packed.shape)
+    if record is None:
+        record = field_record(sigma, emission)
+    return _launch_fwd(packed, sigma, emission, pos, dirs, budget, bend=bend, step=step, order=order, record=record)
 
 
-def _launch_fwd(packed, sigma, emission, pos, dirs, budget, *, bend, step):
+def _launch_fwd(packed, sigma, emission, pos, dirs, budget, *, bend, step, order, record):
     """``render_cuda``'s card branch: check the tensors, allocate the
-    outputs and launch R1 once a channel group on the tensors' device."""
+    outputs and launch R1 over ``order``, once a channel group, or once
+    over ``record`` (or None), on the tensors' device."""
     if not 1 <= budget < 2 ** 31:
         raise ValueError(f"budget must be in [1, 2^31), got {budget}")
     device = packed.device
@@ -128,6 +252,7 @@ def _launch_fwd(packed, sigma, emission, pos, dirs, budget, *, bend, step):
     n = pos.shape[0]
     _build.check_tensor("pos", pos, torch.float32, (n, 3), device)
     _build.check_tensor("dirs", dirs, torch.float32, (n, 3), device)
+    _check_order_record(order, record, sigma, emission, n, device)
     channels = 0 if emission is None else int(emission.shape[-1])
     end_pos, end_dir = torch.empty_like(pos), torch.empty_like(dirs)
     iters = torch.empty((n,), dtype=torch.int64, device=device)
@@ -137,11 +262,12 @@ def _launch_fwd(packed, sigma, emission, pos, dirs, budget, *, bend, step):
     lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        for c0, nc in channel_groups(channels):
+        for c0, nc in [(0, channels)] if record is not None else channel_groups(channels):
             rc = lib.vrt_render_fwd(
-                packed.data_ptr(), *(int(v) for v in packed.shape[:3]), *fields, c0, nc,
+                packed.data_ptr(), *(int(v) for v in packed.shape[:3]), *fields, c0,
+                None if record is None else record.data_ptr(), order.data_ptr(),
                 pos.data_ptr(), dirs.data_ptr(), *(t.data_ptr() for t in (end_pos, end_dir, iters, tau, rad)),
-                n, int(budget), *_vec3(bend), *_vec3(step), stream,
+                n, int(budget), *_vec3(bend), *_vec3(step), nc, stream,
             )
             _build.check(rc, "render_fwd")
             _build.launches["render_fwd"] += 1
@@ -193,20 +319,23 @@ def render_replay_plain(packed, sigma, emission, pos0, end_pos, end_dir, nexec, 
     cotangents of the end position, direction, τ and radiance (N, C),
     vectorised over rays, operation for operation in the kernel's order
     (``csrc/render_bwd.cu`` sets the equations out).  The field gradients
-    are added step by step with ``index_add_`` where the kernel sums them
-    in registers a cell at a time, so they differ from its sums by
+    are added step by step with ``index_add_`` into float64 sums (a cell
+    by a camera gathers ~10⁶ rays' terms, which float32 sums in any order
+    would round by ~1e-4 of the largest) and returned in the fields'
+    dtypes, so the kernel's float32 sums differ from them by their own
     rounding.  Same arguments and results as ``render_bwd_cuda``."""
     dev = packed.device
     X, Y, Z = (int(s) for s in packed.shape[:3])
     ex, ey, ez = _vec3(bend)
     sx, sy, sz = _vec3(step)
     pflat = packed.reshape(-1)
-    g_packed = torch.zeros_like(packed)
+    acc = torch.float64
+    g_packed = torch.zeros(packed.shape, dtype=acc, device=dev)
     gpflat = g_packed.view(-1)
     poff = _corner_offsets(packed.shape, dev)
     chan = torch.arange(3, device=dev)
-    g_sigma = None if sigma is None else torch.zeros_like(sigma)
-    g_em = None if emission is None else torch.zeros_like(emission)
+    g_sigma = None if sigma is None else torch.zeros(sigma.shape, dtype=acc, device=dev)
+    g_em = None if emission is None else torch.zeros(emission.shape, dtype=acc, device=dev)
     if sigma is not None:
         sflat, gsflat, soff = sigma.reshape(-1), g_sigma.view(-1), _corner_offsets(sigma.shape, dev)
     if emission is not None:
@@ -284,13 +413,13 @@ def render_replay_plain(packed, sigma, emission, pos0, end_pos, end_dir, nexec, 
                 dsb = dtaub * s
                 mbx, mby, mbz = sbar * _dot8(dWx, sc), sbar * _dot8(dWy, sc), sbar * _dot8(dWz, sc)
                 gs = torch.stack([W[o] * sbar for o in range(8)], -1)
-                gsflat.index_add_(0, sidx.reshape(-1), torch.where(ok[:, None], gs, 0.0).reshape(-1))
+                gsflat.index_add_(0, sidx.reshape(-1), torch.where(ok[:, None], gs, 0.0).reshape(-1).to(acc))
             if emission is not None:
                 mbx = mbx + tw * _dot8(dWx, pe)
                 mby = mby + tw * _dot8(dWy, pe)
                 mbz = mbz + tw * _dot8(dWz, pe)
                 ge = torch.stack([W[o] * tw for o in range(8)], -1)[..., None] * rb[:, None, :]  # (N, 8, C)
-                geflat.index_add_(0, eidx.reshape(-1), torch.where(ok[:, None, None], ge, 0.0).reshape(-1, C))
+                geflat.index_add_(0, eidx.reshape(-1), torch.where(ok[:, None, None], ge, 0.0).reshape(-1, C).to(acc))
             dbx, dby, dbz = (torch.where(nz, dsb * d / ds, 0.0) for d in (dx, dy, dz))
             hx, hy, hz = 0.5 * mbx, 0.5 * mby, 0.5 * mbz
         axt, ayt, azt = ax + hx + dbx, ay + hy + dby, az + hz + dbz
@@ -308,7 +437,7 @@ def render_replay_plain(packed, sigma, emission, pos0, end_pos, end_dir, nexec, 
             Gx, Gy, Gz = Gx + dwx[o] * mo, Gy + dwy[o] * mo, Gz + dwz[o] * mo
         gp = torch.stack([torch.stack([w[o] * h[c] for c in range(3)], -1) for o in range(8)], 1)  # (N, 8, 3)
         gpflat.index_add_(0, (pidx[..., None] * 4 + chan).reshape(-1),
-                          torch.where(ok[:, None, None], gp, 0.0).reshape(-1))
+                          torch.where(ok[:, None, None], gp, 0.0).reshape(-1).to(acc))
 
         keep = (lambda new, old: torch.where(ok, new, old))
         ax, ay, az = keep(axt + Gx + (hx - dbx), ax), keep(ayt + Gy + (hy - dby), ay), keep(azt + Gz + (hz - dbz), az)
@@ -317,33 +446,45 @@ def render_replay_plain(packed, sigma, emission, pos0, end_pos, end_dir, nexec, 
         ux, uy, uz = keep(nvx, ux), keep(nvy, uy), keep(nvz, uz)
         tau = keep(tau_b, tau)
 
-    return g_packed, g_sigma, g_em, torch.stack([ax, ay, az], -1), torch.stack([bx, by, bz], -1)
+    return (g_packed.to(packed.dtype), None if sigma is None else g_sigma.to(sigma.dtype),
+            None if emission is None else g_em.to(emission.dtype), torch.stack([ax, ay, az], -1),
+            torch.stack([bx, by, bz], -1))
 
 
 def render_bwd_cuda(packed, sigma, emission, pos0, end_pos, end_dir, nexec, tau_end, d_pos, d_dir, d_tau, d_rad, *,
-                    bend, step):
+                    bend, step, order=None, record=None):
     """R2: the reverse replay of ``nexec`` (N,) int32 steps per ray from
     R1's end state (end_pos, end_dir (N, 3) f32 in the packed frame, τ
     (N,) f32), its last step from the start ``pos0`` (N, 3) f32, with the
     cotangents d_pos, d_dir (N, 3), d_tau (N,) and d_rad
     (N, C) f32 (None without an emission), over the fields R1 marched.
     Returns (d packed (X, Y, Z, 4), its opacity channel 0; d sigma or None;
-    d emission or None; d pos0, d dir0 (N, 3)), in new tensors.  CPU
-    tensors run ``render_replay_plain``; on the card one launch, the
+    d emission or None; d pos0, d dir0 (N, 3)), in new tensors, or, with
+    the record, views of its gradient (``record_grads``).  CPU tensors run
+    ``render_replay_plain`` in input order; on the card one launch over
+    ``order``, R1's (``render_order`` of the start positions and
+    directions; required there, since the end directions order a lens's
+    rays worse), and the record (``field_record``'s when None), the
     gradient fields zeroed by the wrapper."""
     if packed.device.type == "cpu":
         return render_replay_plain(packed, sigma, emission, pos0, end_pos, end_dir, nexec, tau_end, d_pos, d_dir,
                                    d_tau, d_rad, bend=bend, step=step)
     if packed.device.type != "cuda":
         raise ValueError(f"render_bwd needs CUDA tensors, got {packed.device}")
+    if order is None:
+        raise ValueError("render_bwd on the card needs R1's ray order (render_order of the start positions and "
+                         "directions)")
+    if record is None:
+        record = field_record(sigma, emission)
     return _launch_bwd(packed, sigma, emission, pos0, end_pos, end_dir, nexec, tau_end, d_pos, d_dir, d_tau, d_rad,
-                       bend=bend, step=step)
+                       bend=bend, step=step, order=order, record=record)
 
 
 def _launch_bwd(packed, sigma, emission, pos0, end_pos, end_dir, nexec, tau_end, d_pos, d_dir, d_tau, d_rad, *, bend,
-                step):
+                step, order, record):
     """``render_bwd_cuda``'s card branch: check the tensors, zero the
-    gradient fields and launch R2 once on the tensors' device."""
+    gradient fields and launch R2 once over ``order`` and ``record`` (or
+    None) on the tensors' device."""
     device = packed.device
     _check_fields(packed, sigma, emission, device)
     n = end_pos.shape[0]
@@ -354,10 +495,17 @@ def _launch_bwd(packed, sigma, emission, pos0, end_pos, end_dir, nexec, tau_end,
         _build.check_tensor(name, t, torch.float32, (n,), device)
     if emission is not None:
         _build.check_tensor("d_rad", d_rad, torch.float32, (n, int(emission.shape[-1])), device)
+    _check_order_record(order, record, sigma, emission, n, device)
     g_packed = torch.zeros_like(packed)
-    g_sigma = None if sigma is None else torch.zeros_like(sigma)
-    g_em, row = None, 0
-    if emission is not None:
+    g_sigma = g_em = g_record = None
+    row = 0
+    if record is not None:
+        g_record = torch.zeros_like(record)
+        g_sigma, g_em = record_grads(g_record, int(emission.shape[-1]))
+        row = 4 if emission.shape[-1] == 3 else int(emission.shape[-1])
+    elif sigma is not None:
+        g_sigma = torch.zeros_like(sigma)
+    if emission is not None and record is None:
         # rows of 4 for 3 or 4 channels, so that R2 adds a corner's
         # channels with one vector atomic; the gradient is the view of the
         # first C
@@ -370,10 +518,12 @@ def _launch_bwd(packed, sigma, emission, pos0, end_pos, end_dir, nexec, tau_end,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.vrt_render_bwd(
             packed.data_ptr(), *(int(v) for v in packed.shape[:3]), *_field_args(sigma, emission), row,
+            *(None if t is None else t.data_ptr() for t in (record, g_record)), order.data_ptr(),
             *(t.data_ptr() for t in (pos0, end_pos, end_dir, nexec, tau_end, d_pos, d_dir, d_tau)),
             None if d_rad is None else d_rad.data_ptr(), g_packed.data_ptr(),
-            None if g_sigma is None else g_sigma.data_ptr(), None if g_em is None else g_em.data_ptr(),
-            d_pos0.data_ptr(), d_dir0.data_ptr(), n, *_vec3(bend), *_vec3(step), stream,
+            *(None if g_record is not None or t is None else t.data_ptr() for t in (g_sigma, g_em)),
+            d_pos0.data_ptr(), d_dir0.data_ptr(), n,
+            *_vec3(bend), *_vec3(step), stream,
         )
     _build.check(rc, "render_bwd")
     _build.launches["render_bwd"] += 1
@@ -387,9 +537,15 @@ class _RenderDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packed, sigma, emission, pos0, dir0, budget, bend, step, chunk_steps):
+        # on the card the ray order and the record, once for R1 and R2
+        order = record = None
+        if packed.device.type == "cuda":
+            order = render_order(pos0, dir0, packed.shape)
+            record = field_record(sigma, emission)
         end_pos, end_dir, iters, tau, rad = render_cuda(packed, sigma, emission, pos0, dir0, budget, bend=bend,
-                                                        step=step, chunk_steps=chunk_steps)
-        ctx.save_for_backward(packed, sigma, emission, pos0, end_pos, end_dir, iters, tau)
+                                                        step=step, chunk_steps=chunk_steps, order=order,
+                                                        record=record)
+        ctx.save_for_backward(packed, sigma, emission, pos0, end_pos, end_dir, iters, tau, order, record)
         ctx.bend, ctx.step = bend, step
         ctx.mark_non_differentiable(iters)
         ctx.set_materialize_grads(False)
@@ -398,7 +554,7 @@ class _RenderDiff(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, d_pos, d_dir, _d_iter, d_tau, d_rad):
-        packed, sigma, emission, pos0, end_pos, end_dir, iters, tau = ctx.saved_tensors
+        packed, sigma, emission, pos0, end_pos, end_dir, iters, tau, order, record = ctx.saved_tensors
         d_pos = torch.zeros_like(end_pos) if d_pos is None else d_pos.contiguous()
         d_dir = torch.zeros_like(end_dir) if d_dir is None else d_dir.contiguous()
         d_tau = torch.zeros_like(tau) if d_tau is None else d_tau.contiguous()
@@ -413,7 +569,7 @@ class _RenderDiff(torch.autograd.Function):
         nexec = (iters - 1).clamp(min=0).to(torch.int32)
         g_packed, g_sigma, g_em, d_pos0, d_dir0 = render_bwd_cuda(
             packed, sigma, emission, pos0, end_pos, end_dir, nexec, tau, d_pos, d_dir, d_tau, d_rad,
-            bend=ctx.bend, step=ctx.step)
+            bend=ctx.bend, step=ctx.step, order=order, record=record)
         return g_packed, g_sigma, g_em, d_pos0, d_dir0, None, None, None, None
 
 
