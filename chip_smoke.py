@@ -218,35 +218,45 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      through write_jpeg at quality 90, read back within a mean error of 3
      (tests/test_image_io.py's tolerance), on the host while 19c's
      processes run;
- 20. the brick-sharded field (parallel/bricks.py, plain torch, no kernel)
-     at BASELINE config 5's 512^3 lens with bench.py's 131,072 scattered
-     rays (workloads.build_scattered_rays(grid=512)) at |d| = 1, the trace
-     at budget 512 and k_steps 64, the train step at budget 256, k_steps
-     32 and lr = 1e-2 / max|gradient|, each checked against the whole
-     field's plain march_float (iterations exact, positions and
-     directions within rtol 1e-5 / atol 1e-4) and endpoint_render(kernel=
-     "plain") + SGD (each slab's update/lr within rtol 2e-3 / atol 1e-6 of
-     the gradient cell by cell, the loss within rtol 1e-5, both steps'
-     losses finite and equal on every rank), with no kernel launched and
-     the share of rays that end in another brick than they start (at
-     least 0.3 for the trace at 4 bricks): (a) world size 1 over NCCL,
-     one brick; (b) 2 and 4 processes sharing the card over gloo
-     (``chip_smoke.py --phase20-worker``), which read their slabs from
-     memory maps of the fields that the main process writes once, every
-     rank's trace equal bit for bit and the overlap copies of adjacent
-     slabs bit-identical after two steps; (c) 4 processes as 2 rays x 2
-     bricks (make_mesh2d, trace_rays_bricked2d, make_brick_train_step2d);
-     for each, a rank's trace and step times (host clock with a sync),
-     windows, the all_reduce of one window's buffer and the halo exchange
-     of a slab's strips alone, and the memory each call allocated above
-     its start.
+ 20. the brick-sharded field (parallel/bricks.py; its windows through S1
+     and S2, kernels/march_slab.py) at BASELINE config 5's 512^3 lens with
+     bench.py's 131,072 scattered rays
+     (workloads.build_scattered_rays(grid=512)) at |d| = 1, the trace at
+     budget 512 and k_steps 64, the train step at budget 256, k_steps 32
+     and lr = 1e-2 / max|gradient|, each checked against the whole field's
+     plain march_float (iterations exact, positions and directions within
+     rtol 1e-5 / atol 1e-4) and endpoint_render(kernel="plain") + SGD (each
+     slab's update/lr within rtol 2e-3 / atol 1e-6 of the gradient cell by
+     cell, the loss within rtol 1e-5, both steps' losses finite and equal
+     on every rank), with S1 launched once a window of the trace, S1 and S2
+     once a window each of the first train step and no other kernel, and
+     the share of rays that end in another brick than they start (at least
+     0.3 for the trace at 4 bricks); on every brick of (a) and (b), S1
+     equal to slab_window_plain bit for bit for one trace window from the
+     start state and from the state two windows leave, and S2 against
+     slab_window_vjp_plain for one train window and for one window of the
+     trace's k_steps (its segmented replay) under seeded cotangents (d
+     pos0 and d dir0 within 1e-5 of their largest, d slab within 1e-4 of
+     its largest, its opacity channel zero), with their times, the plain
+     versions', the d slab's zeroing and the add of one d slab into
+     another: (a) world size 1 over NCCL, one brick; (b) 2 and 4 processes
+     sharing the card over gloo (``chip_smoke.py --phase20-worker``),
+     which read their slabs from memory maps of the fields that the main
+     process writes once, every rank's trace equal bit for bit and the
+     overlap copies of adjacent slabs bit-identical after two steps; (c) 4
+     processes as 2 rays x 2 bricks (make_mesh2d, trace_rays_bricked2d,
+     make_brick_train_step2d); for each, a rank's trace and step times
+     (host clock with a sync), windows, the all_reduce of one window's
+     buffer and the halo exchange of a slab's strips alone, and the memory
+     each call allocated above its start.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
 the point training step, F1 on the fixed trace, the recording K2 on the
 recorded float trace, the capped K2 and the corner build on
-march_lines_compact over the scattered rays, R1 on phase 17b's frame and
-R2 on phase 17c's image_loss gradient), error against its plain
+march_lines_compact over the scattered rays, R1 on phase 17b's frame,
+R2 on phase 17c's image_loss gradient, S1 on phase 20a's trace and S2 on
+its first train step), error against its plain
 version, times, its bound (the larger of its float32 operations over 67
 TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
 executed steps; the recording K2's bytes include its path) and its library
@@ -282,6 +292,17 @@ MARCH_OPS, REPLAY_OPS = 120, 281
 #: float32 operations of one step of the fixed march (F1), counted from
 #: csrc/march_fixed.cu the same way (its header lists them)
 MARCH_FIXED_OPS = 104
+#: float32 operations of one executed step of S1 (csrc/march_slab_fwd.cu)
+#: and of S2 (csrc/march_slab_bwd.cu), counted from the sources as
+#: MARCH_OPS is: S1 the owner test (a floor, 2 compares), the bounds test
+#: (2 floors, 6 compares), the slab frame and its floors (6), the weights
+#: (22), the four channels' corner sums (60), the opacity compare and the
+#: move (21: the bend 6, |u|² 5, the division, the step 9); S2 the
+#: recomputed step (109: S1's without its tests and compare) and its
+#: adjoint (275: the slab frame, floors and fractions 9, the weights 22,
+#: channels 0-2's sums 45, the weights' derivatives 15, u and 1/|u|² 12,
+#: t and ilen² 9, ub 21, h 3, the 8 corners' G and gradients 136, x̄ 3)
+SLAB_OPS, SLAB_BWD_OPS = 121, 384
 #: the ramp anchor of tests/test_scaling.py: traversal steps, and the |v|
 #: ratio's tolerance for float and for int16 8.8 directions
 ANCHOR_STEPS, ANCHOR_TOL, ANCHOR_TOL_DIR16 = 46718, 3e-5, 1e-5 + 1.0 / 256
@@ -1738,11 +1759,143 @@ def _p20_windows(bricks):
     return count
 
 
+def _p20_events(fn, reps=3):
+    """Mean ms of ``fn`` over ``reps`` calls after one warm-up, CUDA events."""
+    import torch
+
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _p20_cells(ms, slab, state, args, k_steps) -> int:
+    """The distinct slab cells whose corners a window's executed steps read
+    (the plain steps, one at a time): a lower bound of the voxels moved."""
+    import torch
+
+    offset, cells, s = args[4], [], tuple(state)
+    spatial = torch.tensor(slab.shape[:3], device=slab.device)
+    for _ in range(k_steps):
+        nxt = ms._slab_step(s, slab, *args)
+        moved = nxt[2] < s[2]
+        base = torch.minimum(torch.floor(s[0][moved] - offset).to(torch.int64).clamp(min=0), spatial - 2)
+        cells.append((base[:, 0] * spatial[1] + base[:, 1]) * spatial[2] + base[:, 2])
+        s = nxt
+    return int(torch.unique(torch.cat(cells)).numel())
+
+
+def _p20_kernels(group, num, my, packed, ior_slab, pos, dirs) -> dict:
+    """S1 and S2 on this rank's brick at phase 20's size, against their
+    plain versions: S1 (``slab_window_cuda``) equal to ``slab_window_plain``
+    bit for bit for one trace window (k_steps 64) from the trace's start
+    state and from the state two of the trace's windows leave; S2
+    (``slab_window_bwd_cuda``) for one train window (k_steps 32, the train
+    step's packed slab) from the start state under seeded cotangents, d pos0
+    and d dir0 within 1e-5 of their largest plain value and d slab within
+    1e-4 of its largest, its opacity channel zero, and the same for a window
+    of the trace's k_steps, longer than S2's stash, so that its segmented
+    replay runs (some ray must execute more steps than the stash holds).  Times (CUDA events):
+    S1, S2 with its zeroing, the zeroing alone, the add of a d slab into
+    another (autograd's sum over windows), and the plain versions (one
+    call each); the executed steps and distinct cells for the bounds."""
+    import torch
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import march_slab as ms
+    from volumeraytracer_tpu_torch.ops.fields import build_packed_field
+    from volumeraytracer_tpu_torch.parallel import bricks
+
+    sync = torch.cuda.synchronize
+    dev = pos.device
+    n = pos.shape[0]
+    xs = bricks.slab_cells(int(packed.shape[0]), num)
+    slab = bricks._packed_slab(packed, my, xs, dev)
+    args = (my, num, xs, *bricks._march_consts(packed.shape[:-1], my, xs, BEND, STEP, 3, dev))
+    k = P20_TRACE["k_steps"]
+    start = bricks._start_state(pos, dirs, torch.full((n,), P20_TRACE["budget"] - 1, dtype=torch.int64, device=dev))
+    mid = bricks._run_windows(start, lambda s: bricks._window_fn(s, slab, *args, k, group), 2)
+    out = {}
+    for name, st in (("start", start), ("mid", mid)):
+        st = tuple(x.contiguous() for x in st)
+        got = ms.slab_window_cuda(slab, st, *args, k)
+        ref = ms.slab_window_plain(slab, st, *args, k)
+        sync()
+        for f, a, b in zip(("position", "direction", "remaining", "alive"), got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"S1 brick {my} of {num}, {name} state: {f} differs from slab_window_plain on "
+                                     f"{int((a != b).reshape(n, -1).any(-1).sum())} rays")
+        out[f"s1_{name}_steps"] = int((st[2] - got[2]).sum())
+        if name == "start":
+            out["s1_ms"] = _p20_events(lambda: ms.slab_window_cuda(slab, st, *args, k))
+            out["s1_plain_ms"] = _p20_events(lambda: ms.slab_window_plain(slab, st, *args, k), reps=1)
+            out["s1_cells"] = _p20_cells(ms, slab, st, args, k)
+    del mid, got, ref
+
+    kt = P20_TRAIN["k_steps"]
+    tslab = build_packed_field(ior_slab).contiguous()
+    st = tuple(x.contiguous() for x in start)
+    end = ms.slab_window_cuda(tslab, st, *args, kt)
+    gen = torch.Generator(device=dev).manual_seed(20 + my)
+    d_pos, d_dir = (torch.randn((n, 3), generator=gen, device=dev) for _ in range(2))
+    got = ms.slab_window_bwd_cuda(tslab, st, end[2], *args, kt, d_pos, d_dir)
+    sync()
+    t0 = time.perf_counter()
+    ref = ms.slab_window_vjp_plain(tslab, st, *args, kt, d_pos, d_dir)
+    sync()
+    out["s2_plain_ms"] = (time.perf_counter() - t0) * 1e3
+    errs = []
+    for f, a, b, tol in zip(("d pos0", "d dir0", "d slab"), got, ref, (1e-5, 1e-5, 1e-4)):
+        err, top = (a - b).abs().max().item(), b.abs().max().item()
+        if not err <= tol * top:
+            raise AssertionError(f"S2 brick {my} of {num}: {f} max err {err:.3g} beyond {tol:g} of its largest {top:.3g}")
+        errs.append(err)
+    if bool(got[2][..., 3].any()):
+        raise AssertionError(f"S2 brick {my} of {num}: the opacity channel has a gradient")
+    out.update(s2_err=max(errs), s2_rel=[e / max(b.abs().max().item(), 1e-30) for e, b in zip(errs, ref)],
+               s2_steps=int((st[2] - end[2]).sum()), s2_cells=_p20_cells(ms, tslab, st, args, kt),
+               slab_bytes_packed=tslab.numel() * 4)
+    del ref
+    # S2 over a window longer than its stash (the trace's k_steps), so that
+    # its segmented replay runs: the kept states, the segments last first
+    stash = int(_build.load().vrt_march_slab_stash())
+    end_k = ms.slab_window_cuda(tslab, st, *args, k)
+    seg_steps = int((st[2] - end_k[2]).max())
+    if not seg_steps > stash:
+        raise AssertionError(f"S2 brick {my} of {num}: no ray ran more than the stash's {stash} steps in a "
+                             f"{k}-step window ({seg_steps})")
+    got_k = ms.slab_window_bwd_cuda(tslab, st, end_k[2], *args, k, d_pos, d_dir)
+    ref_k = ms.slab_window_vjp_plain(tslab, st, *args, k, d_pos, d_dir)
+    seg_rel = []
+    for f, a, b, tol in zip(("d pos0", "d dir0", "d slab"), got_k, ref_k, (1e-5, 1e-5, 1e-4)):
+        err, top = (a - b).abs().max().item(), b.abs().max().item()
+        if not err <= tol * top:
+            raise AssertionError(f"S2 brick {my} of {num}, k_steps {k}: {f} max err {err:.3g} beyond {tol:g} of "
+                                 f"its largest {top:.3g}")
+        seg_rel.append(err / max(top, 1e-30))
+    if bool(got_k[2][..., 3].any()):
+        raise AssertionError(f"S2 brick {my} of {num}, k_steps {k}: the opacity channel has a gradient")
+    out.update(s2_seg_rel=seg_rel, s2_seg_steps=seg_steps)
+    del end_k, got_k, ref_k
+    out["s2_ms"] = _p20_events(lambda: ms.slab_window_bwd_cuda(tslab, st, end[2], *args, kt, d_pos, d_dir))
+    out["zero_ms"] = _p20_events(lambda: torch.zeros_like(tslab))
+    acc = torch.zeros_like(tslab)
+    out["add_ms"] = _p20_events(lambda: acc.add_(got[2]))
+    return out
+
+
 def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dict:
     """One rank's phase 20 work on ``mesh`` (1-D "bricks", or ("rays",
     "bricks") when ``two_d``): the trace, two train steps, the all_reduce of
     one window's buffer and the halo exchange of a slab's gradient alone;
-    times on the host clock with a sync, windows, peak memory, launches."""
+    times on the host clock with a sync, windows, peak memory, the trace's
+    and the first step's launches; on a 1-D mesh, S1 and S2 against their
+    plain versions (``_p20_kernels``)."""
     import torch
     import torch.distributed as dist
 
@@ -1770,6 +1923,7 @@ def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dic
     out["trace_ms"] = (time.perf_counter() - t0) * 1e3
     out["trace_mem"] = torch.cuda.max_memory_allocated() - base
     out["trace_windows"] = windows[0]
+    out["trace_launches"] = dict(_build.launches)
     out["trace"] = {f: getattr(res, f).cpu() for f in ("end_position", "end_direction", "end_iteration")}
     del res
 
@@ -1781,6 +1935,7 @@ def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dic
     else:
         step = bricks.make_brick_train_step(mesh, x_packed, **tkw)
     windows[0] = 0
+    _build.launches.clear()
     sync()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1795,8 +1950,9 @@ def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dic
         if len(losses) == 1:
             out["update"] = (slab - new).cpu()
             out["train_windows"] = windows[0]
+            out["train_launches"] = dict(_build.launches)
     out["train_mem"] = torch.cuda.max_memory_allocated() - base
-    out.update(step_ms=step_ms, losses=losses, launches=dict(_build.launches), slab_bytes=slab.numel() * 4,
+    out.update(step_ms=step_ms, losses=losses, slab_bytes=slab.numel() * 4,
                strips=(new[:bricks.IOR_OVERLAP].cpu(), new[-bricks.IOR_OVERLAP:].cpu()))
 
     buf = torch.zeros((pos.shape[0] // (2 if two_d else 1), 8), device=pos.device)
@@ -1811,6 +1967,9 @@ def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dic
             sync()
             ms.append((time.perf_counter() - t0) * 1e3)
     out.update(reduce_ms=reduce_ms, exchange_ms=exchange_ms, buf_bytes=buf.numel() * 4)
+    del buf, g, new
+    if not two_d:
+        out.update(_p20_kernels(group, num, bricks._mesh_axis(mesh, "bricks")[2], packed, slab, pos, dirs))
     return out
 
 
@@ -1879,8 +2038,10 @@ def _p20_group(tmp: str, world: int, mode: str, timeout: float = 240.0) -> list:
     return [torch.load(os.path.join(tmp, f"out_{mode}_{world}_{r}.pt")) for r in range(world)]
 
 
-def phase20(dev, card) -> None:
-    """The brick-sharded field on the card (see the module doc, phase 20)."""
+def phase20(dev, card) -> dict:
+    """The brick-sharded field on the card (see the module doc, phase 20);
+    returns 20a's S1 and S2 launches, errors, times and bounds for the
+    kernels line."""
     import os
     import tempfile
 
@@ -1973,6 +2134,15 @@ def phase20(dev, card) -> None:
                                      f"{[x[k].item() for x in losses]}")
         torch.testing.assert_close(losses[0][0].to(dev), ref_loss, rtol=1e-5, atol=0, msg=f"{name}: loss")
 
+    def check_launches(name, o):
+        """S1 once a window of the trace; S1 and S2 once a window each of the
+        first train step; no other kernel."""
+        want = ({"march_slab_fwd": o["trace_windows"]},
+                {"march_slab_fwd": o["train_windows"], "march_slab_bwd": o["train_windows"]})
+        if (o["trace_launches"], o["train_launches"]) != want:
+            raise AssertionError(f"{name}: launches trace {o['trace_launches']}, train step {o['train_launches']}; "
+                                 f"want {want[0]}, {want[1]}")
+
     def report(name, outs):
         gmax = g_full.abs().max().item()
         for r, o in enumerate(outs):
@@ -1982,7 +2152,20 @@ def phase20(dev, card) -> None:
                   f"{[round(x, 3) for x in o['reduce_ms']]} ms, halo exchange (all_gather_into_tensor) of a "
                   f"{o['slab_bytes']} B slab's strips {[round(x, 3) for x in o['exchange_ms']]} ms (host clock); "
                   f"max_memory_allocated above the call's start: trace {o['trace_mem'] / 2**30:.3f} GiB, train "
-                  f"{o['train_mem'] / 2**30:.3f} GiB; backend {o.get('backend', 'nccl')}; launches {o['launches']} {card}")
+                  f"{o['train_mem'] / 2**30:.3f} GiB; backend {o.get('backend', 'nccl')}; launches trace "
+                  f"{o['trace_launches']}, first step {o['train_launches']} {card}")
+            if "s1_ms" in o:
+                print(f"phase 20 {name} rank {r} S1: one trace window (k_steps {P20_TRACE['k_steps']}) equal to "
+                      f"slab_window_plain bit for bit from the start ({o['s1_start_steps']} executed steps) and "
+                      f"from two windows in ({o['s1_mid_steps']}); {o['s1_ms']:.4f} ms, plain "
+                      f"{o['s1_plain_ms']:.2f} ms; {o['s1_cells']} distinct cells. S2: one train window (k_steps "
+                      f"{P20_TRAIN['k_steps']}, {o['s2_steps']} executed steps) within bounds of "
+                      f"slab_window_vjp_plain (d pos0, d dir0, d slab max err over their largest "
+                      f"{[float(f'{x:.3g}') for x in o['s2_rel']]}); {o['s2_ms']:.4f} ms with the d slab's zeroing "
+                      f"({o['zero_ms']:.4f} ms alone; adding a d slab into another {o['add_ms']:.4f} ms; "
+                      f"{o['slab_bytes_packed']} B), plain {o['s2_plain_ms']:.2f} ms (host clock); over a window of "
+                      f"k_steps {P20_TRACE['k_steps']} (segmented replay, up to {o['s2_seg_steps']} executed steps a "
+                      f"ray) max err over the largest {[float(f'{x:.3g}') for x in o['s2_seg_rel']]} {card}")
         print(f"phase 20 {name}: gradient max err {max(o['grad_err'] for o in outs):.3g} (max|g| {gmax:.3g}), "
               f"trace position max err {max(o['pos_err'] for o in outs):.3g}, loss {outs[0]['losses'][0].item():.8g} "
               f"vs {ref_loss.item():.8g}, then {outs[0]['losses'][1].item():.8g}")
@@ -1991,13 +2174,25 @@ def phase20(dev, card) -> None:
     mesh = make_mesh(axis="bricks")
     backend = dist.get_backend()
     o = _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, False)
-    if o["launches"]:
-        raise AssertionError(f"the brick path launched kernels: {o['launches']}")
+    check_launches("20a", o)
     o.update(pos_err=check_trace("20a trace", o["trace"]), grad_err=check_update("20a", o["update"], 0, 1))
     check_loss("20a", [o["losses"]])
     o["backend"] = backend
     report("20a world size 1", [o])
     dist.destroy_process_group()
+    n_rays = pos.shape[0]
+    # the bounds of S1's and S2's timed windows: operations over executed
+    # steps; bytes the ray state in and out (S1 33 B each way a ray; S2 64 B
+    # in, 24 out), the distinct cells read (16 B each, at least), and S2's
+    # whole d slab written
+    r20 = {
+        "s1_launches": o["trace_launches"], "s2_launches": o["train_launches"],
+        "s1_err": 0.0, "s2_err": o["s2_err"], "s1": o["s1_ms"], "s1_plain": o["s1_plain_ms"], "s2": o["s2_ms"],
+        "s2_plain": o["s2_plain_ms"],
+        "s1_bound": kernel_bound(SLAB_OPS * o["s1_start_steps"], 66 * n_rays + 16 * o["s1_cells"]),
+        "s2_bound": kernel_bound(SLAB_BWD_OPS * o["s2_steps"],
+                                 88 * n_rays + 16 * o["s2_cells"] + o["slab_bytes_packed"]),
+    }
     del o
     # the workers allocate on the same card: hand back what this process's
     # caching allocator keeps from the earlier phases
@@ -2017,8 +2212,7 @@ def phase20(dev, card) -> None:
             num = 2 if mode == "2d" else world
             name = "20c 2x2" if mode == "2d" else f"20b {world} bricks"
             for r, o in enumerate(outs):
-                if o["launches"]:
-                    raise AssertionError(f"{name} rank {r}: the brick path launched kernels: {o['launches']}")
+                check_launches(f"{name} rank {r}", o)
                 for k in ("end_position", "end_direction", "end_iteration"):
                     if not torch.equal(o["trace"][k], outs[0]["trace"][k]):
                         raise AssertionError(f"{name}: rank {r}'s trace {k} differs from rank 0's")
@@ -2037,6 +2231,7 @@ def phase20(dev, card) -> None:
             report(name, outs)
             del outs
     print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return r20
 
 
 def main() -> None:
@@ -3107,9 +3302,11 @@ def main() -> None:
     # two processes sharing the card over gloo), profiling, the image tools
     phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, train_step, image)
 
-    # 20. the brick-sharded field at 512^3 (world size 1 over NCCL; 2 and 4
-    # processes sharing the card over gloo; 2 rays x 2 bricks)
-    phase20(dev, card)
+    # 20. the brick-sharded field at 512^3 through S1 and S2 (world size 1
+    # over NCCL; 2 and 4 processes sharing the card over gloo; 2 rays x 2
+    # bricks)
+    r20 = phase20(dev, card)
+    times.update({k: r20[k] for k in ("s1", "s1_plain", "s2", "s2_plain")})
 
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,
@@ -3147,10 +3344,13 @@ def main() -> None:
         # R1 and R2 at phase 17's 1024² camera (σ and 3 channels)
         "r1": r17["r1_bound"],
         "r2": r17["r2_bound"],
+        # S1 and S2 at phase 20a's 512³ on one brick (one window each)
+        "s1": r20["s1_bound"],
+        "s2": r20["s2_bound"],
     }
     for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
                        ("f1", "F1"), ("f1p", "recording F1"), ("k2p", "recording K2"), ("k2c", "capped K2"),
-                       ("kc", "corner build"), ("r1", "R1"), ("r2", "R2")):
+                       ("kc", "corner build"), ("r1", "R1"), ("r2", "R2"), ("s1", "S1"), ("s2", "S2")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
@@ -3174,6 +3374,8 @@ def main() -> None:
          k2c["kc_err"]),
         ("r1", "render_fwd", "render_fwd.cu", "models/camera.py:229", r17["r1_launches"], r17["r1_err"]),
         ("r2", "render_bwd", "render_bwd.cu", "models/camera.py:229", r17["r2_launches"], r17["r2_err"]),
+        ("s1", "march_slab_fwd", "march_slab_fwd.cu", "parallel/bricks.py:212", r20["s1_launches"], r20["s1_err"]),
+        ("s2", "march_slab_bwd", "march_slab_bwd.cu", "parallel/bricks.py:311", r20["s2_launches"], r20["s2_err"]),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,

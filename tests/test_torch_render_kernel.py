@@ -444,18 +444,24 @@ def _host_fields(case, rng):
         "shuffled": (sigma, np.stack([emission, 0.5 * emission, 0.25 * emission], -1)),
         "em3_own_grid": (sigma, rng.uniform(0.0, 1.0, (11, 9, 13, 3)).astype(np.float32)),
         "sigma_em2": (sigma, np.stack([emission, 0.5 * emission], -1)),
+        "sigma_alone": (sigma, None),
+        "em3_no_sigma": (None, np.stack([emission, 0.5 * emission, 0.25 * emission], -1)),
+        "em5_no_sigma": (None, rng.uniform(0.0, 1.0, emission.shape + (5,)).astype(np.float32)),
     }[case]
 
 
 @pytest.mark.parametrize("case", ["lens", "sigma_em3", "em_no_sigma", "em2", "em4", "em5", "own_shapes",
-                                  "scalar_grids", "shuffled", "em3_own_grid", "sigma_em2"])
+                                  "scalar_grids", "shuffled", "em3_own_grid", "sigma_em2", "sigma_alone",
+                                  "em3_no_sigma", "em5_no_sigma"])
 def test_kernel_sources_on_the_host_match_the_plain_versions(case, host_kernels, monkeypatch):
     """R1 and R2 from their CUDA sources (g++, one thread at a time, a block
     of one thread) through the wrappers' card branches (``_launch_fwd``,
     ``_launch_bwd``: the checks, allocations and launches) on CPU tensors,
     over ``render_order``'s order ("shuffled": a random permutation) and,
     where σ and the emission share a grid with C ≤ 3, the record (C = 1,
-    2 and 3), on the lens with an opaque plane: R1's end position,
+    2 and 3), with σ alone and an emission alone of 1, 2, 3 and 5 channels
+    (grouped flushes up to 4 channels, one lane's atomics for 5), on the
+    lens with an opaque plane: R1's end position,
     direction, iterations and τ equal to ``render_plain``'s bit for bit
     and its radiance within 1e-6 (the host's expf against torch's exp);
     R2's d pos0 and d dir0 within 1e-6 of their largest value and its

@@ -36,8 +36,11 @@ SOURCES = tuple(
     for name in (
         "line_table_build.cu", "corner_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu",
         "march_points_fwd.cu", "march_points_bwd.cu", "march_fixed.cu", "render_fwd.cu", "render_bwd.cu",
+        "march_slab_fwd.cu", "march_slab_bwd.cu",
     )
 )
+#: the headers the sources include, hashed with them
+HEADERS = (_HERE / "csrc" / "march_slab.cuh",)
 BUILD_DIR = _HERE.parent / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -107,6 +110,12 @@ _SIGNATURES = {
     "vrt_march_fixed_path": _MARCH_FIXED_PATH,
     "vrt_render_fwd": _RENDER_FWD,
     "vrt_render_bwd": _RENDER_BWD,
+    # S1 and S2: the slab, its shape, the constants, the state (S2: the
+    # start, the end's remaining, the cotangents, d slab, the scratch, the
+    # start's cotangents), n, S1's brick, bricks, cells a brick, k_steps
+    "vrt_march_slab_fwd": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "vrt_march_slab_bwd": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "vrt_march_slab_stash": (),
 }
 
 #: launches of each kernel by name since the last ``clear()``
@@ -129,7 +138,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvrt_kernels_{h.hexdigest()[:16]}.so"
 

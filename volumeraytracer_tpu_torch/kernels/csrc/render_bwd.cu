@@ -86,11 +86,21 @@
 //   where they lie, one lane a corner and a quarter of the warp, and sends
 //   each corner's sum with one float4 global atomic.
 //
-// sigma or an emission alone, or on other grids, or with C > 3, keeps its
-// own register cache and flushes it with global atomics (a float4 a corner
-// for an emission of 3 or 4 channels, whose gradient the wrapper allocates
-// in rows of 4; float2s for 2 channels); a scalar field's (2, 2, 2) grid
-// never changes cell, so all of a ray's steps add to it with one flush.
+// Without the record, sigma and the emission keep their own register
+// caches.  Sigma alone, or an emission of 1-4 channels alone, stages its
+// sums in the record's rows (an emission's made W_o * tw * rb_c in place
+// when they flush) and flushes them grouped, as the record, with one
+// atomic a corner: a float, a float2, or a float4 for 3 or 4 channels,
+// whose gradient the wrapper allocates in rows of 4.  A camera's rays all
+// start in the cells around its eye, whose corners so take one atomic a
+// warp and not one a ray: ~10^6 float atomics into one corner would round
+// the sum by ~1e-4 of the largest gradient (phase 17c of chip_smoke.py
+// holds it within that of the plain replay's float64 sums).  Sigma beside
+// an emission outside the record (on another grid, or of 4 or more
+// channels), or an emission of 5 or more channels alone, flushes each
+// lane's caches with its own global atomics (vectors as above for the
+// emission); a scalar field's (2, 2, 2) grid never changes cell, so all
+// of a ray's steps add to it with one flush.
 // The host build (tests) defines VRT_BLOCK_THREADS as 1, so that a shim
 // that runs one thread at a time runs this source: a warp's grouping then
 // holds one lane.  A build that defines VRT_COUNT_ATOMICS (the render
@@ -211,11 +221,15 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
   float tau = SIGMA ? tau_end[i] : 0.0f;
   float tb = SIGMA ? d_tau[i] : 0.0f;
   const float* const rb = EM ? d_rad + (long long)i * C : nullptr;
-  // the radiance cotangent as the record's lanes 1-3 take it
-  float rr[3] = {0.0f, 0.0f, 0.0f};
-  if (REC) {
+  // sigma alone, or an emission of at most 4 channels alone: its rows
+  // flush grouped (uniform over the warp)
+  const bool own_group = !REC && SIGMA != EM && (SIGMA || GC <= 4);
+  // the radiance cotangent as the record's lanes 1-3 and a grouped
+  // emission's rows take it
+  float rr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (REC || (EM && !SIGMA)) {
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) rr[ch] = ch < C ? __ldg(rb + ch) : 0.0f;
+    for (int ch = 0; ch < 4; ++ch) rr[ch] = ch < C ? __ldg(rb + ch) : 0.0f;
   }
 
   // the caches: the packed cell's channels 0-2 and their gradients;
@@ -255,17 +269,16 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
     if (EM && !REC) eb = base_cell(m0, m1, m2, EX, EY, EZ);
   };
 
-  // the warp's grouped flush of field f (0: packed, 1: the record): the
-  // lanes with `need` leave cell `c` with their 8 corner rows in `rows`
-  // (this lane's row of corner 0); the rows of the lanes that leave one
-  // cell are summed and sent with one global atomic a corner, corner o by
+  // the warp's grouped flush into the gradient g of an (., s1, s2) grid
+  // with rows of `width` (1, 2 or 4) floats: the lanes with `need` leave
+  // cell `c` with their 8 corner rows in `rows` (this lane's row of corner
+  // 0); the rows of the lanes that leave one cell are summed and their
+  // first `width` floats sent with one global atomic a corner, corner o by
   // lanes o, o + 8, o + 16 and o + 24 (each the group's lanes of one
   // quarter of the warp, then combined by shuffles), and the leaving
   // lanes' rows zeroed.  All lanes of the warp call it together.
-  auto group_flush = [&](bool need, int c, int f, float4* rows) {
+  auto group_flush = [&](bool need, int c, float4* rows, float* g, int s1, int s2, int width) {
     constexpr int PARTS = LANES / 8 > 0 ? LANES / 8 : 1;
-    float4* const g = f ? g_rec : reinterpret_cast<float4*>(g_packed);
-    const int s1 = f ? SY : Y, s2 = f ? SZ : Z;
     const unsigned peers = __match_any_sync(FULL, need ? c : -1);
     unsigned leaders = __ballot_sync(FULL, need && __ffs(peers) - 1 == lane);
     __syncwarp(FULL);
@@ -290,7 +303,16 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
           sum.z = sum.z + __shfl_xor_sync(FULL, sum.z, off);
           sum.w = sum.w + __shfl_xor_sync(FULL, sum.w, off);
         }
-        if (q == 0) atomicAdd(g + (cell + corner_cells(o, s1, s2)), sum);
+        if (q == 0) {
+          float* const at = g + (long long)(cell + corner_cells(o, s1, s2)) * width;
+          if (width == 4) {
+            atomicAdd(reinterpret_cast<float4*>(at), sum);
+          } else if (width == 2) {
+            atomicAdd(reinterpret_cast<float2*>(at), make_float2(sum.x, sum.y));
+          } else {
+            atomicAdd(at, sum.x);
+          }
+        }
       }
       if (lane == 0) COUNT_ATOMICS(8);
       __syncwarp(FULL);
@@ -309,8 +331,26 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
       acc_r[o * (LANES + 1)] = make_float4(a.x, a.y * rr[0], a.y * rr[1], a.y * rr[2]);
     }
   };
+  // a grouped emission's rows from this lane's sums, in place
+  auto emission_rows = [&]() {
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      const float y = acc_r[o * (LANES + 1)].y;
+      acc_r[o * (LANES + 1)] = make_float4(y * rr[0], y * rr[1], y * rr[2], y * rr[3]);
+    }
+  };
+  // the grouped flush of sigma's or the emission's own rows (own_group)
+  // by the lanes that `leave` their cell
+  auto own_flush = [&](bool leave) {
+    if (SIGMA) {
+      group_flush(leave && sk >= 0, sk, acc_r, g_sigma, SY, SZ, 1);
+    } else {
+      if (leave && ek >= 0) emission_rows();
+      group_flush(leave && ek >= 0, ek, acc_r, g_em, EY, EZ, GC);
+    }
+  };
 
-  // sigma's and the emission's own caches (no record): this lane's global
+  // sigma's and the emission's own caches flushed with this lane's global
   // atomics, as the first design sent them
   auto flush_sigma = [&]() {
     if (!SIGMA || REC || sk < 0) return;
@@ -368,23 +408,29 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
       pe[o] = p;
     }
   };
+  auto load_sigma = [&]() {
+    sk = sb;
+#pragma unroll
+    for (int o = 0; o < 8; ++o) sc[o] = __ldg(sigma + sk + corner_cells(o, SY, SZ));
+  };
+  auto load_em = [&]() {
+    ek = eb;
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      const float* e = em + (long long)(ek + corner_cells(o, EY, EZ)) * C;
+      float p = __ldg(rb) * __ldg(e);
+      for (int ch = 1; ch < C; ++ch) p = p + __ldg(rb + ch) * __ldg(e + ch);
+      pe[o] = p;
+    }
+  };
   auto reload_own = [&]() {
     if (SIGMA && !REC && sb != sk) {
       flush_sigma();
-      sk = sb;
-#pragma unroll
-      for (int o = 0; o < 8; ++o) sc[o] = __ldg(sigma + sk + corner_cells(o, SY, SZ));
+      load_sigma();
     }
     if (EM && !REC && eb != ek) {
       flush_em();
-      ek = eb;
-#pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        const float* e = em + (long long)(ek + corner_cells(o, EY, EZ)) * C;
-        float p = __ldg(rb) * __ldg(e);
-        for (int ch = 1; ch < C; ++ch) p = p + __ldg(rb + ch) * __ldg(e + ch);
-        pe[o] = p;
-      }
+      load_em();
     }
   };
 
@@ -505,15 +551,22 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
     if (active) recon(j == M - 1);
     const bool np = active && pb != pk;
     if (__any_sync(FULL, np)) {
-      group_flush(np && pk >= 0, pk, 0, acc_p);
+      group_flush(np && pk >= 0, pk, acc_p, g_packed, Y, Z, 4);
       if (np) load_packed();
     }
     if (REC) {
       const bool nr = active && sb != sk;
       if (__any_sync(FULL, nr)) {
         if (nr && sk >= 0) record_rows();
-        group_flush(nr && sk >= 0, sk, 1, acc_r);
+        group_flush(nr && sk >= 0, sk, acc_r, reinterpret_cast<float*>(g_rec), SY, SZ, 4);
         if (nr) load_record();
+      }
+    } else if (own_group) {
+      const bool leave = active && (SIGMA ? sb != sk : eb != ek);
+      if (__any_sync(FULL, leave)) {
+        own_flush(leave);
+        if (leave && SIGMA) load_sigma();
+        if (leave && !SIGMA) load_em();
       }
     } else if (active) {
       reload_own();
@@ -521,10 +574,12 @@ render_bwd_kernel(const float* __restrict__ packed, int X, int Y, int Z,
     if (active) replay();
   }
   // the caches' last cells
-  group_flush(pk >= 0, pk, 0, acc_p);
+  group_flush(pk >= 0, pk, acc_p, g_packed, Y, Z, 4);
   if (REC) {
     if (sk >= 0) record_rows();
-    group_flush(sk >= 0, sk, 1, acc_r);
+    group_flush(sk >= 0, sk, acc_r, reinterpret_cast<float*>(g_rec), SY, SZ, 4);
+  } else if (own_group) {
+    own_flush(true);
   } else {
     flush_sigma();
     flush_em();

@@ -43,12 +43,18 @@ from the JAX package, all from torch's idiom:
     same number of windows); the differentiable march runs at most JAX's
     scan length, ``ceil(budget / k_steps) + num + 2`` windows, and a ray
     still alive then keeps its state, as in JAX;
-  * the differentiable march checkpoints each window's local steps
-    (``torch.utils.checkpoint``) and keeps the all_reduce outside, so that
-    the backward makes exactly one all_reduce a window.
+  * the differentiable march recomputes each window's local steps in its
+    backward (JAX's ``jax.checkpoint``) and keeps the all_reduce outside,
+    so that the backward makes exactly one all_reduce a window.
 
-The slab march is plain torch on the tensors' device, as the JAX package
-runs it in XLA: no kernel is launched.  Every rank of a group must make
+The window's local steps (``kernels/march_slab.py``) run as S1, a CUDA
+kernel, on a CUDA 3-D slab: every window of ``trace_rays_bricked``,
+``trace_rays_bricked2d`` and both train steps is one S1 launch, and in
+the train steps every window's backward one S2 launch, the window's
+adjoint from its start state; the combine, the all_reduce and the halo
+exchange stay plain torch.  On CPU tensors and 2-D slabs the steps are
+the plain torch loop, under ``torch.utils.checkpoint`` when
+differentiable.  Every rank of a group must make
 the same calls in the same order: each collective is made from state
 that is equal on every rank of its group.
 """
@@ -61,6 +67,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..kernels import march_slab
+from ..kernels.march_slab import _owned_mask
 from ..ops.fields import build_packed_field
 from ..ops.interp import interp_linear
 from ..ops.march import march_scales
@@ -192,56 +200,6 @@ class _AllReduceSum(torch.autograd.Function):
         return out, None
 
 
-def _owned_mask(pos_x: torch.Tensor, my: int, num: int, xs: int) -> torch.Tensor:
-    """Exactly-one-owner partition of the x axis: brick d owns
-    floor(x) ∈ [d·xs, (d+1)·xs), extended to ±∞ at the mesh edges so every
-    ray (even one knocked out of bounds) has exactly one owner to kill it."""
-    fx = torch.floor(pos_x)
-    lo = -float("inf") if my == 0 else float(my * xs)
-    hi = float("inf") if my == num - 1 else float((my + 1) * xs)
-    return (fx >= lo) & (fx < hi)
-
-
-def _slab_step(
-    state: BrickState,
-    slab: torch.Tensor,  # (xs + 2, ..., C) local packed slab
-    my: int,
-    num: int,
-    xs: int,
-    bounds_m1: torch.Tensor,  # GLOBAL packed bounds − 1, float32
-    offset: torch.Tensor,  # (my·xs − 1, 0, ...): global → slab frame
-    bend: torch.Tensor,
-    step: torch.Tensor,
-) -> BrickState:
-    """One predicated march step; only rays owned by this brick move.
-
-    The float march's physics (``ops.march._float_step``: linear interp,
-    opaque if the channel is positive, pos += v·step/|v|²) without
-    translucency, with the interpolation served from the local slab in its
-    frame, and with ``alive`` changed only where the ray is owned."""
-    pos, direction, remaining, alive = state
-    dim = pos.shape[-1]
-    inb = ((pos >= 0.0) & (torch.floor(pos) < bounds_m1)).all(-1)
-    owned = _owned_mask(pos[..., 0], my, num, xs)
-    cond = alive & owned & (remaining > 0) & inb
-
-    # for owned & in-bounds rays the 2^dim interp corners lie in the slab
-    interp = interp_linear(slab, pos - offset)
-    ok = cond & ~(interp[..., dim] > 0.0)
-    remaining = torch.where(ok, remaining - 1, remaining)
-
-    new_dir = direction + interp[..., :dim] * bend
-    len2 = new_dir[..., 0] * new_dir[..., 0]
-    for a in range(1, dim):
-        len2 = len2 + new_dir[..., a] * new_dir[..., a]
-    new_pos = pos + new_dir * step * (1.0 / len2)[..., None]
-
-    m = ok[..., None]
-    # only the owner may flip alive: foreign rays stay frozen, not dead
-    return BrickState(torch.where(m, new_pos, pos), torch.where(m, new_dir, direction), remaining,
-                      torch.where(owned, ok, alive))
-
-
 def _combine_window(owned0: torch.Tensor, end: BrickState, group) -> BrickState:
     """Exactly-once combine: within a window each ray was moved only by its
     window-start owner (crossing rays freeze), and ``owned0`` is computed
@@ -260,21 +218,24 @@ def _combine_window(owned0: torch.Tensor, end: BrickState, group) -> BrickState:
 
 def _window_fn(state: BrickState, slab, my, num, xs, bounds_m1, offset, bend, step, k_steps, group,
                remat: bool = False) -> BrickState:
-    """One window: ``k_steps`` local steps (under ``checkpoint`` when
-    ``remat``: autograd keeps the window's start state and recomputes the
-    steps in the backward), then the combine, outside the checkpoint."""
+    """One window: ``k_steps`` local steps, then the combine.  On a CUDA 3-D
+    slab the steps are S1, and with ``remat`` the differentiable window
+    whose backward is S2 (``kernels/march_slab.py``); elsewhere the plain
+    loop, under ``checkpoint`` when ``remat`` (autograd keeps the window's
+    start state and recomputes the steps in the backward).  The combine
+    stays outside either."""
     owned0 = _owned_mask(state.pos[..., 0], my, num, xs)
-
-    def local(*s):
-        s = BrickState(*s)
-        for _ in range(k_steps):
-            s = _slab_step(s, slab, my, num, xs, bounds_m1, offset, bend, step)
-        return tuple(s)
-
-    if remat:
-        end = torch.utils.checkpoint.checkpoint(local, *state, use_reentrant=False)
+    args = (my, num, xs, bounds_m1, offset, bend, step, k_steps)
+    if march_slab.use_kernels(slab.device, state.pos.shape[-1]):
+        if remat:
+            end = march_slab.slab_window_diff(slab, state, *args)
+        else:
+            end = march_slab.slab_window_cuda(slab, tuple(t.contiguous() for t in state), *args)
+    elif remat:
+        end = torch.utils.checkpoint.checkpoint(lambda *s: march_slab.slab_window_plain(slab, s, *args), *state,
+                                                use_reentrant=False)
     else:
-        end = local(*state)
+        end = march_slab.slab_window_plain(slab, state, *args)
     return _combine_window(owned0, BrickState(*end), group)
 
 

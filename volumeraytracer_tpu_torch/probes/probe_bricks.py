@@ -1,0 +1,326 @@
+#!/usr/bin/env python3
+"""Where the brick path's time goes on one GPU, at phase 20's size of
+``chip_smoke.py`` (BASELINE config 5's 512³ lens, bench.py's 131,072
+scattered rays at |d| = 1; the trace at budget 512 and k_steps 64, the
+train step at budget 256 and k_steps 32), for this checkout and, with
+``--parent``, another one in turns.
+
+    python3 -m volumeraytracer_tpu_torch.probes.probe_bricks [--parent DIR] [--grid 512] [--rays 131072] [--out FILE.json]
+
+``DIR`` holds another checkout of the repository (for example the parent
+commit, unpacked with ``git archive`` into a directory that .gitignore
+lists).  The fields and rays are written once, as phase 20 writes them.
+With ``--parent``, one child process per version runs in the order
+parent, this checkout, this checkout, parent; without it, one child of
+this checkout.  Each child imports ``volumeraytracer_tpu_torch`` from its
+own root and records, on the host clock around calls that end in a sync,
+one warm-up call and two timed ones:
+
+- 20a: world size 1 over NCCL, one brick (the packed field on the card):
+  ``trace_rays_bricked`` and ``make_brick_train_step``'s step, their
+  windows and the memory each allocates above its start;
+- 20b: 2 and 4 worker processes of this probe sharing the card over gloo,
+  one brick each (the fields read from memory maps); 20c: 4 processes as
+  2 rays × 2 bricks (``trace_rays_bricked2d``, ``make_brick_train_step2d``):
+  each rank's times.
+
+The first child of this checkout also profiles 20a's trace and train step
+(``torch.profiler``, ``probe_fixed._profile``: device time by operation,
+busy share, idle gaps, host time by operation).  Fails unless every
+child's traces (end position, direction and iterations) are equal, bit
+for bit, to the first child's, and its first losses within rtol 1e-5 of
+them (phase 20's bound for the loss).  Prints one line a
+measurement with the card's name and power limit, and writes them all to
+``--out`` as JSON.  Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+#: chip_smoke.py's float scales at invscale 2, and phase 20's budgets
+INV = 2.0
+BEND = INV / 65536.0
+STEP = INV * (float(0x42000000) / 65536.0 / 65536.0)
+TRACE, TRAIN = dict(budget=512, k_steps=64), dict(budget=256, k_steps=32)
+#: the process groups of 20b and 20c: (world size, mode)
+GROUPS = ((2, "1d"), (4, "1d"), (4, "2d"))
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool, profile: bool = False) -> dict:
+    """One rank's calls on ``mesh``: the trace and the train step, one
+    warm-up and two timed calls each (host clock with a sync), windows,
+    memory above the call's start, the trace's digest and the first loss;
+    with ``profile``, ``torch.profiler`` over each."""
+    import torch
+
+    from volumeraytracer_tpu_torch.parallel import bricks
+
+    sync = torch.cuda.synchronize
+    num = mesh.size(mesh.mesh_dim_names.index("bricks"))
+    count = [0]
+    combine = bricks._combine_window
+
+    def counted(*args):
+        count[0] += 1
+        return combine(*args)
+
+    bricks._combine_window = counted
+    kw = dict(bend_scale=BEND, step_scale=STEP, k_steps=TRACE["k_steps"])
+    if two_d:
+        trace = lambda: bricks.trace_rays_bricked2d(mesh, packed, pos, dirs, TRACE["budget"], **kw)  # noqa: E731
+    else:
+        trace = lambda: bricks.trace_rays_bricked(mesh, packed, pos, dirs, TRACE["budget"], **kw)  # noqa: E731
+    slab = bricks.shard_slabs(mesh, bricks.build_ior_slabs(ior, num)[0])
+    tkw = dict(budget=TRAIN["budget"], invscale=INV, k_steps=TRAIN["k_steps"], lr=lr)
+    if two_d:
+        step = bricks.make_brick_train_step2d(mesh, int(ior.shape[0]) - 2, pos.shape[0], **tkw)
+    else:
+        step = bricks.make_brick_train_step(mesh, int(ior.shape[0]) - 2, **tkw)
+    train = lambda: step(slab, pos, dirs, targets)  # noqa: E731
+
+    out = {}
+    for name, fn in (("trace", trace), ("train", train)):
+        times = []
+        for rep in range(3):
+            count[0] = 0
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            if rep:
+                times.append((time.perf_counter() - t0) * 1e3)
+            else:
+                out[f"{name}_windows"] = count[0]
+                out[f"{name}_mem_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+                if name == "trace":
+                    out["trace_digest"] = _digest(res.end_position, res.end_direction, res.end_iteration)
+                else:
+                    out["loss"] = float(res[1])
+            del res
+        out[f"{name}_ms"] = times
+    if profile:
+        from volumeraytracer_tpu_torch.probes.probe_fixed import _profile
+
+        out["profile"] = {"trace": _profile(torch, trace, reps=2), "train": _profile(torch, train, reps=2)}
+    bricks._combine_window = combine
+    return out
+
+
+def _inputs(tmp: Path, grid: int, n_rays: int) -> None:
+    """Phase 20's fields (the lens and its packed field, as .npy files the
+    ranks map) and rays, with the train step's targets (2 voxels past each
+    ray's end through the whole field, plain) and lr (1e-2 / max|g| of the
+    whole field's gradient), from this checkout."""
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+    import torch
+
+    from volumeraytracer_tpu_torch.ops.fields import build_packed_field
+    from volumeraytracer_tpu_torch.parallel import endpoint_render
+    from volumeraytracer_tpu_torch.workloads import build_scattered_rays
+
+    dev = torch.device("cuda", 0)
+    ax = np.linspace(-1.0, 1.0, grid, dtype=np.float32)
+    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
+    ior_np = 1.0 + 0.5 * np.exp(-4.0 * (x * x + y * y + z * z), dtype=np.float32)
+    del x, y, z
+    ior = torch.from_numpy(ior_np).to(dev)
+    pos_np, dirs_np = build_scattered_rays(n_rays, grid=grid, seed=0)
+    pos, dirs = torch.from_numpy(pos_np).to(dev), torch.from_numpy(dirs_np / 16.0).to(dev)
+    with torch.no_grad():
+        ends, _ = endpoint_render(ior, pos, dirs, TRAIN["budget"], INV, TRAIN["k_steps"], kernel="plain")
+    targets = ends + torch.tensor([2.0, 0.0, 0.0], device=dev)
+    field = ior.clone().requires_grad_()
+    end_pos, _ = endpoint_render(field, pos, dirs, TRAIN["budget"], INV, TRAIN["k_steps"], kernel="plain")
+    ((end_pos - targets) ** 2).sum(-1).mean().backward()
+    lr = 1e-2 / field.grad.abs().max().item()
+    np.save(tmp / "ior.npy", ior_np)
+    np.save(tmp / "packed.npy", build_packed_field(ior).cpu().numpy())
+    torch.save({"pos": pos.cpu(), "dirs": dirs.cpu(), "targets": targets.cpu(), "lr": lr}, tmp / "in.pt")
+
+
+def _load(tmp: Path, dev, packed_on_card: bool):
+    import numpy as np
+    import torch
+
+    data = torch.load(tmp / "in.pt")
+    packed, ior = (torch.from_numpy(np.load(tmp / f"{k}.npy", mmap_mode="c")) for k in ("packed", "ior"))
+    if packed_on_card:
+        packed, ior = packed.to(dev), ior.to(dev)
+    return packed, ior, data["pos"].to(dev), data["dirs"].to(dev), data["targets"].to(dev), data["lr"]
+
+
+def worker(rank: int, world: int, coordinator: str, root: Path, tmp: Path, mode: str) -> None:
+    """One rank of a 20b or 20c group, importing the package from ``root``;
+    its results go to ``tmp/out_MODE_WORLD_RANK.json``."""
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.distributed as dist
+
+    from volumeraytracer_tpu_torch.parallel import init_distributed, make_mesh
+    from volumeraytracer_tpu_torch.parallel.bricks import make_mesh2d
+
+    init_distributed(coordinator_address=coordinator, num_processes=world, process_id=rank, backend="gloo")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh2d(2, 2) if mode == "2d" else make_mesh(axis="bricks")
+    out = _rank_run(mesh, *_load(tmp, dev, False), mode == "2d")
+    (tmp / f"out_{mode}_{world}_{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def _group(root: Path, tmp: Path, world: int, mode: str, timeout: float = 900.0) -> list:
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--worker", str(r), str(world),
+                               coordinator, str(root), str(tmp), mode], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(q.poll() is None for q in procs):
+            if any(q.poll() not in (None, 0) for q in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+            q.wait()
+    bad = [f"rank {r} exited {q.returncode}:\n{q.stdout.read()[-4000:]}" for r, q in enumerate(procs) if q.returncode]
+    if bad:
+        raise SystemExit(f"probe_bricks: {mode} group of {world} failed:\n" + "\n".join(bad))
+    return [json.loads((tmp / f"out_{mode}_{world}_{r}.json").read_text()) for r in range(world)]
+
+
+def child(root: Path, tmp: Path, first: bool) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.distributed as dist
+
+    from volumeraytracer_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(axis="bricks")
+    res = {"20a": _rank_run(mesh, *_load(tmp, dev, True), False, profile=first)}
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    for world, mode in GROUPS:
+        res[f"{mode}_{world}"] = _group(root, tmp, world, mode)
+    return res
+
+
+def _print(label: str, res: dict, card: str) -> None:
+    for key, outs in res.items():
+        if key == "label":
+            continue
+        for r, o in enumerate(outs if isinstance(outs, list) else [outs]):
+            print(f"probe_bricks {label} {key} rank {r}: trace {[round(x, 2) for x in o['trace_ms']]} ms "
+                  f"({o['trace_windows']} windows, {o['trace_mem_gib']:.3f} GiB), train step "
+                  f"{[round(x, 2) for x in o['train_ms']]} ms ({o['train_windows']} windows, "
+                  f"{o['train_mem_gib']:.3f} GiB), loss {o['loss']:.8g} [{card}]")
+            for name, prof in o.get("profile", {}).items():
+                top = ", ".join(f"{d['name'][:40]} {d['ms']:.3f} ms ×{d['launches']:.0f}" for d in prof["device_ops"][:8])
+                print(f"probe_bricks {label} {key} profile {name}: device {prof['device_ms']:.3f} ms, busy share "
+                      f"{prof['busy_share']:.3f}, host {prof['host_ms']:.2f} ms; {top} [{card}]")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--grid", type=int, default=512)
+    ap.add_argument("--rays", type=int, default=131072)
+    ap.add_argument("--parent", type=Path, help="another checkout of the repository, timed in turns with this one")
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--tmp", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--first", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--worker", nargs=6, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker is not None:
+        rank, world, coordinator, root, tmp, mode = args.worker
+        worker(int(rank), int(world), coordinator, Path(root), Path(tmp), mode)
+        return
+    if args.child is not None:
+        print(json.dumps(child(args.child, args.tmp, args.first)))
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_bricks: no CUDA device")
+    if args.parent is not None and not (args.parent / "volumeraytracer_tpu_torch").is_dir():
+        raise SystemExit("--parent must name a checkout that holds volumeraytracer_tpu_torch/")
+    card = _card()
+    print(card)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {str(REPO)!r}); "
+                        f"from volumeraytracer_tpu_torch.probes.probe_bricks import _inputs; "
+                        f"from pathlib import Path; _inputs(Path({tmpdir!r}), {args.grid}, {args.rays})"],
+                       check=True, cwd=str(REPO))
+
+        def run_child(label, root, *flags):
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root.resolve()), "--tmp", tmpdir,
+                   *flags]
+            proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(REPO), timeout=1800,
+                                  env={**os.environ, "PYTHONDONTWRITEBYTECODE": "1"})
+            if proc.returncode != 0:
+                sys.stderr.write(proc.stdout[-5000:] + proc.stderr[-20000:])
+                raise SystemExit(f"probe_bricks: the {label} child failed ({proc.returncode})")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            res["label"] = label
+            _print(label, res, card)
+            return res
+
+        if args.parent is None:
+            runs = [run_child("change", REPO, "--first")]
+        else:
+            runs = [run_child("parent", args.parent), run_child("change", REPO, "--first"),
+                    run_child("change", REPO), run_child("parent", args.parent)]
+    def traces(r):
+        return {k: [o["trace_digest"] for o in (v if isinstance(v, list) else [v])] for k, v in r.items()
+                if k != "label"}
+
+    def losses(r):
+        return [o["loss"] for k, v in sorted(r.items()) if k != "label" for o in (v if isinstance(v, list) else [v])]
+
+    if any(traces(r) != traces(runs[0]) for r in runs):
+        raise SystemExit(f"probe_bricks: the traces differ between versions or runs: {[traces(r) for r in runs]}")
+    ref = losses(runs[0])
+    if any(abs(a - b) > 1e-5 * abs(b) for r in runs for a, b in zip(losses(r), ref)):
+        raise SystemExit(f"probe_bricks: first losses differ beyond rtol 1e-5: {[losses(r) for r in runs]}")
+    print(f"probe_bricks traces equal and first losses within rtol 1e-5 across {len(runs)} runs [{card}]")
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -61,7 +61,8 @@ REPO = Path(__file__).resolve().parents[2]
 #: before F1
 KERNELS = ("line_table_build", "corner_table_build", "march_lines_fwd_path", "march_lines_fwd_capped", "march_lines_fwd",
            "march_lines_bwd", "line_table_fold", "march_points_fwd", "march_points_bwd",
-           "march_fixed_path_wide", "march_fixed_wide", "march_fixed_path", "march_fixed", "render_fwd", "render_bwd")
+           "march_fixed_path_wide", "march_fixed_wide", "march_fixed_path", "march_fixed", "render_fwd", "render_bwd",
+           "march_slab_fwd", "march_slab_bwd")
 #: instruction families counted in K4's SASS
 FAMILIES = ("LDGSTS", "LDG", "STG", "LDS", "STS", "BAR", "LDGDEPBAR", "DEPBAR", "MUFU", "I2F", "F2I")
 

@@ -24,6 +24,11 @@ warm-up (a host clock where the call ends on the host):
   timed on their own, and R1 is timed too as a caller that passes
   neither pays for it (``r1_whole_ms``: the order and the record made in
   the call);
+- R2's field gradients with each set of fields at speed 0.5 against the
+  plain replay's float64 sums (``render_replay_plain``), over ``SUM_RUNS``
+  runs, since the order of R2's atomics changes from run to run: each
+  gradient's largest error a run over its largest value, and the cell of
+  the worst;
 - ``render_image`` (the frame) and ``image_loss``'s value and gradient;
 - the registers, shared memory and spills that ptxas reports for each
   instantiation of R1 and R2 (the child that builds a version's library),
@@ -82,6 +87,8 @@ REPO = Path(__file__).resolve().parents[2]
 BOX_STEPS, BOX_CAP = 8, 240
 #: the define of the build that counts R2's global atomic instructions
 COUNTING = "VRT_COUNT_ATOMICS"
+#: R2's runs held against one plain replay
+SUM_RUNS = 5
 
 #: R1's step in F1's form: a loop over cells holding the loads around a
 #: step loop that loads nothing (the form of render_fwd.cu before its one
@@ -116,10 +123,10 @@ NESTED_R1_LOOP = """  bool have = false, stopped = false;
 #: outputs must equal the source's)
 VARIANTS = (
     ("R2 no packed flush (timing only)", "render_bwd.cu", "vrt_render_bwd",
-     [("      group_flush(np && pk >= 0, pk, 0, acc_p);\n", "")], True),
+     [("      group_flush(np && pk >= 0, pk, acc_p, g_packed, Y, Z, 4);\n", "")], True),
     ("R2 no record flush (timing only)", "render_bwd.cu", "vrt_render_bwd",
-     [("        if (nr && sk >= 0) record_rows();\n        group_flush(nr && sk >= 0, sk, 1, acc_r);\n", "")],
-     True),
+     [("        if (nr && sk >= 0) record_rows();\n"
+       "        group_flush(nr && sk >= 0, sk, acc_r, reinterpret_cast<float*>(g_rec), SY, SZ, 4);\n", "")], True),
     ("R1 nested loops (F1's form)", "render_fwd.cu", "vrt_render_fwd", [(None, NESTED_R1_LOOP)], True),
 )
 
@@ -418,6 +425,21 @@ def child(root: Path, first: bool, width: int) -> dict:
                 rates[f"speed {speed} {label}"] = {"steps": steps, "r1_ms": r1_ms, "r1_whole_ms": r1_whole_ms,
                                                    "r2_ms": r2_ms, "r1": steps / r1_ms / 1e6,
                                                    "r2": steps / r2_ms / 1e6}
+                if speed == 0.5:
+                    ref = rk.render_replay_plain(*b, **kw)
+                    sums = out.setdefault("r2_sums", {})[label] = {}
+                    for _ in range(SUM_RUNS):
+                        got = rk.render_bwd_cuda(*b, **kw, **extra)
+                        for key, a, r in zip(("d packed", "d sigma", "d emission"), got, ref):
+                            if r is None:
+                                continue
+                            err = (a - r).abs()
+                            worst, scale = err.max().item(), r.abs().max().item()
+                            row = sums.setdefault(key, {"scale": scale, "rel": [], "cell": None})
+                            if not row["rel"] or worst / scale > max(row["rel"]):
+                                row["cell"] = [int(v) for v in torch.nonzero(err == worst)[0]]
+                            row["rel"].append(worst / scale)
+                    del ref
                 if counting is not None:
                     out[f"r2_counters speed {speed} {label} {width}^2"] = {
                         "atomics": count_r2(lambda: rk.render_bwd_cuda(*b, **kw, **extra)), "steps": steps}
@@ -539,6 +561,10 @@ def _print(label: str, res: dict, card: str) -> None:
         print(f"probe_render {label} {key}: {r['steps']} steps, R1 {r['r1_ms']:.4f} ms ({r['r1']:.3f} Gsteps/s; "
               f"{r['r1_whole_ms']:.4f} ms making its order and record), R2 {r['r2_ms']:.4f} ms ({r['r2']:.3f} "
               f"Gsteps/s) [{card}]")
+    for fields, sums in res.get("r2_sums", {}).items():
+        print(f"probe_render {label} R2 vs the plain replay's float64 sums, {fields}, {SUM_RUNS} runs: " + "; ".join(
+            f"{key} largest error {min(v['rel']):.3g}-{max(v['rel']):.3g} of {v['scale']:.4g} (worst at "
+            f"{v['cell']})" for key, v in sums.items()) + f" [{card}]")
     for name, p in sorted(res.get("ptxas", {}).items()):
         print(f"probe_render {label} ptxas {name}: {p} [{card}]")
     for loop in res.get("r1_sass", {}).get("loops", []):
