@@ -229,7 +229,8 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      slab's update/lr within rtol 2e-3 / atol 1e-6 of the gradient cell by
      cell, the loss within rtol 1e-5, both steps' losses finite and equal
      on every rank), with S1 launched once a window of the trace, S1 and S2
-     once a window each of the first train step and no other kernel, and
+     once a window each of the first train step and no other kernel, one d
+     slab zeroed in that step's backward (``march_slab.zeroed``), and
      the share of rays that end in another brick than they start (at least
      0.3 for the trace at 4 bricks); on every brick of (a) and (b), S1
      equal to slab_window_plain bit for bit for one trace window from the
@@ -237,9 +238,12 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      slab_window_vjp_plain for one train window and for one window of the
      trace's k_steps (its segmented replay) under seeded cotangents (d
      pos0 and d dir0 within 1e-5 of their largest, d slab within 1e-4 of
-     its largest, its opacity channel zero), with their times, the plain
-     versions', the d slab's zeroing and the add of one d slab into
-     another: (a) world size 1 over NCCL, one brick; (b) 2 and 4 processes
+     its largest, its opacity channel zero), and S2 into a d slab
+     prefilled with seeded values (the prefill plus the window's d slab,
+     within the same 1e-4), with their times, the plain versions', the d
+     slab's zeroing, and the trace window's distinct cells and corner
+     voxels and its cell changes by kind (same cell, face, edge, corner,
+     jump) for the bounds: (a) world size 1 over NCCL, one brick; (b) 2 and 4 processes
      sharing the card over gloo (``chip_smoke.py --phase20-worker``),
      which read their slabs from memory maps of the fields that the main
      process writes once, every rank's trace equal bit for bit and the
@@ -1774,20 +1778,39 @@ def _p20_events(fn, reps=3):
     return start.elapsed_time(stop) / reps
 
 
-def _p20_cells(ms, slab, state, args, k_steps) -> int:
-    """The distinct slab cells whose corners a window's executed steps read
-    (the plain steps, one at a time): a lower bound of the voxels moved."""
+def _p20_cells(ms, slab, state, args, k_steps) -> dict:
+    """What a window's executed steps read (the plain steps, one at a
+    time): the distinct slab cells whose corners they sample, the distinct
+    corner voxels (the union of those cells' 8 corners: the least the
+    window reads), and the steps by how each one's cell (the clamped base
+    cell, per axis) follows the ray's cell before: "first" (none before),
+    "same", "face" (one axis by one), "edge", "corner", "jump" (any axis by
+    more than one)."""
     import torch
 
     offset, cells, s = args[4], [], tuple(state)
     spatial = torch.tensor(slab.shape[:3], device=slab.device)
+    held = torch.full_like(s[0], -9, dtype=torch.int64)
+    kinds = dict.fromkeys(("first", "same", "face", "edge", "corner", "jump"), 0)
     for _ in range(k_steps):
         nxt = ms._slab_step(s, slab, *args)
         moved = nxt[2] < s[2]
         base = torch.minimum(torch.floor(s[0][moved] - offset).to(torch.int64).clamp(min=0), spatial - 2)
+        d = base - held[moved]
+        axes, far = (d != 0).sum(1), (d.abs() > 1).any(1)
+        first = held[moved][:, 0] < 0
+        kinds["first"] += int(first.sum())
+        rest = ~first
+        kinds["jump"] += int((rest & far).sum())
+        for name, k in (("same", 0), ("face", 1), ("edge", 2), ("corner", 3)):
+            kinds[name] += int((rest & ~far & (axes == k)).sum())
+        held[moved] = base
         cells.append((base[:, 0] * spatial[1] + base[:, 1]) * spatial[2] + base[:, 2])
         s = nxt
-    return int(torch.unique(torch.cat(cells)).numel())
+    cells = torch.unique(torch.cat(cells))
+    corners = [(a * spatial[1] + b) * spatial[2] + c for a in (0, 1) for b in (0, 1) for c in (0, 1)]
+    voxels = torch.unique(torch.cat([cells + int(o) for o in corners]))
+    return {"cells": int(cells.numel()), "voxels": int(voxels.numel()), "kinds": kinds}
 
 
 def _p20_kernels(group, num, my, packed, ior_slab, pos, dirs) -> dict:
@@ -1800,10 +1823,13 @@ def _p20_kernels(group, num, my, packed, ior_slab, pos, dirs) -> dict:
     and d dir0 within 1e-5 of their largest plain value and d slab within
     1e-4 of its largest, its opacity channel zero, and the same for a window
     of the trace's k_steps, longer than S2's stash, so that its segmented
-    replay runs (some ray must execute more steps than the stash holds).  Times (CUDA events):
-    S1, S2 with its zeroing, the zeroing alone, the add of a d slab into
-    another (autograd's sum over windows), and the plain versions (one
-    call each); the executed steps and distinct cells for the bounds."""
+    replay runs (some ray must execute more steps than the stash holds);
+    S2 into a d slab prefilled with seeded values, which must come back as
+    the prefill plus the window's d slab within the same 1e-4.  Times (CUDA
+    events): S1, S2 into a d slab it is given (the train step zeroes one a
+    step, not one a window), the zeroing alone, and the plain versions
+    (one call each); the executed steps, cells and corner voxels for the
+    bounds (``_p20_cells``)."""
     import torch
 
     from volumeraytracer_tpu_torch.kernels import _build
@@ -1834,7 +1860,7 @@ def _p20_kernels(group, num, my, packed, ior_slab, pos, dirs) -> dict:
         if name == "start":
             out["s1_ms"] = _p20_events(lambda: ms.slab_window_cuda(slab, st, *args, k))
             out["s1_plain_ms"] = _p20_events(lambda: ms.slab_window_plain(slab, st, *args, k), reps=1)
-            out["s1_cells"] = _p20_cells(ms, slab, st, args, k)
+            out["s1_read"] = _p20_cells(ms, slab, st, args, k)
     del mid, got, ref
 
     kt = P20_TRAIN["k_steps"]
@@ -1858,9 +1884,19 @@ def _p20_kernels(group, num, my, packed, ior_slab, pos, dirs) -> dict:
     if bool(got[2][..., 3].any()):
         raise AssertionError(f"S2 brick {my} of {num}: the opacity channel has a gradient")
     out.update(s2_err=max(errs), s2_rel=[e / max(b.abs().max().item(), 1e-30) for e, b in zip(errs, ref)],
-               s2_steps=int((st[2] - end[2]).sum()), s2_cells=_p20_cells(ms, tslab, st, args, kt),
+               s2_steps=int((st[2] - end[2]).sum()), s2_read=_p20_cells(ms, tslab, st, args, kt),
                slab_bytes_packed=tslab.numel() * 4)
-    del ref
+    # S2 into a prefilled d slab: seeded values at the window's d slab's
+    # scale, so that the sums round as the zeroed one's do
+    top = ref[2].abs().max().item()
+    prefill = torch.randn(tslab.shape, generator=gen, device=dev) * top
+    got_p = ms.slab_window_bwd_cuda(tslab, st, end[2], *args, kt, d_pos, d_dir, d_slab=prefill.clone())
+    err = (got_p[2] - (prefill + ref[2])).abs().max().item()
+    if not err <= 1e-4 * top or not torch.equal(got_p[2][..., 3], prefill[..., 3]):
+        raise AssertionError(f"S2 brick {my} of {num} into a prefilled d slab: max err {err:.3g} beyond 1e-4 of the "
+                             f"window's largest {top:.3g}, or the opacity channel moved")
+    out["s2_prefill_rel"] = err / max(top, 1e-30)
+    del ref, prefill, got_p
     # S2 over a window longer than its stash (the trace's k_steps), so that
     # its segmented replay runs: the kept states, the segments last first
     stash = int(_build.load().vrt_march_slab_stash())
@@ -1882,10 +1918,10 @@ def _p20_kernels(group, num, my, packed, ior_slab, pos, dirs) -> dict:
         raise AssertionError(f"S2 brick {my} of {num}, k_steps {k}: the opacity channel has a gradient")
     out.update(s2_seg_rel=seg_rel, s2_seg_steps=seg_steps)
     del end_k, got_k, ref_k
-    out["s2_ms"] = _p20_events(lambda: ms.slab_window_bwd_cuda(tslab, st, end[2], *args, kt, d_pos, d_dir))
+    d_slab = got[2]
+    out["s2_ms"] = _p20_events(lambda: ms.slab_window_bwd_cuda(tslab, st, end[2], *args, kt, d_pos, d_dir,
+                                                               d_slab=d_slab))
     out["zero_ms"] = _p20_events(lambda: torch.zeros_like(tslab))
-    acc = torch.zeros_like(tslab)
-    out["add_ms"] = _p20_events(lambda: acc.add_(got[2]))
     return out
 
 
@@ -1899,7 +1935,7 @@ def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dic
     import torch
     import torch.distributed as dist
 
-    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import _build, march_slab
     from volumeraytracer_tpu_torch.parallel import bricks
 
     sync = torch.cuda.synchronize
@@ -1936,6 +1972,7 @@ def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dic
         step = bricks.make_brick_train_step(mesh, x_packed, **tkw)
     windows[0] = 0
     _build.launches.clear()
+    march_slab.zeroed.clear()
     sync()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1951,6 +1988,7 @@ def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dic
             out["update"] = (slab - new).cpu()
             out["train_windows"] = windows[0]
             out["train_launches"] = dict(_build.launches)
+            out["train_zeroed"] = march_slab.zeroed["d_slab"]
     out["train_mem"] = torch.cuda.max_memory_allocated() - base
     out.update(step_ms=step_ms, losses=losses, slab_bytes=slab.numel() * 4,
                strips=(new[:bricks.IOR_OVERLAP].cpu(), new[-bricks.IOR_OVERLAP:].cpu()))
@@ -2136,12 +2174,12 @@ def phase20(dev, card) -> dict:
 
     def check_launches(name, o):
         """S1 once a window of the trace; S1 and S2 once a window each of the
-        first train step; no other kernel."""
+        first train step; no other kernel; one d slab zeroed in that step."""
         want = ({"march_slab_fwd": o["trace_windows"]},
                 {"march_slab_fwd": o["train_windows"], "march_slab_bwd": o["train_windows"]})
-        if (o["trace_launches"], o["train_launches"]) != want:
-            raise AssertionError(f"{name}: launches trace {o['trace_launches']}, train step {o['train_launches']}; "
-                                 f"want {want[0]}, {want[1]}")
+        if (o["trace_launches"], o["train_launches"]) != want or o["train_zeroed"] != 1:
+            raise AssertionError(f"{name}: launches trace {o['trace_launches']}, train step {o['train_launches']}, "
+                                 f"d slabs zeroed {o['train_zeroed']}; want {want[0]}, {want[1]}, 1")
 
     def report(name, outs):
         gmax = g_full.abs().max().item()
@@ -2153,17 +2191,22 @@ def phase20(dev, card) -> dict:
                   f"{o['slab_bytes']} B slab's strips {[round(x, 3) for x in o['exchange_ms']]} ms (host clock); "
                   f"max_memory_allocated above the call's start: trace {o['trace_mem'] / 2**30:.3f} GiB, train "
                   f"{o['train_mem'] / 2**30:.3f} GiB; backend {o.get('backend', 'nccl')}; launches trace "
-                  f"{o['trace_launches']}, first step {o['train_launches']} {card}")
+                  f"{o['trace_launches']}, first step {o['train_launches']}, d slabs zeroed {o['train_zeroed']} "
+                  f"{card}")
             if "s1_ms" in o:
                 print(f"phase 20 {name} rank {r} S1: one trace window (k_steps {P20_TRACE['k_steps']}) equal to "
                       f"slab_window_plain bit for bit from the start ({o['s1_start_steps']} executed steps) and "
                       f"from two windows in ({o['s1_mid_steps']}); {o['s1_ms']:.4f} ms, plain "
-                      f"{o['s1_plain_ms']:.2f} ms; {o['s1_cells']} distinct cells. S2: one train window (k_steps "
+                      f"{o['s1_plain_ms']:.2f} ms; {o['s1_read']['cells']} distinct cells, "
+                      f"{o['s1_read']['voxels']} distinct corner voxels, executed steps by cell change "
+                      f"{o['s1_read']['kinds']}. S2: one train window (k_steps "
                       f"{P20_TRAIN['k_steps']}, {o['s2_steps']} executed steps) within bounds of "
                       f"slab_window_vjp_plain (d pos0, d dir0, d slab max err over their largest "
-                      f"{[float(f'{x:.3g}') for x in o['s2_rel']]}); {o['s2_ms']:.4f} ms with the d slab's zeroing "
-                      f"({o['zero_ms']:.4f} ms alone; adding a d slab into another {o['add_ms']:.4f} ms; "
-                      f"{o['slab_bytes_packed']} B), plain {o['s2_plain_ms']:.2f} ms (host clock); over a window of "
+                      f"{[float(f'{x:.3g}') for x in o['s2_rel']]}; into a prefilled d slab "
+                      f"{o['s2_prefill_rel']:.3g}); {o['s2_ms']:.4f} ms into a given d slab (zeroing one "
+                      f"{o['zero_ms']:.4f} ms, {o['slab_bytes_packed']} B, once a train step), plain "
+                      f"{o['s2_plain_ms']:.2f} ms (host clock); {o['s2_read']['cells']} distinct cells, "
+                      f"{o['s2_read']['voxels']} corner voxels; over a window of "
                       f"k_steps {P20_TRACE['k_steps']} (segmented replay, up to {o['s2_seg_steps']} executed steps a "
                       f"ray) max err over the largest {[float(f'{x:.3g}') for x in o['s2_seg_rel']]} {card}")
         print(f"phase 20 {name}: gradient max err {max(o['grad_err'] for o in outs):.3g} (max|g| {gmax:.3g}), "
@@ -2183,16 +2226,27 @@ def phase20(dev, card) -> dict:
     n_rays = pos.shape[0]
     # the bounds of S1's and S2's timed windows: operations over executed
     # steps; bytes the ray state in and out (S1 33 B each way a ray; S2 64 B
-    # in, 24 out), the distinct cells read (16 B each, at least), and S2's
-    # whole d slab written
+    # in, 24 out) and the distinct corner voxels read (16 B each), and for
+    # S2 the d slab records its atomics touch, those same voxels, each read
+    # and written once (the d slab is zeroed once a train step, outside
+    # S2).  The bounds counted distinct cells (16 B each) and S2 the whole
+    # d slab written before S2 took a d slab: printed beside them once.
+    s1v, s2v = o["s1_read"]["voxels"], o["s2_read"]["voxels"]
     r20 = {
         "s1_launches": o["trace_launches"], "s2_launches": o["train_launches"],
         "s1_err": 0.0, "s2_err": o["s2_err"], "s1": o["s1_ms"], "s1_plain": o["s1_plain_ms"], "s2": o["s2_ms"],
         "s2_plain": o["s2_plain_ms"],
-        "s1_bound": kernel_bound(SLAB_OPS * o["s1_start_steps"], 66 * n_rays + 16 * o["s1_cells"]),
-        "s2_bound": kernel_bound(SLAB_BWD_OPS * o["s2_steps"],
-                                 88 * n_rays + 16 * o["s2_cells"] + o["slab_bytes_packed"]),
+        "s1_bound": kernel_bound(SLAB_OPS * o["s1_start_steps"], 66 * n_rays + 16 * s1v),
+        "s2_bound": kernel_bound(SLAB_BWD_OPS * o["s2_steps"], 88 * n_rays + 48 * s2v),
     }
+    before = (kernel_bound(SLAB_OPS * o["s1_start_steps"], 66 * n_rays + 16 * o["s1_read"]["cells"]),
+              kernel_bound(SLAB_BWD_OPS * o["s2_steps"],
+                           88 * n_rays + 16 * o["s2_read"]["cells"] + o["slab_bytes_packed"]))
+    print(f"phase 20a bounds: S1 {r20['s1_bound'][0]:.4f} ms ({r20['s1_bound'][1]}: {s1v} corner voxels; counted "
+          f"by distinct cells before, {o['s1_read']['cells']}: {before[0][0]:.4f} ms), S2 {r20['s2_bound'][0]:.4f} ms "
+          f"({r20['s2_bound'][1]}: {s2v} corner voxels read and their d slab records read and written; before, "
+          f"{o['s2_read']['cells']} cells and the whole {o['slab_bytes_packed']} B d slab written: "
+          f"{before[1][0]:.4f} ms)")
     del o
     # the workers allocate on the same card: hand back what this process's
     # caching allocator keeps from the earlier phases

@@ -16,6 +16,12 @@ Usage: _torch_dist_worker.py <job> <init> <world> <rank> <in.npz> <out.npz>
   * ``bricks_fwd``: ``trace_rays_bricked`` over all ranks as bricks, and
     ``trace_rays_bricked2d`` on ``make_mesh2d`` at each (rays, bricks)
     shape of ``shapes2d``; writes each result's fields;
+  * ``bricks_host``: one ``make_brick_train_step`` step at lr 1 over all
+    ranks as bricks on the plain route, then on S1 and S2 compiled for the
+    host (tests/test_torch_slab_kernel.py's library, loaded from the path
+    whose UTF-8 bytes are ``host_lib``, the card's stream calls stubbed), whose march is
+    ``bricks._SlabMarch``; writes both updates and losses, the windows and
+    the kernels' launches and d slabs zeroed;
   * ``bricks_train``: ``init_distributed(coordinator_address=<init>,
     ...)``, then for each ray case ("near", "cross") one step at lr 1 of
     ``make_brick_train_step`` over all ranks as bricks and of
@@ -23,8 +29,8 @@ Usage: _torch_dist_worker.py <job> <init> <world> <rank> <in.npz> <out.npz>
     steps of the first; then tests/test_multihost.py's step on
     ``make_host_mesh``; writes the slabs and losses.
 
-``init`` is a ``file://`` store for ``trace``, ``train`` and
-``bricks_fwd`` (the group is started with
+``init`` is a ``file://`` store for ``trace``, ``train``, ``bricks_fwd``
+and ``bricks_host`` (the group is started with
 ``torch.distributed.init_process_group``) and a ``host:port`` coordinator
 for ``multihost`` and ``bricks_train``.  Imports nothing of jax.
 """
@@ -98,6 +104,9 @@ def bricks_job(job, init, world, rank, data):
                                               data["pos2d"], data["dirs2d"], int(data["budget"]), **kw)
             out.update({f"{n_r}x{n_b}_{f}": getattr(res, f) for f in fields})
         return out
+    if job == "bricks_host":
+        dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+        return bricks_host(world, data)
 
     info = shard.init_distributed(coordinator_address=init, num_processes=world, process_id=rank, device="cpu")
     out["info"] = torch.tensor([info["process_index"], info["process_count"], info["global_devices"]])
@@ -127,6 +136,51 @@ def bricks_job(job, init, world, rank, data):
         mh, data["mh_pos"], data["mh_dirs"], data["mh_target"])
     out["mh_shape"] = torch.tensor(tuple(host.shape))
     out["mh_same_shape"] = torch.tensor(new.shape == mh.shape)
+    return out
+
+
+def bricks_host(world, data):
+    """The ``bricks_host`` job on a started group (see the module doc)."""
+    import contextlib
+    import ctypes
+    import types
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import march_slab as ms
+    from volumeraytracer_tpu_torch.parallel import bricks, shard
+
+    mesh = shard.make_mesh(axis="bricks", device="cpu")
+    ior = data["ior"]
+    slab = bricks.shard_slabs(mesh, bricks.build_ior_slabs(ior, world)[0])
+    kw = dict(budget=int(data["budget"]), invscale=float(data["invscale"]), k_steps=int(data["k_steps"]), lr=1.0)
+    rays = (data["pos"], data["dirs"], data["target"])
+    windows = [0]
+    combine = bricks._combine_window
+
+    def counted(*args):
+        windows[0] += 1
+        return combine(*args)
+
+    bricks._combine_window = counted
+    out = {}
+    new, out["plain_loss"] = bricks.make_brick_train_step(mesh, ior.shape[0] - 2, **kw)(slab, *rays)
+    out["plain_g"] = slab - new
+    lib = ctypes.CDLL(bytes(data["host_lib"].numpy()).decode())
+    for name in ("vrt_march_slab_fwd", "vrt_march_slab_bwd", "vrt_march_slab_stash"):
+        getattr(lib, name).argtypes, getattr(lib, name).restype = _build._SIGNATURES[name], ctypes.c_int
+    _build._lib = lib
+    ms._require_cuda = lambda name, slab: None
+    ms.use_kernels = lambda device, dim: dim == 3
+    torch.cuda.device = lambda d: contextlib.nullcontext()
+    torch.cuda.current_stream = lambda: types.SimpleNamespace(cuda_stream=None)
+    _build.launches.clear()
+    ms.zeroed.clear()
+    windows[0] = 0
+    new, out["kernel_loss"] = bricks.make_brick_train_step(mesh, ior.shape[0] - 2, **kw)(slab, *rays)
+    out["kernel_g"] = slab - new
+    out["windows"] = torch.tensor(windows[0])
+    out["launches"] = torch.tensor([_build.launches["march_slab_fwd"], _build.launches["march_slab_bwd"],
+                                    ms.zeroed["d_slab"]])
     return out
 
 

@@ -10,10 +10,18 @@ brick's range, at k_steps below and above S2's stash.  The kernels' CUDA
 sources are compiled for the host with g++ (tests/
 test_torch_render_kernel.py's ``HOST_SHIM``) and held against the plain
 versions: S1 bit for bit, S2 within chip_smoke.py phase 20's bounds, and
-through the brick path's trace and train step at world size 1.  The route
-(CPU and 2-D slabs run the plain loop) is checked without a card.
+through the brick path's trace and train step at world size 1.  Rays made
+to change cell in every way (across each face both ways, an edge, a
+corner, a jump, back into the cell just left, in the slab's boundary
+cells) hold the kernels' face reuse to the same bounds, S2 also adding
+into a prefilled d slab.  The train step's one-Function route
+(``bricks._SlabMarch``: one d slab a step) is held against the route of
+the checkpointed plain window a window, at world size 1 (the end state bit
+for bit, the gradients within S2's bounds) and in 3 gloo processes.  The route (CPU and 2-D slabs run the plain loop) is checked
+without a card.
 """
 
+import collections
 import contextlib
 import ctypes
 import re
@@ -31,6 +39,7 @@ import jax.numpy as jnp
 
 from test_bricks import _smooth_ior
 from test_torch_render_kernel import HOST_SHIM
+from test_torch_shard import _run_group
 from volumeraytracer_tpu.parallel import bricks as jax_bricks
 from volumeraytracer_tpu_torch.kernels import _build
 from volumeraytracer_tpu_torch.kernels import march_slab as ms
@@ -289,34 +298,177 @@ def test_host_kernels_on_a_mid_trace_state(inputs, on_host):
             _assert_s2_close(kern, ms.slab_window_vjp_plain(slab, state, 1, NUM, xs, *consts4, k_steps, d_pos, d_dir))
 
 
-def test_slab_window_diff_on_the_cpu_equals_the_checkpointed_loop(inputs, on_host):
-    """``slab_window_diff`` (``_SlabWindow``: S1 forward, S2 backward) on CPU
-    tensors through the host-compiled kernels: the end state equal to the
-    checkpointed plain loop's (the brick path's CPU route) bit for bit, and
-    the gradients of a loss on the end position and direction to the start
-    and to the slab within phase 20's bounds of autograd's through it; one
-    launch of each kernel."""
-    slab, xs = inputs["slabs"][0], inputs["xs"]
-    consts4 = _consts(inputs["packed"], 0, xs)
-    w_pos, w_dir = (torch.from_numpy(a) for a in _cotangents(inputs["rays"][0].shape[0], 9))
-    grads = []
-    for route in ("diff", "checkpoint"):
-        pos, dirs, rem, alive = _state(inputs["rays"])
-        pos.requires_grad_()
-        dirs.requires_grad_()
-        s = slab.clone().requires_grad_()
-        if route == "diff":
-            end = ms.slab_window_diff(s, (pos, dirs, rem, alive), 0, NUM, xs, *consts4, 45)
-        else:
-            end = torch.utils.checkpoint.checkpoint(
-                lambda *st: ms.slab_window_plain(s, st, 0, NUM, xs, *consts4, 45), pos, dirs, rem, alive,
-                use_reentrant=False)
-        ((end[0] * w_pos).sum() + (end[1] * w_dir).sum()).backward()
-        grads.append((end, pos.grad, dirs.grad, s.grad))
-    (e0, *g0), (e1, *g1) = grads
-    assert all(torch.equal(a, b) for a, b in zip(e0, e1))
-    _assert_s2_close(g0, g1)
-    assert dict(_build.launches) == {"march_slab_fwd": 1, "march_slab_bwd": 1}
+#: the fields of the cell-change tests: "faces", a random packed field
+#: whose bend channels are equal within a voxel (so a ray along a diagonal
+#: keeps equal coordinates and crosses edges and corners exactly) and
+#: differ from voxel to voxel (so a corner in the wrong slot shows); and
+#: "well", the same with a steep restoring bend across the face x = 12,
+#: which sends rays back into the cell they left
+FACE_FIELDS = ("faces", "well")
+
+
+def _face_packed(field: str) -> np.ndarray:
+    """The (22, 22, 22, 4) packed field of ``field``, opacity never
+    positive."""
+    rng = np.random.default_rng(11)
+    r = (rng.normal(size=(GRID - 2,) * 3) * 400.0).astype(np.float32)
+    bx = r
+    if field == "well":
+        x = np.arange(GRID - 2, dtype=np.float32)[:, None, None]
+        bx = r - 3e5 * np.clip(x - 12.0, -1.0, 1.0)
+    return np.stack([bx, r, r, np.full_like(r, -32768.0)], -1).astype(np.float32)
+
+
+def _face_rays(field: str, seed=3):
+    """Seeded start states (numpy, as ``_rays``) that change cell in each
+    way.  "faces": along ±x, ±y and ±z; along (1, 1, 1), (−1, −1, −1),
+    (1, 1, 0) and (0, −1, −1) from points with equal coordinates in brick
+    1 (the slab frame shifts x by 7 there, exactly); along the y and z
+    boundary cells of the slab and along y in the first and last cells a
+    brick owns; fast rays (|d| ~ 0.25, a step of ~2 voxels).  "well":
+    rays just short of x = 12 heading slowly across it."""
+    rng = np.random.default_rng(seed)
+    pos, dirs = [], []
+    if field == "faces":
+        for axis in range(3):
+            for sign in (1.0, -1.0):
+                d = np.zeros((4, 3))
+                d[:, axis] = sign
+                pos.append(rng.uniform(3.0, 18.0, (4, 3)))
+                dirs.append(d)
+        c = np.array([8.5, 9.5, 10.5, 12.5])
+        for p, d in (((c, c, c), (1.0, 1.0, 1.0)), ((c + 3.0, c + 3.0, c + 3.0), (-1.0, -1.0, -1.0)),
+                     ((c, c, rng.uniform(3.0, 18.0, 4)), (1.0, 1.0, 0.0)),
+                     ((rng.uniform(3.0, 18.0, 4), c, c), (0.0, -1.0, -1.0))):
+            pos.append(np.stack(p, 1))
+            dirs.append(np.tile(d, (4, 1)))
+        b = rng.uniform(3.0, 18.0, (8, 3))
+        b[:4, 1] = rng.uniform(0.05, 0.95, 4)
+        b[4:, 2] = rng.uniform(GRID - 3.95, GRID - 3.05, 4)
+        pos.append(b)
+        dirs.append(np.tile([1.0, 0.0, 0.0], (8, 1)))
+        b = rng.uniform(3.0, 18.0, (4, 3))
+        b[:, 0] = [8.02, 15.98, 16.01, 7.99]
+        pos.append(b)
+        dirs.append(np.tile([0.0, 1.0, 0.0], (4, 1)))
+        pos.append(rng.uniform(3.0, 18.0, (4, 3)))
+        dirs.append(rng.normal(size=(4, 3)) * 0.15)
+    else:
+        pos.append(np.stack([np.full(8, 11.95), rng.uniform(3.0, 10.0, 8), rng.uniform(3.0, 18.0, 8)], 1))
+        dirs.append(np.tile([0.1, 1.0, 0.0], (8, 1)))
+    pos, dirs = np.concatenate(pos).astype(np.float32), np.concatenate(dirs).astype(np.float32)
+    n = pos.shape[0]
+    return pos, dirs, rng.integers(30, 80, n).astype(np.int64), np.ones(n, bool)
+
+
+def _cell_changes(slab, state, args, k_steps) -> collections.Counter:
+    """The plain window's executed steps by how each one's cell (the
+    clamped base cell, per axis) follows the ray's cell before: "first",
+    "same", "face ±x" (and y, z), "edge", "corner", "jump", and "reenter"
+    for a move back into the cell the ray just left; and the boundary
+    cells sampled ("y 0", "y last", "z 0", "z last", "x last")."""
+    offset, s = args[4], tuple(state)
+    last = torch.tensor(slab.shape[:3]) - 2
+    n = s[0].shape[0]
+    held, before = torch.full((n, 3), -9), torch.full((n, 3), -9)
+    kinds = collections.Counter()
+    for _ in range(k_steps):
+        nxt = ms._slab_step(s, slab, *args)
+        cells = torch.minimum(torch.floor(s[0] - offset).to(torch.int64).clamp(min=0), last)
+        for i in torch.nonzero(nxt[2] < s[2]).flatten().tolist():
+            cell, d = cells[i], cells[i] - held[i]
+            axes = torch.nonzero(d).flatten().tolist()
+            if held[i, 0] < 0:
+                kinds["first"] += 1
+            elif not axes:
+                kinds["same"] += 1
+            elif int(d.abs().max()) > 1:
+                kinds["jump"] += 1
+            elif len(axes) == 1:
+                kinds[f"face {'+' if d[axes[0]] > 0 else '-'}{'xyz'[axes[0]]}"] += 1
+            else:
+                kinds["edge" if len(axes) == 2 else "corner"] += 1
+            if axes and torch.equal(cell, before[i]):
+                kinds["reenter"] += 1
+            for a, name in ((1, "y"), (2, "z")):
+                kinds[f"{name} 0"] += int(cell[a] == 0)
+                kinds[f"{name} last"] += int(cell[a] == last[a])
+            kinds["x last"] += int(cell[0] == last[0])
+            if axes:
+                before[i], held[i] = held[i].clone(), cell
+        s = nxt
+    return kinds
+
+
+def _face_case(field, brick):
+    packed = torch.from_numpy(_face_packed(field))
+    slabs, xs = bricks.build_packed_slabs(packed, NUM)
+    return slabs[brick].contiguous(), (brick, NUM, xs, *_consts(packed.numpy(), brick, xs)), _face_rays(field)
+
+
+def test_face_rays_make_every_kind_of_cell_change():
+    """The cell-change tests' rays do what they promise, counted on the
+    plain window at the longer k_steps over the three bricks: every face
+    crossed both ways, edges and corners crossed, jumps, same-cell steps
+    and the boundary cells in "faces"; re-entries in "well"."""
+    got = {}
+    for field in FACE_FIELDS:
+        got[field] = collections.Counter()
+        for brick in range(NUM):
+            slab, args, rays = _face_case(field, brick)
+            got[field] += _cell_changes(slab, _state(rays), args, K_STEPS[1])
+    want = ["same", "edge", "corner", "jump", "y 0", "y last", "z 0", "z last", "x last"]
+    want += [f"face {s}{a}" for s in "+-" for a in "xyz"]
+    assert all(got["faces"][k] > 0 for k in want), got["faces"]
+    assert got["well"]["reenter"] > 0, got["well"]
+
+
+@pytest.mark.parametrize("brick", range(NUM))
+@pytest.mark.parametrize("field", FACE_FIELDS)
+def test_s1_on_every_kind_of_cell_change_equals_the_plain_window(field, brick, on_host):
+    """S1 from its source on the cell-change rays, at k_steps below and
+    above the stash: the end state equal to ``slab_window_plain``'s bit
+    for bit (a corner moved to a wrong slot, or a face's corner not
+    loaded, would show in the bend)."""
+    slab, args, rays = _face_case(field, brick)
+    state = _state(rays)
+    for k_steps in K_STEPS:
+        got = ms.slab_window_cuda(slab, state, *args, k_steps)
+        ref = ms.slab_window_plain(slab, state, *args, k_steps)
+        for a, b, name in zip(got, ref, ("pos", "dir", "remaining", "alive")):
+            assert torch.equal(a, b), (name, k_steps)
+
+
+@pytest.mark.parametrize("k_steps", K_STEPS)
+@pytest.mark.parametrize("brick", range(NUM))
+@pytest.mark.parametrize("field", FACE_FIELDS)
+def test_s2_on_every_kind_of_cell_change_into_zeroed_and_prefilled_d_slabs(field, brick, k_steps, on_host):
+    """S2 from its source on the cell-change rays (its recompute and walk
+    reuse a face's corners, and its walk carries the 4 shared corners'
+    sums across a face): within phase 20's bounds of
+    ``slab_window_vjp_plain`` into a zeroed d slab, and into a d slab
+    prefilled with seeded values, where it must return the prefill plus
+    the window's d slab (the opacity channel as prefilled)."""
+    slab, args, rays = _face_case(field, brick)
+    state = _state(rays)
+    end = ms.slab_window_cuda(slab, state, *args, k_steps)
+    if brick == 1:
+        assert int((state[2] - end[2]).max()) > (32 if k_steps > 32 else 0), "no ray outran the stash"
+    d_pos, d_dir = (torch.from_numpy(a) for a in _cotangents(state[0].shape[0], 30 + brick))
+    plain = ms.slab_window_vjp_plain(slab, state, *args, k_steps, d_pos, d_dir)
+    ms.zeroed.clear()
+    _assert_s2_close(ms.slab_window_bwd_cuda(slab, state, end[2], *args, k_steps, d_pos, d_dir), plain)
+    assert ms.zeroed["d_slab"] == 1
+    scale = float(plain[2].abs().max())
+    prefill = torch.from_numpy(np.random.default_rng(brick).normal(size=slab.shape).astype(np.float32)) * scale
+    d_slab = prefill.clone()
+    got = ms.slab_window_bwd_cuda(slab, state, end[2], *args, k_steps, d_pos, d_dir, d_slab=d_slab)
+    assert got[2] is d_slab and ms.zeroed["d_slab"] == 1
+    for a, b, name in zip(got[:2], plain[:2], ("d pos0", "d dir0")):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=TOL_START * float(b.abs().max()), err_msg=name)
+    np.testing.assert_allclose(got[2].numpy(), (prefill + plain[2]).numpy(), rtol=0, atol=TOL_SLAB * scale,
+                               err_msg="d slab")
+    assert torch.equal(got[2][..., 3], prefill[..., 3])
 
 
 def test_wrappers_raise_off_the_card(inputs, monkeypatch):
@@ -350,6 +502,8 @@ def test_wrappers_raise_off_the_card(inputs, monkeypatch):
         ms.slab_window_cuda(slab, state, 0, NUM, xs, *consts4, -1)
     with pytest.raises(ValueError, match="int64"):
         ms.slab_window_bwd_cuda(slab, state, state[2].int(), 0, NUM, xs, *consts4, 4, z, z)
+    with pytest.raises(ValueError, match="d_slab"):
+        ms.slab_window_bwd_cuda(slab, state, state[2], 0, NUM, xs, *consts4, 4, z, z, d_slab=slab.double())
     assert ms.use_kernels(torch.device("cuda", 0), 3)
     assert not ms.use_kernels(torch.device("cuda", 0), 2)
     assert not ms.use_kernels("cpu", 3)
@@ -431,3 +585,99 @@ def test_host_kernels_through_the_brick_path(single_group, on_host, monkeypatch)
     assert torch.equal(kern["loss"], plain["loss"])
     np.testing.assert_allclose(kern["update"].numpy(), plain["update"].numpy(), rtol=2e-3, atol=1e-6)
     assert float(plain["update"].abs().max()) > 1e-4
+
+
+def test_one_function_route_against_the_per_window_route(single_group, on_host, monkeypatch):
+    """The train step on the host-compiled kernels at world size 1, through
+    ``_SlabMarch``, against the per-window route (the plain window under
+    ``checkpoint`` and the autograd combine a window): the losses equal,
+    the updates within rtol 2e-3 / atol 1e-6; S1 and S2 once a window each;
+    one d slab zeroed for the step, and S2 handed that same tensor in every
+    window."""
+    plain = _brick_calls(single_group, False)
+    monkeypatch.setattr(ms, "use_kernels", lambda device, dim: dim == 3)
+    bwd = ms.slab_window_bwd_cuda
+    d_slabs = []
+
+    def recording(*args, **kw):
+        out = bwd(*args, **kw)
+        d_slabs.append(out[2].data_ptr())
+        return out
+
+    monkeypatch.setattr(ms, "slab_window_bwd_cuda", recording)
+    _build.launches.clear()
+    ms.zeroed.clear()
+    one = _brick_calls(single_group, False)
+    w = one["train_windows"]
+    assert w >= 2 and w == plain["train_windows"]
+    assert dict(_build.launches) == {"march_slab_fwd": one["trace_windows"] + w, "march_slab_bwd": w}
+    assert len(d_slabs) == w and len(set(d_slabs)) == 1
+    assert ms.zeroed["d_slab"] == 1
+    assert torch.equal(one["loss"], plain["loss"])
+    np.testing.assert_allclose(one["update"].numpy(), plain["update"].numpy(), rtol=2e-3, atol=1e-6)
+    assert float(plain["update"].abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("k_steps", K_STEPS)
+@pytest.mark.parametrize("num,my", [(1, 0), (NUM, 1)])
+def test_slab_window_diff_on_the_cpu_equals_the_checkpointed_loop(num, my, k_steps, inputs, single_group, on_host,
+                                                                  monkeypatch):
+    """The differentiable windowed march (``bricks._march_bricked_diff``) at
+    world size 1 through ``_SlabMarch`` on the host-compiled kernels,
+    against the checkpointed plain window a window (the brick path's CPU
+    route): the end state equal bit for bit, and the gradients of a seeded
+    loss on the end position and direction to the start position, the
+    start direction and the packed slab within phase 20's bounds of S2
+    (1e-5, 1e-5 and 1e-4 of their largest).  On the whole field as one
+    brick (rays over several windows) and on the middle one of 3 bricks
+    (the owner mask, rays handed on at its faces); k_steps below and above
+    S2's stash."""
+    group = bricks._mesh_axis(single_group, "bricks")[0]
+    packed = torch.from_numpy(inputs["packed"])
+    slabs, xs = bricks.build_packed_slabs(packed, num)
+    rays = _rays(seed=11)
+    w_pos, w_dir = (torch.from_numpy(a) for a in _cotangents(rays[0].shape[0], 9))
+    results = {}
+    for route in ("plain", "kernels"):
+        if route == "kernels":
+            monkeypatch.setattr(ms, "use_kernels", lambda device, dim: dim == 3)
+            _build.launches.clear()
+        pos, dirs = (torch.from_numpy(a.copy()).requires_grad_() for a in rays[:2])
+        slab = slabs[my].clone().requires_grad_()
+        end = bricks._march_bricked_diff(slab, my, num, xs, tuple(packed.shape[:3]), pos, dirs, 100, BEND, STEP,
+                                         k_steps, group)
+        ((end.pos * w_pos).sum() + (end.direction * w_dir).sum()).backward()
+        results[route] = (tuple(t.detach() for t in end), (pos.grad, dirs.grad, slab.grad))
+    (e_plain, g_plain), (e_kern, g_kern) = results["plain"], results["kernels"]
+    for a, b, name in zip(e_kern, e_plain, ("pos", "dir", "remaining", "alive")):
+        assert torch.equal(a, b), name
+    _assert_s2_close(g_kern, g_plain)
+    assert float(g_plain[2].abs().max()) > 0.0
+    windows = _build.launches["march_slab_fwd"]
+    assert windows >= 2 and dict(_build.launches) == {"march_slab_fwd": windows, "march_slab_bwd": windows}
+
+
+def test_one_function_route_across_three_gloo_ranks(host_kernels, tmp_path):
+    """The train step in 3 gloo processes (tests/_torch_dist_worker.py's
+    ``bricks_host``, which loads the host-compiled kernels by their path)
+    through ``_SlabMarch`` against the plain route of the same processes:
+    each rank's loss within rtol 1e-5 and equal on every rank, and its
+    update (lr 1) within tests/test_torch_bricks.py's gradient bounds of
+    the plain route's (rtol 2e-3, atol 1e-5 of the largest: rays cross
+    brick faces); S1 and S2 once a window each, one d slab zeroed."""
+    ior = np.array(_smooth_ior((34, 10, 10)))
+    rng = np.random.default_rng(4)
+    pos = np.stack([np.full(24, 1.5), rng.uniform(2.0, 6.0, 24), rng.uniform(2.0, 6.0, 24)], -1).astype(np.float32)
+    dirs = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (24, 1))
+    inputs = dict(ior=ior, pos=pos, dirs=dirs, target=pos + np.float32(30.0), budget=64, k_steps=8, invscale=2.0,
+                  host_lib=np.frombuffer(host_kernels._name.encode(), np.uint8))
+    outs = _run_group("bricks_host", 3, inputs, tmp_path)
+    gmax = max(float(np.abs(o["plain_g"]).max()) for o in outs)
+    assert gmax > 0.0
+    for rank, o in enumerate(outs):
+        np.testing.assert_allclose(o["kernel_g"], o["plain_g"], rtol=2e-3, atol=1e-5 * gmax, err_msg=f"rank {rank}")
+        np.testing.assert_allclose(float(o["kernel_loss"]), float(o["plain_loss"]), rtol=1e-5)
+        assert o["kernel_loss"] == outs[0]["kernel_loss"]
+        w = int(o["windows"])
+        assert w >= 2 and o["launches"].tolist() == [w, w, 1], (rank, o["launches"])
+    assert any(np.abs(o["plain_g"]).max() > 0 for o in outs[1:]), "no gradient reached bricks 1-2"

@@ -18,8 +18,8 @@
 //   u = v + g * bend;  ilen = 1 / |u|^2         (as the forward computed)
 //   t = sum_i step_i u_i xb_i
 //   ub = vb + step * ilen * xb - 2 u ilen^2 t
-//   h = bend * ub;  xb = xb + sum_o (dw_o/dl)(C_o[0:3] . h);  vb = ub
-//   d slab[corner o][0:3] += w_o h
+//   e = bend * ub;  xb = xb + sum_o (dw_o/dl)(C_o[0:3] . e);  vb = ub
+//   d slab[corner o][0:3] += w_o e
 //
 // and writes d x0 = xb, d v0 = vb.  A ray with no executed step (frozen,
 // dead, or another brick's) passes its cotangents through.  A window
@@ -27,16 +27,24 @@
 // state at every STASH-th step in `ckpt` (the wrapper's scratch, one (n, 6)
 // row block a segment after the first), then each segment, the last
 // first, is recomputed from its kept state into the stash and walked back.
-// The corner gradients of the cell the walk is in stay in registers and go
-// to the zeroed d slab with one float4 atomicAdd a corner when the walk
-// leaves the cell (K3's flush); channel 3, the opacity, which enters only
-// through > 0, gets none.  The gradient sums are float atomics, in an
-// order that changes from run to run.
+// The corner gradients of the cell the walk is in stay in registers.
+// When the walk crosses a face into a neighbour, the 4 corners the cells
+// share keep their sums (moved to their new slots) and only the 4 left
+// behind go to d slab, one float4 atomicAdd a corner; any other move
+// flushes all 8 (K3's flush).  Channel 3, the opacity, which enters only
+// through > 0, gets none.  The recomputed steps and the walk fetch corners
+// as S1 does (march_slab.cuh:fetch_corners).  The gradient sums are float
+// atomics, in an order that changes from run to run.  S2 adds into the d
+// slab it is given: the brick path's differentiable march
+// (parallel/bricks.py:_SlabMarch) zeroes one a train step and every
+// window's S2 adds into it.
 //
-// What bounds it on the H100: the d slab, a full (xs + 2, Y', Z', 4)
-// float32 output that the wrapper zeroes, is bytes (2.13 GB at 512^3 on
-// one brick); the replay is operations, chip_smoke.py's SLAB_BWD_OPS an
-// executed step (the recomputed step's 109 and its adjoint's 275).
+// What bounds it on the H100: bytes, the distinct corner voxels its
+// executed steps read and the d slab records its atomics touch (read and
+// written), and the ray state; the replay's chip_smoke.py SLAB_BWD_OPS an
+// executed step (the recomputed step's 109 and its adjoint's 275) are the
+// lesser bound at phase 20's size.  The stash lives in local memory: 24 B
+// written and read back an executed step.
 
 #include "march_slab.cuh"
 
@@ -50,13 +58,18 @@ constexpr int THREADS = 128;
 // executed steps a segment holds in its per-thread stash (local memory)
 constexpr int STASH = 32;
 
-__device__ __forceinline__ void flush(float4* __restrict__ g, long long cell, int s1, int s2, float (&acc)[24]) {
-  if (cell < 0) return;
+// a corner's gradient sums, channels 0-2
+struct Grad3 {
+  float x, y, z;
+};
+
+// Adds the sums of the corners in `mask` of cell (a0, a1, a2) into d slab.
+__device__ __forceinline__ void flush(float4* __restrict__ g, int a0, int a1, int a2, int s1, int s2,
+                                      unsigned mask, const Grad3 (&acc)[8]) {
+  const long long cell = slab::flat(a0, a1, a2, s1, s2);
 #pragma unroll
-  for (int o = 0; o < 8; ++o) {
-    atomicAdd(g + cell + slab::corner(o, s1, s2), make_float4(acc[3 * o], acc[3 * o + 1], acc[3 * o + 2], 0.0f));
-    acc[3 * o] = acc[3 * o + 1] = acc[3 * o + 2] = 0.0f;
-  }
+  for (int o = 0; o < 8; ++o)
+    if (mask >> o & 1u) atomicAdd(g + cell + slab::corner(o, s1, s2), make_float4(acc[o].x, acc[o].y, acc[o].z, 0.0f));
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -79,19 +92,17 @@ march_slab_bwd_kernel(const float4* __restrict__ s, int s0, int s1, int s2, cons
 
   if (nexec > 0) {
     const slab::Consts k = slab::load_consts(consts);
-    // the corners of one cell, and that cell (-1: none): the recomputed
+    // the corners of one cell, and that cell on each axis: the recomputed
     // steps' and the walk's
     float4 c[8];
-    long long ck = -1;
+    int h0 = slab::NONE, h1 = 0, h2 = 0;
     // one recomputed step from (p, v): S1's arithmetic
     auto advance = [&](float& px, float& py, float& pz, float& vx, float& vy, float& vz) {
       const float lx = px - k.ox, ly = py - k.oy, lz = pz - k.oz;
       const float f0 = floorf(lx), f1 = floorf(ly), f2 = floorf(lz);
-      const long long base = slab::base_cell(f0, f1, f2, s0, s1, s2);
-      if (base != ck) {
-        ck = base;
-        slab::load_corners(s, ck, s1, s2, c);
-      }
+      int i0, i1, i2;
+      slab::base_cell(f0, f1, f2, s0, s1, s2, i0, i1, i2);
+      slab::fetch_corners(s, s1, s2, i0, i1, i2, h0, h1, h2, c);
       float w[8];
       slab::move(k, slab::sample(c, lx, ly, lz, f0, f1, f2, w), px, py, pz, vx, vy, vz);
     };
@@ -107,10 +118,11 @@ march_slab_bwd_kernel(const float4* __restrict__ s, int s0, int s1, int s2, cons
     }
 
     float stash[STASH][6];
-    float acc[24];
+    // the corner gradients of cell (a0, a1, a2)
+    Grad3 acc[8];
 #pragma unroll
-    for (int q = 0; q < 24; ++q) acc[q] = 0.0f;
-    long long ak = -1;  // the cell whose corner gradients acc holds
+    for (int o = 0; o < 8; ++o) acc[o] = {0.0f, 0.0f, 0.0f};
+    int a0 = slab::NONE, a1 = 0, a2 = 0;
     for (long long seg = segs - 1; seg >= 0; --seg) {
       float px, py, pz, vx, vy, vz;
       if (seg == 0) {
@@ -130,14 +142,19 @@ march_slab_bwd_kernel(const float4* __restrict__ s, int s0, int s1, int s2, cons
       for (int j = m - 1; j >= 0; --j) {
         const float lx = stash[j][0] - k.ox, ly = stash[j][1] - k.oy, lz = stash[j][2] - k.oz;
         const float f0 = floorf(lx), f1 = floorf(ly), f2 = floorf(lz);
-        const long long base = slab::base_cell(f0, f1, f2, s0, s1, s2);
-        if (base != ck) {
-          ck = base;
-          slab::load_corners(s, ck, s1, s2, c);
-        }
-        if (base != ak) {
-          flush(gslab, ak, s1, s2, acc);
-          ak = base;
+        int i0, i1, i2;
+        slab::base_cell(f0, f1, f2, s0, s1, s2, i0, i1, i2);
+        slab::fetch_corners(s, s1, s2, i0, i1, i2, h0, h1, h2, c);
+        const int mv = slab::cell_move(a0, a1, a2, i0, i1, i2);
+        if (mv != 0) {
+          // the shared corners' sums move on, the others go to d slab
+          const unsigned fresh = slab::fresh_corners(mv);
+          if (a0 != slab::NONE) flush(gslab, a0, a1, a2, s1, s2, mv == slab::JUMP ? 0xFFu : 0xFFu ^ fresh, acc);
+          slab::shift_face(acc, mv);
+#pragma unroll
+          for (int o = 0; o < 8; ++o)
+            if (fresh >> o & 1u) acc[o] = {0.0f, 0.0f, 0.0f};
+          a0 = i0; a1 = i1; a2 = i2;
         }
         const float fx = lx - f0, fy = ly - f1, fz = lz - f2;
         float w[8];
@@ -159,23 +176,23 @@ march_slab_bwd_kernel(const float4* __restrict__ s, int s0, int s1, int s2, cons
         const float ubx = bx + k.sx * ilen * ax - 2.0f * ux * il2 * tt;
         const float uby = by + k.sy * ilen * ay - 2.0f * uy * il2 * tt;
         const float ubz = bz + k.sz * ilen * az - 2.0f * uz * il2 * tt;
-        const float h0 = k.ex * ubx, h1 = k.ey * uby, h2 = k.ez * ubz;
+        const float e0 = k.ex * ubx, e1 = k.ey * uby, e2 = k.ez * ubz;
         float Gx = 0.0f, Gy = 0.0f, Gz = 0.0f;
 #pragma unroll
         for (int o = 0; o < 8; ++o) {
-          const float mo = c[o].x * h0 + c[o].y * h1 + c[o].z * h2;
+          const float mo = c[o].x * e0 + c[o].y * e1 + c[o].z * e2;
           Gx = Gx + dwx[o] * mo;
           Gy = Gy + dwy[o] * mo;
           Gz = Gz + dwz[o] * mo;
-          acc[3 * o] = acc[3 * o] + w[o] * h0;
-          acc[3 * o + 1] = acc[3 * o + 1] + w[o] * h1;
-          acc[3 * o + 2] = acc[3 * o + 2] + w[o] * h2;
+          acc[o].x = acc[o].x + w[o] * e0;
+          acc[o].y = acc[o].y + w[o] * e1;
+          acc[o].z = acc[o].z + w[o] * e2;
         }
         ax = ax + Gx; ay = ay + Gy; az = az + Gz;
         bx = ubx; by = uby; bz = ubz;
       }
     }
-    flush(gslab, ak, s1, s2, acc);
+    flush(gslab, a0, a1, a2, s1, s2, 0xFFu, acc);
   }
 
   dpos0[3 * i] = ax; dpos0[3 * i + 1] = ay; dpos0[3 * i + 2] = az;
@@ -188,8 +205,8 @@ march_slab_bwd_kernel(const float4* __restrict__ s, int s0, int s1, int s2, cons
 // cudaErrorInvalidValue before any launch for a slab of fewer than 2 cells
 // on an axis.  The start state is S1's input (positions and directions
 // (n, 3) float32, remaining (n,) int64), rem1 S1's remaining out, the
-// cotangents (n, 3) float32, k_steps S1's; gslab the zeroed (s0, s1, s2, 4) float32
-// gradient; ckpt (ceil(k_steps / STASH) - 1, n, 6) float32 scratch, null
+// cotangents (n, 3) float32, k_steps S1's; gslab the (s0, s1, s2, 4)
+// float32 gradient that S2 adds into; ckpt (ceil(k_steps / STASH) - 1, n, 6) float32 scratch, null
 // where k_steps <= STASH.
 extern "C" int vrt_march_slab_bwd(const void* slab, int s0, int s1, int s2, const void* consts, const void* pos0,
                                   const void* dir0, const void* rem0, const void* rem1, const void* dpos,

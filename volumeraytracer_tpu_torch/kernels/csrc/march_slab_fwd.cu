@@ -31,11 +31,16 @@
 // plain step in its order (-fmad=false, IEEE division), so the end state
 // equals slab_window_plain's bit for bit on the card.
 //
-// What bounds it on the H100: operations, as K2's: a step is
-// chip_smoke.py's SLAB_OPS float32 operations on a cell's corners, which
-// stay in registers while the ray stays in the cell (the cache below), and
-// the ray state moved is 33 bytes in and out a ray.  The loop's length is
-// the data's: rays that other bricks own leave at once.
+// What bounds it on the H100: bytes, the distinct corner voxels a window
+// reads (16 B each, chip_smoke.py's _p20_cells) and the ray state, 33
+// bytes in and out a ray; its SLAB_OPS float32 operations a step are the
+// lesser bound at phase 20's size.  Scattered rays read the slab at random, so a
+// corner costs about one DRAM access, and a ray changes cell every ~2
+// steps, mostly across a face.  So each thread keeps its cell's 8 corners
+// in registers (march_slab.cuh:fetch_corners): the same cell loads none,
+// a face neighbour the 4 it does not share, an edge, corner or longer
+// move all 8.  The loop's length is the data's: rays that other bricks
+// own leave at once.
 
 #include "march_slab.cuh"
 
@@ -64,9 +69,9 @@ march_slab_fwd_kernel(const float4* __restrict__ s, int s0, int s1, int s2, cons
   const slab::Consts k = slab::load_consts(consts);
   const float lo = my == 0 ? -INFINITY : (float)(my * xs);
   const float hi = my == num - 1 ? INFINITY : (float)((my + 1) * xs);
-  // the corners of the cell the ray is in, and that cell (-1: none)
+  // the corners of the cell the ray is in, and that cell on each axis
   float4 c[8];
-  long long ck = -1;
+  int h0 = slab::NONE, h1 = 0, h2 = 0;
 
   for (int step = 0; step < k_steps; ++step) {
     const float fx = floorf(px);
@@ -78,11 +83,9 @@ march_slab_fwd_kernel(const float4* __restrict__ s, int s0, int s1, int s2, cons
     }
     const float lx = px - k.ox, ly = py - k.oy, lz = pz - k.oz;
     const float f0 = floorf(lx), f1 = floorf(ly), f2 = floorf(lz);
-    const long long base = slab::base_cell(f0, f1, f2, s0, s1, s2);
-    if (base != ck) {
-      ck = base;
-      slab::load_corners(s, ck, s1, s2, c);
-    }
+    int i0, i1, i2;
+    slab::base_cell(f0, f1, f2, s0, s1, s2, i0, i1, i2);
+    slab::fetch_corners(s, s1, s2, i0, i1, i2, h0, h1, h2, c);
     float w[8];
     const float4 g = slab::sample(c, lx, ly, lz, f0, f1, f2, w);
     if (g.w > 0.0f) {  // opaque

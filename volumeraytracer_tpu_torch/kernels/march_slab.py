@@ -1,5 +1,5 @@
-"""S1 and S2: the brick path's window march on the card, its adjoint, their
-wrappers and plain versions, and the differentiable window.
+"""S1 and S2: the brick path's window march on the card, its adjoint, and
+their wrappers and plain versions.
 
 The JAX package runs a window of the brick-sharded march
 (``volumeraytracer_tpu/parallel/bricks.py:_window_fn``, a ``fori_loop`` of
@@ -14,12 +14,14 @@ slab (their sources say what bounds them):
   ``slab_window_plain``, the loop of ``_slab_step``.
 * S2 (``csrc/march_slab_bwd.cu``, launch count ``march_slab_bwd``): the
   window's adjoint, from the window's start state, recomputing the
-  executed steps.  Its plain version is ``slab_window_vjp_plain``, autograd
-  through ``slab_window_plain``.
+  executed steps, added into a d slab it is given.  Its plain version is
+  ``slab_window_vjp_plain``, autograd through ``slab_window_plain``.
 
-``_SlabWindow`` runs S1 forward and S2 backward; ``slab_window_diff``
-applies it.  The ``*_cuda`` wrappers launch their kernel on CUDA tensors
-and raise on anything else.  ``use_kernels`` is the brick path's route: CUDA tensors of
+The ``*_cuda`` wrappers launch their kernel on CUDA tensors and raise on
+anything else; the brick path's differentiable march
+(``parallel/bricks.py:_SlabMarch``) runs S1 a window forward and S2 a
+window backward into one d slab (``new_d_slab``, counted in
+``zeroed``).  ``use_kernels`` is the brick path's route: CUDA tensors of
 a 3-D slab take the kernels, everything else the plain loop.  A window's
 state is the tuple (position (N, dim) float32, direction (N, dim)
 float32, remaining (N,) int64, alive (N,) bool) of
@@ -28,13 +30,16 @@ float32, remaining (N,) int64, alive (N,) bool) of
 
 from __future__ import annotations
 
+import collections
 from typing import Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from ..ops.interp import interp_linear
 from . import _build, march_lines
+
+#: d slabs zeroed (``new_d_slab``) since the last ``clear()``, under "d_slab"
+zeroed: collections.Counter = collections.Counter()
 
 
 def use_kernels(device, dim: int) -> bool:
@@ -177,16 +182,25 @@ def slab_window_cuda(slab, state, my: int, num: int, xs: int, bounds_m1, offset,
     return out
 
 
+def new_d_slab(slab) -> torch.Tensor:
+    """A zeroed gradient of ``slab`` for S2 to add into, counted in
+    ``zeroed["d_slab"]``."""
+    zeroed["d_slab"] += 1
+    return torch.zeros_like(slab)
+
+
 def slab_window_bwd_cuda(slab, state, end_remaining, my: int, num: int, xs: int, bounds_m1, offset, bend, step,
-                         k_steps: int, d_pos, d_dir):
+                         k_steps: int, d_pos, d_dir, d_slab=None):
     """S2: ``slab_window_vjp_plain``'s result for the window S1 marched from
     ``state`` to a state whose remaining budget is ``end_remaining`` (N,)
     int64, under the cotangents ``d_pos``, ``d_dir`` (N, 3) float32: (d
     position, d direction at the start, d slab), one launch on the current
-    stream, d slab zeroed and the segments' scratch allocated here.  S2
-    reads the start's position, direction and remaining and no alive bit
-    (a ray's executed steps are the budget it spent), so ``state`` may end
-    after the remaining.  Raises ``ValueError`` as S1's wrapper."""
+    stream, the segments' scratch allocated here.  The window's d slab is
+    added into ``d_slab`` (the slab's shape, float32, contiguous), which is
+    returned; without one, a new zeroed one (``new_d_slab``).  S2 reads the
+    start's position, direction and remaining and no alive bit (a ray's
+    executed steps are the budget it spent), so ``state`` may end after the
+    remaining.  Raises ``ValueError`` as S1's wrapper."""
     _require_cuda("march_slab_bwd", slab)
     device = slab.device
     pos, direction, remaining = tuple(state)[:3]
@@ -194,12 +208,14 @@ def slab_window_bwd_cuda(slab, state, end_remaining, my: int, num: int, xs: int,
     _build.check_tensor("end_remaining", end_remaining, torch.int64, (n,), device)
     _build.check_tensor("d_pos", d_pos, torch.float32, (n, 3), device)
     _build.check_tensor("d_dir", d_dir, torch.float32, (n, 3), device)
+    if d_slab is None:
+        d_slab = new_d_slab(slab)
+    _build.check_tensor("d_slab", d_slab, torch.float32, slab.shape, device)
     consts = _consts(bounds_m1, offset, bend, step, device)
     lib = _build.load()
     stash = int(lib.vrt_march_slab_stash())
     segs = -(-k_steps // stash)
     ckpt = torch.empty((segs - 1, n, 6), dtype=torch.float32, device=device) if segs > 1 else None
-    d_slab = torch.zeros_like(slab)
     d_pos0, d_dir0 = torch.empty_like(d_pos), torch.empty_like(d_dir)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -211,39 +227,3 @@ def slab_window_bwd_cuda(slab, state, end_remaining, my: int, num: int, xs: int,
     _build.check(rc, "march_slab_bwd")
     _build.launches["march_slab_bwd"] += 1
     return d_pos0, d_dir0, d_slab
-
-
-class _SlabWindow(torch.autograd.Function):
-    """S1 forward, S2 backward: inputs the window's start position,
-    direction, remaining and alive, the slab and the window's constants;
-    outputs the end state, the position and direction carrying gradients
-    to the start's and the slab (its opacity channel none)."""
-
-    @staticmethod
-    def forward(ctx, pos, direction, remaining, alive, slab, my, num, xs, bounds_m1, offset, bend, step, k_steps):
-        ctx.args = (my, num, xs, bounds_m1, offset, bend, step, k_steps)
-        end = slab_window_cuda(slab, (pos, direction, remaining, alive), *ctx.args)
-        ctx.save_for_backward(slab, pos, direction, remaining, end[2])
-        ctx.mark_non_differentiable(end[2], end[3])
-        ctx.set_materialize_grads(False)
-        return end
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, d_pos, d_dir, _d_remaining, _d_alive):
-        slab, pos, direction, remaining, end_remaining = ctx.saved_tensors
-        d_pos = torch.zeros_like(pos) if d_pos is None else d_pos.contiguous()
-        d_dir = torch.zeros_like(direction) if d_dir is None else d_dir.contiguous()
-        d_pos0, d_dir0, d_slab = slab_window_bwd_cuda(slab, (pos, direction, remaining), end_remaining, *ctx.args,
-                                                      d_pos, d_dir)
-        return (d_pos0, d_dir0, None, None, d_slab) + (None,) * 8
-
-
-def slab_window_diff(slab, state, my: int, num: int, xs: int, bounds_m1, offset, bend, step, k_steps: int):
-    """The differentiable window through S1 and S2, on CUDA tensors:
-    ``slab_window_plain``'s arguments and result, the end position and
-    direction carrying gradients to the start's and to the slab.  The
-    state's tensors are made contiguous here."""
-    pos, direction, remaining, alive = (t.contiguous() for t in state)
-    return _SlabWindow.apply(pos, direction, remaining, alive, slab.contiguous(), my, num, xs, bounds_m1, offset,
-                             bend, step, k_steps)

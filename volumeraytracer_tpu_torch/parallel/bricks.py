@@ -49,9 +49,12 @@ from the JAX package, all from torch's idiom:
 
 The window's local steps (``kernels/march_slab.py``) run as S1, a CUDA
 kernel, on a CUDA 3-D slab: every window of ``trace_rays_bricked``,
-``trace_rays_bricked2d`` and both train steps is one S1 launch, and in
-the train steps every window's backward one S2 launch, the window's
-adjoint from its start state; the combine, the all_reduce and the halo
+``trace_rays_bricked2d`` and both train steps is one S1 launch.  The
+train steps' march is then one ``autograd.Function`` over all its
+windows (``_SlabMarch``), whose backward zeroes one d slab and runs one
+S2 launch a window, the window's adjoint from its start state, adding
+into it (a window each with its own d slab would zero and add a
+slab-sized tensor a window).  The combine, the all_reduce and the halo
 exchange stay plain torch.  On CPU tensors and 2-D slabs the steps are
 the plain torch loop, under ``torch.utils.checkpoint`` when
 differentiable.  Every rank of a group must make
@@ -66,6 +69,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.autograd.function import once_differentiable
 
 from ..kernels import march_slab
 from ..kernels.march_slab import _owned_mask
@@ -219,24 +223,81 @@ def _combine_window(owned0: torch.Tensor, end: BrickState, group) -> BrickState:
 def _window_fn(state: BrickState, slab, my, num, xs, bounds_m1, offset, bend, step, k_steps, group,
                remat: bool = False) -> BrickState:
     """One window: ``k_steps`` local steps, then the combine.  On a CUDA 3-D
-    slab the steps are S1, and with ``remat`` the differentiable window
-    whose backward is S2 (``kernels/march_slab.py``); elsewhere the plain
-    loop, under ``checkpoint`` when ``remat`` (autograd keeps the window's
-    start state and recomputes the steps in the backward).  The combine
-    stays outside either."""
+    slab the steps are S1 (``kernels/march_slab.py``), with no gradient:
+    the differentiable march takes ``_SlabMarch`` there.  Elsewhere the
+    plain loop, under ``checkpoint`` when ``remat`` (autograd keeps the
+    window's start state and recomputes the steps in the backward).  The
+    combine stays outside either."""
     owned0 = _owned_mask(state.pos[..., 0], my, num, xs)
     args = (my, num, xs, bounds_m1, offset, bend, step, k_steps)
     if march_slab.use_kernels(slab.device, state.pos.shape[-1]):
-        if remat:
-            end = march_slab.slab_window_diff(slab, state, *args)
-        else:
-            end = march_slab.slab_window_cuda(slab, tuple(t.contiguous() for t in state), *args)
+        end = march_slab.slab_window_cuda(slab, tuple(t.contiguous() for t in state), *args)
     elif remat:
         end = torch.utils.checkpoint.checkpoint(lambda *s: march_slab.slab_window_plain(slab, s, *args), *state,
                                                 use_reentrant=False)
     else:
         end = march_slab.slab_window_plain(slab, state, *args)
     return _combine_window(owned0, BrickState(*end), group)
+
+
+class _SlabMarch(torch.autograd.Function):
+    """The differentiable windowed march on S1 and S2: inputs the start
+    position, direction and remaining, the slab, the window's constants,
+    the group and the most windows; outputs the end state, its position
+    and direction carrying gradients to the start's and to the slab.
+
+    Forward: ``_run_windows`` over ``_window_fn`` (S1, the combine and its
+    all_reduce, one host sync a window), keeping each window's start
+    position, direction and remaining.  Backward, the windows last first:
+    the cotangent of the combined position and direction all_reduced over
+    the group (psum's transpose, as ``_AllReduceSum.backward``), masked by
+    the window's ``owned0``, then S2 from the window's start into the one d
+    slab zeroed for the whole march: one all_reduce a window, last window
+    first (``make_brick_train_step``'s ×num derivation)."""
+
+    @staticmethod
+    def forward(ctx, pos, direction, remaining, slab, my, num, xs, consts, k_steps, group, max_windows):
+        starts = []
+
+        def window(s):
+            starts.append(s)
+            return _window_fn(s, slab, my, num, xs, *consts, k_steps, group)
+
+        end = _run_windows(_start_state(pos, direction, remaining), window, max_windows)
+        ctx.args = (my, num, xs, *consts, k_steps)
+        ctx.group, ctx.windows = group, len(starts)
+        ctx.save_for_backward(slab, end.remaining, *(t for s in starts for t in s[:3]))
+        ctx.mark_non_differentiable(end.remaining, end.alive)
+        ctx.set_materialize_grads(False)
+        return tuple(end)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_pos, d_dir, _d_remaining, _d_alive):
+        slab, end_remaining, *saved = ctx.saved_tensors
+        if ctx.windows == 0:
+            return (d_pos, d_dir) + (None,) * 9
+        my, num, xs = ctx.args[:3]
+        d_pos = torch.zeros_like(saved[0]) if d_pos is None else d_pos
+        d_dir = torch.zeros_like(saved[1]) if d_dir is None else d_dir
+        dim = d_pos.shape[-1]
+        d_slab = march_slab.new_d_slab(slab)
+        # each window's remaining at its start, then the march's end
+        remaining = saved[2::3] + [end_remaining]
+        for w in reversed(range(ctx.windows)):
+            pos, direction, rem0 = saved[3 * w:3 * w + 3]
+            buf = torch.cat([d_pos, d_dir], dim=1)
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.group)
+            owned0 = _owned_mask(pos[:, 0], my, num, xs)
+            # S1 moved only the rays this rank owned at the start: elsewhere
+            # the executed steps are none
+            rem1 = torch.where(owned0, remaining[w + 1], rem0)
+            owned0 = owned0[:, None]
+            d_pos = torch.where(owned0, buf[:, :dim], 0.0)
+            d_dir = torch.where(owned0, buf[:, dim:], 0.0)
+            d_pos, d_dir, _ = march_slab.slab_window_bwd_cuda(
+                slab, (pos.contiguous(), direction.contiguous(), rem0), rem1, *ctx.args, d_pos, d_dir, d_slab=d_slab)
+        return (d_pos, d_dir, None, d_slab) + (None,) * 7
 
 
 def _slab_offset(my: int, xs: int, dim: int, device) -> torch.Tensor:
@@ -348,6 +409,9 @@ def _march_bricked_diff(slab_packed, my, num, xs, bounds, pos, dirs, budget, ben
     num_windows = -(-budget // k_steps) + num + 2
     consts = _march_consts(bounds, my, xs, bend, step, pos.shape[-1], pos.device)
     remaining = torch.full(pos.shape[:1], budget - 1, dtype=torch.int64, device=pos.device)
+    if march_slab.use_kernels(slab_packed.device, pos.shape[-1]):
+        return BrickState(*_SlabMarch.apply(pos, dirs, remaining, slab_packed.contiguous(), my, num, xs, consts,
+                                            k_steps, group, num_windows))
 
     def window(s):
         return _window_fn(s, slab_packed, my, num, xs, *consts, k_steps, group, remat=True)
@@ -469,7 +533,10 @@ def make_brick_train_step(
         Σ_d m_d ⊙ x̄ reassembles x̄ exactly: no further factor.
 
     Hence the slab gradients carry exactly one global ×num, whatever the
-    window count.  Overlap cells additionally have their true gradient
+    window count.  On the kernels' route the march is one
+    ``autograd.Function`` (``_SlabMarch``), whose backward all_reduces the
+    combined state's cotangent once a window, last window first, and masks
+    it with the same ``m_d``: the derivation holds as written.  Overlap cells additionally have their true gradient
     split across the two slab copies; the halo exchange reassembles it:
     (g_d + g_neighbour)/num is the exact physical gradient.
 

@@ -24,12 +24,28 @@ one warm-up call and two timed ones:
   2 rays × 2 bricks (``trace_rays_bricked2d``, ``make_brick_train_step2d``):
   each rank's times.
 
-The first child of this checkout also profiles 20a's trace and train step
-(``torch.profiler``, ``probe_fixed._profile``: device time by operation,
-busy share, idle gaps, host time by operation).  Fails unless every
-child's traces (end position, direction and iterations) are equal, bit
-for bit, to the first child's, and its first losses within rtol 1e-5 of
-them (phase 20's bound for the loss).  Prints one line a
+Every child also times S1 and S2 alone at 20a's size on one brick (CUDA
+events, the mean of 5 calls after a warm-up): S1 over one trace window
+(k_steps 64) and S2 over one train window (k_steps 32) from the start
+state, over phase 20's scattered rays and over a coherent set (362² rays
+from x = 2 along +x, bench.py's layout scaled to the grid), S2 both as
+the version's wrapper runs it without a d slab (zeroing a new one) and,
+where the wrapper takes one, into a given d slab; the zeroing of a d
+slab and the add of one into another alone; the executed steps and S2's
+stash bytes (24 B written and read back an executed step).  The first
+child of each version also builds its S1 and S2 sources alone for
+ptxas' registers, stack frame and spills, and profiles 20a's trace and
+train step (``torch.profiler``, ``probe_fixed._profile``: device time by
+operation, busy share, idle gaps, host time by operation).  With
+``--parent``, the first child of this checkout also builds the parent's
+S1 and S2 sources alone and times them against its own in ``PAIRS``
+alternating pairs over both ray sets (S2 into a given d slab on both
+sides), and prints each side's median and quartiles.
+Fails unless every child's traces (end position, direction and
+iterations), S1's end states and S2's d pos0 and d dir0 are equal, bit
+for bit, to the first child's, its first losses within rtol 1e-5 of
+them (phase 20's bound for the loss), and every paired call's S1 end
+state, or S2's d pos0 and d dir0, to this checkout's.  Prints one line a
 measurement with the card's name and power limit, and writes them all to
 ``--out`` as JSON.  Needs one CUDA device.
 """
@@ -37,9 +53,12 @@ measurement with the card's name and power limit, and writes them all to
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
+import inspect
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -55,6 +74,8 @@ STEP = INV * (float(0x42000000) / 65536.0 / 65536.0)
 TRACE, TRAIN = dict(budget=512, k_steps=64), dict(budget=256, k_steps=32)
 #: the process groups of 20b and 20c: (world size, mode)
 GROUPS = ((2, "1d"), (4, "1d"), (4, "2d"))
+#: alternating parent/change pairs of S1 and S2 alone with ``--parent``
+PAIRS = 12
 
 
 def _card() -> str:
@@ -137,6 +158,147 @@ def _rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool, profile: b
     return out
 
 
+def _ptxas(log: str) -> dict:
+    """ptxas -v output of one slab kernel's build: registers, stack frame
+    and spill bytes."""
+    out = {}
+    for key, pat in (("registers", r"Used (\d+) registers"), ("stack_frame", r"(\d+) bytes stack frame"),
+                     ("spill_stores", r"(\d+) bytes spill stores"), ("spill_loads", r"(\d+) bytes spill loads")):
+        m = re.findall(pat, log)
+        out[key] = int(m[-1]) if m else None
+    return out
+
+
+def _build_alone(_build, tmp: Path, tag: str, csrc: Path, src: str):
+    """``src`` (march_slab_fwd.cu or march_slab_bwd.cu) of the checkout whose
+    kernel sources are ``csrc``, with its header, built alone with this
+    version's nvcc flags: (its C function, ptxas' report)."""
+    d = tmp / tag
+    d.mkdir(parents=True)
+    for name in ("march_slab.cuh", src):
+        (d / name).write_text((csrc / name).read_text())
+    so = d / "lib.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(d / src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {tag}:\n{proc.stdout}{proc.stderr}")
+    name = "vrt_" + src[:-3]
+    fn = getattr(ctypes.CDLL(str(so)), name)
+    fn.argtypes, fn.restype = _build._SIGNATURES[name], ctypes.c_int
+    return fn, _ptxas(proc.stdout + proc.stderr)
+
+
+def _events(torch, fn, reps=5) -> float:
+    """Mean ms of ``fn`` over ``reps`` calls after one warm-up, CUDA events."""
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _kernels(packed, ior, pos, dirs, coh_pos, coh_dirs, first: bool, against: Path = None) -> dict:
+    """S1 and S2 alone on one brick (see the module doc), with the
+    version's ptxas reports and, given ``against`` (another checkout), the
+    pairs of its S1 and S2 with this version's; digests of S1's end states
+    and S2's d pos0 and d dir0."""
+    import torch
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import march_slab as ms
+    from volumeraytracer_tpu_torch.ops.fields import build_packed_field
+    from volumeraytracer_tpu_torch.parallel import bricks
+
+    dev = pos.device
+    xs = int(packed.shape[0])
+    slab = bricks._packed_slab(packed, 0, xs, dev)
+    tslab = build_packed_field(bricks.build_ior_slabs(ior, 1)[0][0]).contiguous()
+    args = (0, 1, xs, *bricks._march_consts(packed.shape[:-1], 0, xs, BEND, STEP, 3, dev))
+    given = "d_slab" in inspect.signature(ms.slab_window_bwd_cuda).parameters
+    stash = int(_build.load().vrt_march_slab_stash())
+    out, digests, calls = {}, {}, {}
+    for rays, (p, v) in (("scattered", (pos, dirs)), ("coherent", (coh_pos, coh_dirs))):
+        n = p.shape[0]
+        st = bricks._start_state(p, v, torch.full((n,), TRACE["budget"] - 1, dtype=torch.int64, device=dev))
+        st = tuple(x.contiguous() for x in st)
+        end = ms.slab_window_cuda(slab, st, *args, TRACE["k_steps"])
+        tend = ms.slab_window_cuda(tslab, st, *args, TRAIN["k_steps"])
+        gen = torch.Generator(device=dev).manual_seed(18)
+        d_pos, d_dir = (torch.randn((n, 3), generator=gen, device=dev) for _ in range(2))
+        bwd = ms.slab_window_bwd_cuda(tslab, st, tend[2], *args, TRAIN["k_steps"], d_pos, d_dir)
+        digests[rays] = {"s1": _digest(*end), "s2": _digest(bwd[0], bwd[1])}
+        steps = int((st[2] - tend[2]).sum())
+        s1 = lambda st=st: ms.slab_window_cuda(slab, st, *args, TRACE["k_steps"])  # noqa: E731
+        r = {"s1_steps": int((st[2] - end[2]).sum()), "s2_steps": steps, "s2_stash_bytes": 48 * steps,
+             "s1_ms": _events(torch, s1),
+             "s2_zeroing_ms": _events(torch, lambda: ms.slab_window_bwd_cuda(tslab, st, tend[2], *args,
+                                                                             TRAIN["k_steps"], d_pos, d_dir))}
+        if given:
+            s2 = lambda st=st, e=tend[2], a=d_pos, b=d_dir, g=bwd[2]: ms.slab_window_bwd_cuda(  # noqa: E731
+                tslab, st, e, *args, TRAIN["k_steps"], a, b, d_slab=g)
+            r["s2_ms"] = _events(torch, s2)
+            calls[rays] = {"march_slab_fwd.cu": (s1, lambda got: _digest(*got), "s1"),
+                           "march_slab_bwd.cu": (s2, lambda got: _digest(got[0], got[1]), "s2")}
+        out[rays] = r
+        del end, tend
+    if first:
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
+        csrc = Path(_build.__file__).parent / "csrc"
+        out["ptxas"] = {src: _build_alone(_build, tmp, src[:-3], csrc, src)[1]
+                        for src in ("march_slab_fwd.cu", "march_slab_bwd.cu")}
+    if against is not None:
+        out["pairs"] = _pairs(torch, _build, tmp, against, calls, digests)
+    out["zero_ms"] = _events(torch, lambda: torch.zeros_like(tslab))
+    acc, one = torch.zeros_like(tslab), torch.ones_like(tslab)
+    out["add_ms"] = _events(torch, lambda: acc.add_(one))
+    out["stash"] = stash
+    out["digests"] = digests
+    return out
+
+
+def _pairs(torch, _build, tmp: Path, against: Path, calls: dict, digests: dict) -> dict:
+    """S1 and S2 of the checkout ``against``, built alone, timed in PAIRS
+    alternating pairs with this version's (the pair's order swapped every
+    pair), each reading ``_events``' mean of 5 calls, over both ray sets;
+    each call of either version must give this version's S1 end state, or
+    S2's d pos0 and d dir0, bit for bit.  Returns each side's readings."""
+    from volumeraytracer_tpu_torch.probes.probe_fwd import _Swap
+
+    base = _build.load()
+    csrc = against / "volumeraytracer_tpu_torch" / "kernels" / "csrc"
+    out = {}
+    for src in ("march_slab_fwd.cu", "march_slab_bwd.cu"):
+        fn, report = _build_alone(_build, tmp, "parent_" + src[:-3], csrc, src)
+        libs = {"parent": _Swap(base, {"vrt_" + src[:-3]: fn}), "change": base}
+        res = out[src] = {"parent_ptxas": report}
+        for rays, by_src in calls.items():
+            call, digest, key = by_src[src]
+            times = res[rays] = {"parent": [], "change": []}
+            for k in range(PAIRS):
+                for side in (("parent", "change") if k % 2 == 0 else ("change", "parent")):
+                    _build._lib = libs[side]
+                    try:
+                        times[side].append(_events(torch, call))
+                        same = digest(call())
+                    finally:
+                        _build._lib = base
+                    if same != digests[rays][key]:
+                        raise SystemExit(f"probe_bricks: the {side}'s {key} differs on the {rays} rays")
+    return out
+
+
+def _quartiles(xs) -> str:
+    import numpy as np
+
+    q = np.percentile(np.asarray(xs), [25, 50, 75])
+    return f"median {q[1]:.4f} ms (quartiles {q[0]:.4f}-{q[2]:.4f})"
+
+
 def _inputs(tmp: Path, grid: int, n_rays: int) -> None:
     """Phase 20's fields (the lens and its packed field, as .npy files the
     ranks map) and rays, with the train step's targets (2 voxels past each
@@ -151,6 +313,11 @@ def _inputs(tmp: Path, grid: int, n_rays: int) -> None:
     from volumeraytracer_tpu_torch.workloads import build_scattered_rays
 
     dev = torch.device("cuda", 0)
+    side = 362
+    ys = np.linspace(8.0, grid - 8.0, side, dtype=np.float32)
+    yy, zz = np.meshgrid(ys, ys, indexing="ij")
+    coh_pos = np.stack([np.full(side * side, 2.0, np.float32), yy.ravel(), zz.ravel()], axis=-1)
+    coh_dirs = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (side * side, 1))
     ax = np.linspace(-1.0, 1.0, grid, dtype=np.float32)
     x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
     ior_np = 1.0 + 0.5 * np.exp(-4.0 * (x * x + y * y + z * z), dtype=np.float32)
@@ -167,7 +334,8 @@ def _inputs(tmp: Path, grid: int, n_rays: int) -> None:
     lr = 1e-2 / field.grad.abs().max().item()
     np.save(tmp / "ior.npy", ior_np)
     np.save(tmp / "packed.npy", build_packed_field(ior).cpu().numpy())
-    torch.save({"pos": pos.cpu(), "dirs": dirs.cpu(), "targets": targets.cpu(), "lr": lr}, tmp / "in.pt")
+    torch.save({"pos": pos.cpu(), "dirs": dirs.cpu(), "targets": targets.cpu(), "lr": lr,
+                "coh_pos": torch.from_numpy(coh_pos), "coh_dirs": torch.from_numpy(coh_dirs)}, tmp / "in.pt")
 
 
 def _load(tmp: Path, dev, packed_on_card: bool):
@@ -221,7 +389,7 @@ def _group(root: Path, tmp: Path, world: int, mode: str, timeout: float = 900.0)
     return [json.loads((tmp / f"out_{mode}_{world}_{r}.json").read_text()) for r in range(world)]
 
 
-def child(root: Path, tmp: Path, first: bool) -> dict:
+def child(root: Path, tmp: Path, first: bool, against: Path = None) -> dict:
     sys.path.insert(0, str(root))
     import torch
     import torch.distributed as dist
@@ -230,8 +398,14 @@ def child(root: Path, tmp: Path, first: bool) -> dict:
 
     dev = torch.device("cuda", 0)
     mesh = make_mesh(axis="bricks")
-    res = {"20a": _rank_run(mesh, *_load(tmp, dev, True), False, profile=first)}
+    loaded = _load(tmp, dev, True)
+    res = {"20a": _rank_run(mesh, *loaded, False, profile=first)}
     dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    data = torch.load(tmp / "in.pt")
+    res["kernels"] = _kernels(*loaded[:4], data["coh_pos"].to(dev), data["coh_dirs"].to(dev), first,
+                              against)
+    del loaded
     torch.cuda.empty_cache()
     for world, mode in GROUPS:
         res[f"{mode}_{world}"] = _group(root, tmp, world, mode)
@@ -240,7 +414,7 @@ def child(root: Path, tmp: Path, first: bool) -> dict:
 
 def _print(label: str, res: dict, card: str) -> None:
     for key, outs in res.items():
-        if key == "label":
+        if key in ("label", "kernels"):
             continue
         for r, o in enumerate(outs if isinstance(outs, list) else [outs]):
             print(f"probe_bricks {label} {key} rank {r}: trace {[round(x, 2) for x in o['trace_ms']]} ms "
@@ -251,6 +425,20 @@ def _print(label: str, res: dict, card: str) -> None:
                 top = ", ".join(f"{d['name'][:40]} {d['ms']:.3f} ms ×{d['launches']:.0f}" for d in prof["device_ops"][:8])
                 print(f"probe_bricks {label} {key} profile {name}: device {prof['device_ms']:.3f} ms, busy share "
                       f"{prof['busy_share']:.3f}, host {prof['host_ms']:.2f} ms; {top} [{card}]")
+    k = res["kernels"]
+    for rays in ("scattered", "coherent"):
+        r = k[rays]
+        print(f"probe_bricks {label} 20a kernels, {rays} rays: S1 {r['s1_ms']:.4f} ms ({r['s1_steps']} steps, k_steps "
+              f"{TRACE['k_steps']}); S2 {r.get('s2_ms', float('nan')):.4f} ms into a given d slab, "
+              f"{r['s2_zeroing_ms']:.4f} ms zeroing a new one ({r['s2_steps']} steps, k_steps {TRAIN['k_steps']}, "
+              f"stash {r['s2_stash_bytes']} B written and read) [{card}]")
+    print(f"probe_bricks {label} 20a d slab alone: zeroing {k['zero_ms']:.4f} ms, an add into another "
+          f"{k['add_ms']:.4f} ms; ptxas {k.get('ptxas')} [{card}]")
+    for src, v in k.get("pairs", {}).items():
+        for rays in ("scattered", "coherent"):
+            t = v[rays]
+            print(f"probe_bricks {src} alone, {rays} rays, {PAIRS} pairs in turns: parent {_quartiles(t['parent'])}, "
+                  f"change {_quartiles(t['change'])}; parent's ptxas {v['parent_ptxas']} [{card}]")
 
 
 def main() -> None:
@@ -262,6 +450,7 @@ def main() -> None:
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--tmp", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--first", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--against", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--worker", nargs=6, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
@@ -269,7 +458,7 @@ def main() -> None:
         worker(int(rank), int(world), coordinator, Path(root), Path(tmp), mode)
         return
     if args.child is not None:
-        print(json.dumps(child(args.child, args.tmp, args.first)))
+        print(json.dumps(child(args.child, args.tmp, args.first, args.against)))
         return
     import torch
 
@@ -302,21 +491,28 @@ def main() -> None:
         if args.parent is None:
             runs = [run_child("change", REPO, "--first")]
         else:
-            runs = [run_child("parent", args.parent), run_child("change", REPO, "--first"),
+            runs = [run_child("parent", args.parent, "--first"),
+                    run_child("change", REPO, "--first", "--against", str(args.parent.resolve())),
                     run_child("change", REPO), run_child("parent", args.parent)]
+
     def traces(r):
         return {k: [o["trace_digest"] for o in (v if isinstance(v, list) else [v])] for k, v in r.items()
-                if k != "label"}
+                if k not in ("label", "kernels")}
 
     def losses(r):
-        return [o["loss"] for k, v in sorted(r.items()) if k != "label" for o in (v if isinstance(v, list) else [v])]
+        return [o["loss"] for k, v in sorted(r.items()) if k not in ("label", "kernels")
+                for o in (v if isinstance(v, list) else [v])]
 
     if any(traces(r) != traces(runs[0]) for r in runs):
         raise SystemExit(f"probe_bricks: the traces differ between versions or runs: {[traces(r) for r in runs]}")
+    if any(r["kernels"]["digests"] != runs[0]["kernels"]["digests"] for r in runs):
+        raise SystemExit("probe_bricks: S1's end states or S2's d pos0, d dir0 differ between versions or runs: "
+                         f"{[r['kernels']['digests'] for r in runs]}")
     ref = losses(runs[0])
     if any(abs(a - b) > 1e-5 * abs(b) for r in runs for a, b in zip(losses(r), ref)):
         raise SystemExit(f"probe_bricks: first losses differ beyond rtol 1e-5: {[losses(r) for r in runs]}")
-    print(f"probe_bricks traces equal and first losses within rtol 1e-5 across {len(runs)} runs [{card}]")
+    print(f"probe_bricks traces, S1's end states and S2's d pos0, d dir0 equal and first losses within rtol 1e-5 "
+          f"across {len(runs)} runs [{card}]")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
