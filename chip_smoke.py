@@ -35,8 +35,9 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      bricks (where the clamps bite) and on the full-size bundle, within 1e-3
      of the largest plain value, with the replay's drift back to the start;
  10. the training slice at full size: (a) endpoint_render's gradient to the
-     256³ field, kernels against kernel="plain", with each of K1-K4 launched
-     exactly once per step; (b) fit_field, three Adam steps on the card with
+     256³ field, kernels against kernel="plain", with each of K1-K4, P1 and
+     P2 (the field's build and its adjoint) launched exactly once per step;
+     (b) fit_field, three Adam steps on the card with
      finite, falling losses and K3/K4 launched every step; (c) the
      differentiable trace_rays, value and gradient, kernels against plain;
  11. times (CUDA events): K3, K4, their plain versions and K4's library
@@ -60,9 +61,9 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      digests of the probes, volumeraytracer_tpu_torch/probes/probe_k4k6.py
      for K4-K6);
  14. the point train step at full size: endpoint_render(layout="points")
-     + backward + SGD, with K5 and K6 launched once each and K1-K4 not at
-     all, d_ior against the plain path's and the line path's; times of K5,
-     K6, the plain point build and fold and the point train step;
+     + backward + SGD, with K5, K6, P1 and P2 launched once each and K1-K4
+     not at all, d_ior against the plain path's and the line path's; times
+     of K5, K6, the plain point build and fold and the point train step;
  15. the fixed-point path, trace_rays' default mode: (a) F1 (the uint32
      16.16 march) and the recording F1 (march_fixed_path) equal to the plain
      fixed march bit for bit on the phase 4 scenes at 16.16 positions,
@@ -97,10 +98,10 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      trace_path=True) on the bench bundle, with exactly one K1 and one
      recording-K2 launch, checked against kernel="plain", its path equal to
      march_lines' path + 1.0 bit for bit and its end state equal to phase
-     5's; (c) the
-     differentiable recorded trace at full size, K1, the recording K2, K3
-     and K4 once each, per-ray gradients equal to the non-recording run's
-     bit for bit and d_ior within 1e-3 of its largest value; (d) soft
+     5's; (c) the differentiable recorded trace at full size, K1, the
+     recording K2, K3 and K4 once each (and P1 and P2 for the scene's
+     field), per-ray gradients equal to the non-recording run's bit for
+     bit and d_ior within 1e-3 of its largest value; (d) soft
      termination on the card (tests/test_autodiff.py's 20^3 wall): no
      kernel launched, transmittance and its gradient equal to the CPU's
      within 1e-5, and kernel="cuda" raising; (e) times of the recording K2
@@ -131,8 +132,8 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      config 1's size (64³, 128×128) R1 on the card against the port's
      CPU run; (c) the camera gradient at that width: image_loss's gradient
      to ior, σ and the emission finite and nonzero, R1 and R2 (render_bwd,
-     the reverse replay) launched once each, its time and peak memory; R2
-     against its plain replay on R1's end state with seeded cotangents
+     the reverse replay) launched once each, P1 and P2 once for its
+     field, its time and peak memory; R2 against its plain replay on R1's end state with seeded cotangents
      (d pos0 and d dir0 bit for bit, the field gradients within 1e-4 of
      their largest value, the opacity channel's 0), with the record and
      with σ alone, no field, the emission alone and σ with an emission on
@@ -184,31 +185,33 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      version's;
      (b) the
      scattered fwd+bwd,
-     endpoint_render's value and gradient through K1-K4 once each (d_ior
+     endpoint_render's value and gradient through K1-K4, P1 and P2 once
+     each (d_ior
      against kernel="plain" on 4096 of the rays within 1e-3 of its largest
      value) and its time; (c) replay: the fixed trace of the bench bundle as
      16.16 positions dumped by Options.write_instance to .npz and .vrt in a
      temporary directory and replayed by vrt-replay-torch's main with one F1
      launch each, a float trace's dump replayed with --mode float with one K1
      and one K2 launch, each equal to the direct trace bit for bit, and the
-     built-in 100^3 ramp with one F1 launch, with its "Rays per time" line;
+     built-in 100^3 ramp with one F1 launch, each replay with one P1 launch
+     (its scene's field), with its "Rays per time" line;
  19. data parallelism over torch.distributed, profiling and the image
      tools: (a) init_distributed() and make_mesh() at world size 1 on the
      card (a HashStore group, NCCL for CUDA tensors when available), then
      make_train_step on the bench workload (the 256^3 lens, the 131,044
      rays, targets 2 voxels past each ray's end): two steps and one with
-     accum_steps=2, K1-K4 launched once per micro-batch, the loss within
-     rtol 1e-5 of endpoint_render + SGD's and (ior - new)/lr within 1e-3 of
-     its largest value, at lr = 1e-2 / max|gradient| (at 1e-6 the update is
+     accum_steps=2, K1-K4, P1 and P2 launched once per micro-batch, the
+     loss within rtol 1e-5 of endpoint_render + SGD's and (ior - new)/lr
+     within 1e-3 of its largest value, at lr = 1e-2 / max|gradient| (at 1e-6 the update is
      below half an ulp of the field); the step's time in turns with phase
      11's line train step and the all_reduce of the gradient's size alone;
      (b) trace_rays_sharded at world size 1 equal to one march_lines call
      bit for bit, K1 and K2 once, and their times in turns; (c) two
      processes (``chip_smoke.py --phase19c-worker``) sharing the card over
      gloo through init_distributed's tcp:// rendezvous on localhost, with a
-     timeout: one counted train step (K1-K4 once a rank; the loss equal on
-     both ranks bit for bit and within rtol 1e-5 of 19a's, the update within
-     19a's bound) and two timed ones, gloo's all_reduce alone, one
+     timeout: one counted train step (K1-K4, P1 and P2 once a rank; the
+     loss equal on both ranks bit for bit and within rtol 1e-5 of 19a's,
+     the update within 19a's bound) and two timed ones, gloo's all_reduce alone, one
      trace_rays_sharded equal to 19b's bit for bit, and replicate and
      shard_batch of the field and the rays; (d) profiling.trace
      around the fixed bench trace with an annotate span (the trace file
@@ -229,7 +232,8 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      slab's update/lr within rtol 2e-3 / atol 1e-6 of the gradient cell by
      cell, the loss within rtol 1e-5, both steps' losses finite and equal
      on every rank), with S1 launched once a window of the trace, S1 and S2
-     once a window each of the first train step and no other kernel, one d
+     once a window each of the first train step, P1 and P2 once (the rank's
+     slab of the field) and no other kernel, one d
      slab zeroed in that step's backward (``march_slab.zeroed``), and
      the share of rays that end in another brick than they start (at least
      0.3 for the trace at 4 bricks); on every brick of (a) and (b), S1
@@ -252,7 +256,23 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      make_brick_train_step2d); for each, a rank's trace and step times
      (host clock with a sync), windows, the all_reduce of one window's
      buffer and the halo exchange of a slab's strips alone, and the memory
-     each call allocated above its start.
+     each call allocated above its start;
+ 21. P1 and P2 (kernels/pack_field.py: pack_field_fwd, the packed-field
+     build, and pack_field_bwd, its adjoint): a RaytraceScene of the 256^3
+     lens built on the card with one P1 launch; at the bench's 256^3 lens,
+     on lens40 with its translucency and at phase 20a's 512^3 slab (514 x
+     512 x 512, one brick), build_packed_field(kernel="cuda") with one P1
+     launch equal to kernel="plain" (the plain body) bit for bit, and P2
+     against the plain body's autograd backward under a seeded cotangent
+     of all four channels within 1e-5 of its largest value; on lens40 with
+     a float translucency, the gradients through P1 and P2 (one launch
+     each) against the plain build's: the translucency's bit for bit, the
+     ior's within 1e-5 of its largest; times (CUDA
+     events) of P1, P2, the plain body, its autograd backward alone and
+     their yardsticks, one cuDNN call each with TF32 off (conv3d of the
+     log field with the stamp as a (3, 1, 3, 3, 3) weight; conv_transpose3d
+     of the cotangent's channels 0-2), checked to compute P1's channels
+     and P2's dL, at 256^3, and P1's and P2's at the slab.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
@@ -260,7 +280,8 @@ the point training step, F1 on the fixed trace, the recording K2 on the
 recorded float trace, the capped K2 and the corner build on
 march_lines_compact over the scattered rays, R1 on phase 17b's frame,
 R2 on phase 17c's image_loss gradient, S1 on phase 20a's trace and S2 on
-its first train step), error against its plain
+its first train step, P1 and P2 on the line training step), error
+against its plain
 version, times, its bound (the larger of its float32 operations over 67
 TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
 executed steps; the recording K2's bytes include its path) and its library
@@ -307,6 +328,12 @@ MARCH_FIXED_OPS = 104
 #: channels 0-2's sums 45, the weights' derivatives 15, u and 1/|u|² 12,
 #: t and ilen² 9, ub 21, h 3, the 8 corners' G and gradients 136, x̄ 3)
 SLAB_OPS, SLAB_BWD_OPS = 121, 384
+#: float32 operations of P1 an output voxel (27 taps' subtract, multiply and
+#: add, 3 divisions; the logf and the multiply of each ior voxel counted as
+#: 2 an input voxel) and of P2 an ior voxel (27 taps' 3, the multiply and the
+#: division; each cotangent record's 3 divisions counted as 3 an output
+#: voxel), from csrc/pack_field.cu
+PACK_OPS, PACK_BWD_OPS = 84, 83
 #: the ramp anchor of tests/test_scaling.py: traversal steps, and the |v|
 #: ratio's tolerance for float and for int16 8.8 directions
 ANCHOR_STEPS, ANCHOR_TOL, ANCHOR_TOL_DIR16 = 46718, 3e-5, 1e-5 + 1.0 / 256
@@ -491,6 +518,7 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         solve_harmonic,
     )
     from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import pack_field as pf
     from volumeraytracer_tpu_torch.kernels import render as rk
     from volumeraytracer_tpu_torch.models import camera as camera_mod
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field
@@ -720,8 +748,8 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     grad_s = time.perf_counter() - t0
     grad_peak = torch.cuda.max_memory_allocated()
     r["r2_launches"] = grad_launches = dict(_build.launches)
-    if grad_launches != {"render_fwd": 1, "render_bwd": 1}:
-        raise AssertionError(f"image_loss's gradient launched {grad_launches}, expected R1 and R2 once each")
+    if grad_launches != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1}:
+        raise AssertionError(f"image_loss's gradient launched {grad_launches}, expected R1, R2, P1 and P2 once each")
     for name, leaf in zip(("ior", "sigma", "emission"), leaves):
         g = leaf.grad
         if not (bool(torch.isfinite(g).all()) and g.abs().max().item() > 0):
@@ -813,9 +841,10 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     grads = {}
     for route in ("kernels", "plain"):
         leaves = [x.clone().requires_grad_(True) for x in (ior, sigma, emission)]
-        saved = rk.use_kernels
+        saved = rk.use_kernels, pf.use_kernels
         if route == "plain":
             rk.use_kernels = lambda device, dim: False
+            pf.use_kernels = lambda kernel, device, dim: False
         try:
             sync()
             _build.launches.clear()
@@ -827,8 +856,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
             grads[route] = (loss.item(), [leaf.grad for leaf in leaves], dict(_build.launches),
                             time.perf_counter() - t0)
         finally:
-            rk.use_kernels = saved
-    if grads["kernels"][2] != {"render_fwd": 1, "render_bwd": 1} or grads["plain"][2]:
+            rk.use_kernels, pf.use_kernels = saved
+    if grads["kernels"][2] != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1} or \
+            grads["plain"][2]:
         raise AssertionError(f"launches {grads['kernels'][2]} (kernels) and {grads['plain'][2]} (plain)")
     close(torch.tensor(grads["kernels"][0]), torch.tensor(grads["plain"][0]), rtol=1e-5, atol=0)
     notes = []
@@ -854,9 +884,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         loss = tr_out["end_position"][:, 1].sum() + (tr_out["transmittance"].sum() if s_ is not None else 0.0)
         loss.backward()
         sync()
-        if dict(_build.launches) != {"render_fwd": 1, "render_bwd": 1}:
+        if dict(_build.launches) != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1}:
             raise AssertionError(f"render_transmittance's gradient (sigma {s_ is not None}) launched "
-                                 f"{dict(_build.launches)}, expected R1 and R2 once each")
+                                 f"{dict(_build.launches)}, expected R1, R2 (and P1, P2 for its field) once each")
         if not (bool(torch.isfinite(leaf.grad).all()) and leaf.grad.abs().max().item() > 0):
             raise AssertionError("render_transmittance's d/d ior is not finite and nonzero")
     _build.launches.clear()
@@ -865,7 +895,7 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     if dict(_build.launches) != {"render_fwd": 1} or tr_out["transmittance"].requires_grad:
         raise AssertionError(f"render_transmittance(differentiable=False) launched {dict(_build.launches)}")
     print(f"phase 17c render_transmittance {small}x{small}: its gradient (end positions and T, with and without "
-          f"σ) launched R1 and R2 once each; differentiable=False R1 alone")
+          f"σ) launched R1 and R2 once each, P1 and P2 once for its field; differentiable=False R1 alone")
     del leaf, loss, tr_out
 
     leaves = [x.clone().requires_grad_(True) for x in (ior, sigma, emission)]
@@ -1375,7 +1405,8 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     end_pos, _ = endpoint_render(ior_k, pos, dirs, BUDGET, INV, 64)
     end_pos[:, 1].sum().backward()
     sync()
-    want = {"line_table_build": 1, "march_lines_fwd": 1, "march_lines_bwd": 1, "line_table_fold": 1}
+    want = {"line_table_build": 1, "march_lines_fwd": 1, "march_lines_bwd": 1, "line_table_fold": 1,
+            "pack_field_fwd": 1, "pack_field_bwd": 1}
     if dict(_build.launches) != want or not bool(torch.isfinite(ior_k.grad).all()):
         raise AssertionError(f"scattered fwd+bwd: launches {dict(_build.launches)} or a non-finite gradient")
     sub = slice(0, 4096)
@@ -1434,8 +1465,9 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
             scene = RaytraceScene(lens, options=Options(write_instance=dump), device=dev)
             direct = scene.trace_rays(pos_fix, bench_dirs, invscale=[INV] * 3, iterations=BUDGET, mode="fixed")
             res, launched, line = replay([dump])
-            if launched != {"march_fixed": 1}:
-                raise AssertionError(f"the fixed replay of {suffix} launched {launched}, expected one F1")
+            if launched != {"pack_field_fwd": 1, "march_fixed": 1}:
+                raise AssertionError(f"the fixed replay of {suffix} launched {launched}, expected one P1 (its "
+                                     f"scene) and one F1")
             bad = differs(res, direct)
             if bad:
                 raise AssertionError(f"the fixed replay of {suffix} differs from the direct trace in {bad}")
@@ -1445,15 +1477,16 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
         scene = RaytraceScene(lens, options=Options(write_instance=dump), device=dev)
         direct = scene.trace_rays(bench_pos, bench_dirs, invscale=[INV] * 3, iterations=BUDGET, mode="float")
         res, launched, line = replay([dump, "--mode", "float"])
-        if launched != {"line_table_build": 1, "march_lines_fwd": 1}:
-            raise AssertionError(f"the float replay launched {launched}, expected one K1 and one K2")
+        if launched != {"pack_field_fwd": 1, "line_table_build": 1, "march_lines_fwd": 1}:
+            raise AssertionError(f"the float replay launched {launched}, expected one P1 (its scene), one K1 and "
+                                 f"one K2")
         bad = differs(res, direct)
         if bad:
             raise AssertionError(f"the float replay differs from the direct trace in {bad}")
         print(f"phase 18c replay of the float bench trace: launches {launched}, equal to the direct trace bit for "
               f"bit; {line} {card}")
     res, launched, line = replay([])
-    if launched != {"march_fixed": 1} or not bool((res.end_iteration < 1_000_000).all()):
+    if launched != {"pack_field_fwd": 1, "march_fixed": 1} or not bool((res.end_iteration < 1_000_000).all()):
         raise AssertionError(f"the built-in replay launched {launched} or ran out of budget")
     print(f"phase 18c replay of the built-in 100^3 ramp ({res.end_position.shape[0]} rays, mean end iteration "
           f"{res.end_iteration.double().mean().item():.1f}): launches {launched}; {line} "
@@ -1516,9 +1549,9 @@ def phase19_worker(rank: int, world: int, coordinator: str, inputs: str, out: st
         dist.all_reduce(buf, group=group)
         torch.cuda.synchronize()
         reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    packed = build_packed_field(ior)
     _build.launches.clear()
-    res = trace_rays_sharded(mesh, build_packed_field(ior), data["p"], data["d"], BUDGET, bend_scale=BEND,
-                             step_scale=STEP)
+    res = trace_rays_sharded(mesh, packed, data["p"], data["d"], BUDGET, bend_scale=BEND, step_scale=STEP)
     torch.cuda.synchronize()
     torch.save({
         "info": info, "backend": str(dist.get_backend()), "placed": placed, "launches": launches, "trace_launches":
@@ -1551,7 +1584,9 @@ def phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, line_s
     sync = torch.cuda.synchronize
     fields = ("end_position", "end_direction", "end_iteration", "remaining_light")
     n_rays = pos.shape[0]
-    line_kernels = ("line_table_build", "march_lines_fwd", "march_lines_bwd", "line_table_fold")
+    # the line train step's kernels: K1-K4 and, for the field, P1 and P2
+    line_kernels = ("line_table_build", "march_lines_fwd", "march_lines_bwd", "line_table_fold", "pack_field_fwd",
+                    "pack_field_bwd")
 
     # 19a. world size 1 on the card: the group and the mesh
     info = init_distributed()
@@ -1584,7 +1619,7 @@ def phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, line_s
             raise AssertionError(f"{name}: update/lr max err {err:.3g} above 1e-3·max|ref| = {bound:.3g}")
         launched = dict(_build.launches)
         if launched != {k: want for k in line_kernels}:
-            raise AssertionError(f"{name} launched {launched}, expected K1-K4 {want} each")
+            raise AssertionError(f"{name} launched {launched}, expected K1-K4, P1 and P2 {want} each")
         return err
 
     steps = {acc: make_train_step(mesh, budget=BUDGET, invscale=INV, lr=lr, accum_steps=acc) for acc in (1, 2)}
@@ -1607,8 +1642,9 @@ def phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, line_s
     err_a = check("accum_steps=2", new_a, loss_a, 2)
     print(f"phase 19a make_train_step 256^3, {n_rays} rays, budget {BUDGET}, lr {lr:.6g}: step 1 loss "
           f"{loss1.item():.8g} vs endpoint_render + SGD {ref_loss.item():.8g}, update/lr max err {err1:.3g} (bound "
-          f"{bound:.3g}), K1-K4 once each, first call {first_s:.3f} s; step 2 loss {loss2.item():.8g}, K1-K4 once "
-          f"each; accum_steps=2 loss {loss_a.item():.8g}, update/lr max err {err_a:.3g}, K1-K4 twice each")
+          f"{bound:.3g}), K1-K4, P1 and P2 once each, first call {first_s:.3f} s; step 2 loss {loss2.item():.8g}, "
+          f"K1-K4, P1 and P2 once each; accum_steps=2 loss {loss_a.item():.8g}, update/lr max err {err_a:.3g}, "
+          f"K1-K4, P1 and P2 twice each")
     del new2, new_a
     ior_t = ior256.clone().requires_grad_(True)
     t_line, t_ws1 = turns(lambda: line_step(ior_t, "auto"), lambda: steps[1](ior256, pos, dirs, targets), 5)
@@ -1709,8 +1745,8 @@ def phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, line_s
             raise AssertionError(f"rank {r}: trace_rays_sharded differs from 19b's in {bad}")
     print(f"phase 19c two processes on the card over gloo ({outs[0]['info']}, backend {outs[0]['backend']}): "
           f"train step loss {outs[0]['loss'].item():.8g} equal on both ranks, vs world size 1 "
-          f"{loss1.item():.8g}; update/lr max err vs endpoint_render + SGD {err2:.3g} (bound {bound:.3g}); K1-K4 "
-          f"once a rank; trace_rays_sharded equal to 19b's bit for bit on both ranks, K1 and K2 once a rank; "
+          f"{loss1.item():.8g}; update/lr max err vs endpoint_render + SGD {err2:.3g} (bound {bound:.3g}); K1-K4, "
+          f"P1 and P2 once a rank; trace_rays_sharded equal to 19b's bit for bit on both ranks, K1 and K2 once a rank; "
           f"replicate (a gloo broadcast of the field) and shard_batch right on both")
     for r, o in enumerate(outs):
         print(f"phase 19c time rank {r}: train step {o['step_ms']} ms (host clock, two steps), gloo all_reduce of "
@@ -2174,9 +2210,11 @@ def phase20(dev, card) -> dict:
 
     def check_launches(name, o):
         """S1 once a window of the trace; S1 and S2 once a window each of the
-        first train step; no other kernel; one d slab zeroed in that step."""
+        first train step, and P1 and P2 once (the rank's slab of the packed
+        field); no other kernel; one d slab zeroed in that step."""
         want = ({"march_slab_fwd": o["trace_windows"]},
-                {"march_slab_fwd": o["train_windows"], "march_slab_bwd": o["train_windows"]})
+                {"march_slab_fwd": o["train_windows"], "march_slab_bwd": o["train_windows"], "pack_field_fwd": 1,
+                 "pack_field_bwd": 1})
         if (o["trace_launches"], o["train_launches"]) != want or o["train_zeroed"] != 1:
             raise AssertionError(f"{name}: launches trace {o['trace_launches']}, train step {o['train_launches']}, "
                                  f"d slabs zeroed {o['train_zeroed']}; want {want[0]}, {want[1]}, 1")
@@ -2286,6 +2324,171 @@ def phase20(dev, card) -> dict:
             del outs
     print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
     return r20
+
+
+def phase21(dev, t, timed, card, ior256, ior40, tr40) -> dict:
+    """P1 and P2, the packed-field build and its adjoint, on the card (see
+    the module doc, phase 21); returns their errors, times and bounds at the
+    bench's 256³ for the kernels line."""
+    import torch
+
+    from volumeraytracer_tpu_torch import RaytraceScene
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import pack_field as pf
+    from volumeraytracer_tpu_torch.ops.fields import (
+        STAMP_3D, STAMP_WEIGHT_3D, TRANSPARENT, build_packed_field, ior_log,
+    )
+    from volumeraytracer_tpu_torch.parallel import bricks
+    from volumeraytracer_tpu_torch.types import DIFF_DIV, IORLOG_UNIT
+
+    sync = torch.cuda.synchronize
+    r = {"p1_err": 0.0, "p2_err": 0.0}
+
+    sync()
+    _build.launches.clear()
+    RaytraceScene(ior256, device=dev)
+    sync()
+    if dict(_build.launches) != {"pack_field_fwd": 1}:
+        raise AssertionError(f"a scene's construction on the card launched {dict(_build.launches)}, expected P1 once")
+    print("phase 21 RaytraceScene(256^3 lens) on the card: P1 launched once")
+
+    def bounds(shape):
+        """P1's and P2's bounds at an ior of ``shape``: P1 reads the ior once
+        and writes the 16 B records, P2 reads the records and the ior and
+        writes the gradient; their operations as PACK_OPS and PACK_BWD_OPS
+        count them."""
+        n_in = shape[0] * shape[1] * shape[2]
+        n_out = (shape[0] - 2) * (shape[1] - 2) * (shape[2] - 2)
+        return (kernel_bound(PACK_OPS * n_out + 2 * n_in, 4 * n_in + 16 * n_out),
+                kernel_bound(PACK_BWD_OPS * n_in + 3 * n_out, 16 * n_out + 8 * n_in))
+
+    slab = bricks.build_ior_slabs(torch.from_numpy(lens_field(P20_GRID)).to(dev), 1)[0][0]
+    for name, ior, tr in (("256^3 bench lens", ior256, None),
+                          ("lens40 + its translucency", t(ior40), t(tr40, np.int64)),
+                          (f"phase 20a's {P20_GRID}^3 slab {tuple(slab.shape)}", slab, None)):
+        sync()
+        _build.launches.clear()
+        got = build_packed_field(ior, tr, kernel="cuda")
+        sync()
+        if dict(_build.launches) != {"pack_field_fwd": 1}:
+            raise AssertionError(f"P1 {name}: launches {dict(_build.launches)}, expected one")
+        ref = build_packed_field(ior, tr, kernel="plain")
+        sync()
+        if not torch.equal(got, ref):
+            bad = got != ref
+            raise AssertionError(f"P1 {name} differs from the plain body on {int(bad.sum())} values, max "
+                                 f"{(got - ref).abs().max().item():.3g}")
+        # P2 against the plain body's autograd backward under a seeded
+        # cotangent of all four channels: the same terms summed in another
+        # order, within 1e-5 of the largest
+        cot = torch.randn(got.shape, generator=torch.Generator(device=dev).manual_seed(21), device=dev)
+        leaf = ior.clone().requires_grad_(True)
+        _build.launches.clear()
+        (g_ref,) = torch.autograd.grad(build_packed_field(leaf, tr, kernel="plain"), leaf, cot)
+        g_got = pf.pack_field_bwd_cuda(ior, cot)
+        sync()
+        if dict(_build.launches) != {"pack_field_bwd": 1}:
+            raise AssertionError(f"P2 {name}: launches {dict(_build.launches)}, expected P2 once and the plain "
+                                 f"backward nothing")
+        err, top = (g_got - g_ref).abs().max().item(), g_ref.abs().max().item()
+        if not (bool(torch.isfinite(g_got).all()) and err <= 1e-5 * top):
+            raise AssertionError(f"P2 {name}: max err {err:.3g} beyond 1e-5 of the plain backward's largest {top:.3g}")
+        r["p2_err"] = max(r["p2_err"], err)
+        print(f"phase 21 {name}: P1 equal to the plain body bit for bit (packed {tuple(got.shape)}); P2 vs the plain "
+              f"autograd backward max err {err:.3g} of {top:.3g}")
+        if name.startswith("phase 20a"):
+            (p1b, _), (p2b, _) = bounds(tuple(ior.shape))
+            print(f"phase 21 time at the slab: P1 {timed(lambda: pf.pack_field_cuda(ior, TRANSPARENT), 10):.4f} ms (bound "
+                  f"{p1b:.4f}), P2 {timed(lambda: pf.pack_field_bwd_cuda(ior, cot), 10):.4f} ms (bound {p2b:.4f}) "
+                  f"{card}")
+        del got, ref, cot, leaf, g_ref, g_got
+    del slab
+
+    # the gradient to a float translucency (lens40's, as a fraction of
+    # 0xFFFFFFFF) and to the ior through the autograd.Function: P1 and P2
+    # once each, the translucency's equal to the plain build's bit for bit
+    # (the cotangent's channel 3 through the same opacity channel), the
+    # ior's within P2's bound
+    tr_f = t(tr40 / float(0xFFFFFFFF))
+    cot = torch.randn((*(s - 2 for s in tr_f.shape), 4), generator=torch.Generator(device=dev).manual_seed(22),
+                      device=dev)
+
+    def field_grads(kernel):
+        leaf, tr_leaf = t(ior40).requires_grad_(True), tr_f.clone().requires_grad_(True)
+        return torch.autograd.grad(build_packed_field(leaf, tr_leaf, kernel=kernel), (leaf, tr_leaf), cot)
+
+    sync()
+    _build.launches.clear()
+    g_ior, g_tr = field_grads("cuda")
+    sync()
+    if dict(_build.launches) != {"pack_field_fwd": 1, "pack_field_bwd": 1}:
+        raise AssertionError(f"the float translucency's build: launches {dict(_build.launches)}, expected P1 and "
+                             f"P2 once")
+    ref_ior, ref_tr = field_grads("plain")
+    err, top = (g_ior - ref_ior).abs().max().item(), ref_ior.abs().max().item()
+    if not (torch.equal(g_tr, ref_tr) and bool((g_tr != 0).any()) and err <= 1e-5 * top):
+        raise AssertionError(f"the gradients through P1 and P2 with a float translucency: translucency max err "
+                             f"{(g_tr - ref_tr).abs().max().item():.3g}, ior max err {err:.3g} of {top:.3g}")
+    r["p2_err"] = max(r["p2_err"], err)
+    print(f"phase 21 lens40 with a float translucency: its gradient through P1's route equal to the plain build's "
+          f"bit for bit; the ior's max err {err:.3g} of {top:.3g}")
+    del tr_f, cot, g_ior, g_tr, ref_ior, ref_tr
+
+    # times at the bench's 256^3: the kernels, their plain versions (the
+    # plain body, and its autograd backward alone) and the yardsticks, one
+    # cuDNN call each without TF32: conv3d of L with the stamp as a
+    # (3, 1, 3, 3, 3) weight (P1's channels 0-2), conv_transpose3d of the
+    # cotangent's channels 0-2 with it (P2's dL)
+    cot = torch.randn((*(s - 2 for s in ior256.shape), 4), generator=torch.Generator(device=dev).manual_seed(21),
+                      device=dev)
+    leaf = ior256.clone().requires_grad_(True)
+    out = build_packed_field(leaf, kernel="plain")
+    weight = torch.zeros((3, 1, 3, 3, 3), dtype=torch.float64)
+    for a in range(3):
+        perp = [b for b in range(3) if b != a]
+        for p in range(3):
+            for q in range(3):
+                hi, lo = [0, 0, 0], [0, 0, 0]
+                hi[perp[0]] = lo[perp[0]] = p
+                hi[perp[1]] = lo[perp[1]] = q
+                hi[a] = 2
+                weight[(a, 0, *hi)] += STAMP_3D[p, q]
+                weight[(a, 0, *lo)] -= STAMP_3D[p, q]
+    weight = (weight / (STAMP_WEIGHT_3D * DIFF_DIV)).to(torch.float32).to(dev)
+    log5 = ior_log(ior256)[None, None]
+    cot5 = cot[..., :3].permute(3, 0, 1, 2)[None].contiguous()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        conv = torch.nn.functional.conv3d(log5, weight)[0].permute(1, 2, 3, 0)
+        convt = torch.nn.functional.conv_transpose3d(cot5, weight)[0, 0]
+        p1 = pf.pack_field_cuda(ior256, TRANSPARENT)
+        d_log = pf.pack_field_bwd_cuda(ior256, cot) * ior256 / IORLOG_UNIT
+        sync()
+        lib_err = ((conv - p1[..., :3]).abs().max().item() / p1[..., :3].abs().max().item(),
+                   (convt - d_log).abs().max().item() / d_log.abs().max().item())
+        if not max(lib_err) <= 1e-4:
+            raise AssertionError(f"the yardsticks do not compute P1's and P2's functions: {lib_err}")
+        times = {
+            "p1": timed(lambda: pf.pack_field_cuda(ior256, TRANSPARENT), 20),
+            "p1_plain": timed(lambda: build_packed_field(ior256, kernel="plain"), 3),
+            "p1_library": timed(lambda: torch.nn.functional.conv3d(log5, weight), 10),
+            "p2": timed(lambda: pf.pack_field_bwd_cuda(ior256, cot), 20),
+            "p2_plain": timed(lambda: torch.autograd.grad(out, leaf, cot, retain_graph=True), 3),
+            "p2_library": timed(lambda: torch.nn.functional.conv_transpose3d(cot5, weight), 10),
+        }
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    r["times"] = times
+    r["p1_bound"], r["p2_bound"] = bounds(tuple(ior256.shape))
+    for key, label in (("p1", "P1 pack_field_fwd"), ("p1_plain", "P1 plain body (build_packed_field kernel='plain')"),
+                       ("p1_library", "P1 yardstick conv3d of L (cuDNN, no TF32)"), ("p2", "P2 pack_field_bwd"),
+                       ("p2_plain", "P2 plain autograd backward of the plain body"),
+                       ("p2_library", "P2 yardstick conv_transpose3d of the cotangent (cuDNN, no TF32)")):
+        print(f"phase 21 time {label} 256^3: {times[key]:.4f} ms {card}")
+    print(f"phase 21 the yardsticks against P1's channels 0-2 and P2's dL: max err over the largest "
+          f"{lib_err[0]:.3g}, {lib_err[1]:.3g}")
+    return r
 
 
 def main() -> None:
@@ -2632,7 +2835,8 @@ def main() -> None:
     sync()
     grad_s = time.perf_counter() - t0
     train_launches = dict(_build.launches)
-    want = {"line_table_build": 1, "march_lines_fwd": 1, "march_lines_bwd": 1, "line_table_fold": 1}
+    want = {"line_table_build": 1, "march_lines_fwd": 1, "march_lines_bwd": 1, "line_table_fold": 1,
+            "pack_field_fwd": 1, "pack_field_bwd": 1}
     if train_launches != want:
         raise AssertionError(f"the training step's kernel launches {train_launches}, expected {want}")
     ior_p = ior256.clone().requires_grad_(True)
@@ -2899,7 +3103,7 @@ def main() -> None:
     sync()
     point_s = time.perf_counter() - t0
     point_launches = dict(_build.launches)
-    want = {"march_points_fwd": 1, "march_points_bwd": 1}
+    want = {"march_points_fwd": 1, "march_points_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1}
     if point_launches != want:
         raise AssertionError(f"the point train step's kernel launches {point_launches}, expected {want}")
     if not bool(torch.isfinite(ior_pt.grad).all()):
@@ -3263,7 +3467,9 @@ def main() -> None:
         (rres.end_position[:, 1].sum() + rres.end_direction[:, 2].sum()).backward()
         sync()
         diff[record] = (dict(_build.launches), ior_r.grad, rp.grad, rd.grad, rres.path)
-    want = {"line_table_build": 1, "march_lines_fwd_path": 1, "march_lines_bwd": 1, "line_table_fold": 1}
+    # P1 builds the scene's field, P2 its gradient
+    want = {"line_table_build": 1, "march_lines_fwd_path": 1, "march_lines_bwd": 1, "line_table_fold": 1,
+            "pack_field_fwd": 1, "pack_field_bwd": 1}
     if diff[True][0] != want:
         raise AssertionError(f"the differentiable recorded trace's launches {diff[True][0]}, expected {want}")
     if diff[True][4] is None or diff[True][4].requires_grad:
@@ -3362,6 +3568,12 @@ def main() -> None:
     r20 = phase20(dev, card)
     times.update({k: r20[k] for k in ("s1", "s1_plain", "s2", "s2_plain")})
 
+    # 21. P1 and P2, the packed-field build and its adjoint, against the
+    # plain body and its autograd at 256^3, on lens40 with its translucency
+    # and at phase 20a's 512^3 slab; a scene's construction
+    r21 = phase21(dev, t, timed, card, ior256, ior40, tr40)
+    times.update(r21["times"])
+
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,
     # alive, br: 36 B a ray) and writes it, a replay reads 52 B a ray (end
@@ -3401,10 +3613,14 @@ def main() -> None:
         # S1 and S2 at phase 20a's 512³ on one brick (one window each)
         "s1": r20["s1_bound"],
         "s2": r20["s2_bound"],
+        # P1 and P2 at the bench's 256³ (phase 21)
+        "p1": r21["p1_bound"],
+        "p2": r21["p2_bound"],
     }
     for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
                        ("f1", "F1"), ("f1p", "recording F1"), ("k2p", "recording K2"), ("k2c", "capped K2"),
-                       ("kc", "corner build"), ("r1", "R1"), ("r2", "R2"), ("s1", "S1"), ("s2", "S2")):
+                       ("kc", "corner build"), ("r1", "R1"), ("r2", "R2"), ("s1", "S1"), ("s2", "S2"), ("p1", "P1"),
+                       ("p2", "P2")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
@@ -3430,6 +3646,8 @@ def main() -> None:
         ("r2", "render_bwd", "render_bwd.cu", "models/camera.py:229", r17["r2_launches"], r17["r2_err"]),
         ("s1", "march_slab_fwd", "march_slab_fwd.cu", "parallel/bricks.py:212", r20["s1_launches"], r20["s1_err"]),
         ("s2", "march_slab_bwd", "march_slab_bwd.cu", "parallel/bricks.py:311", r20["s2_launches"], r20["s2_err"]),
+        ("p1", "pack_field_fwd", "pack_field.cu", "ops/fields.py:124", train_launches, r21["p1_err"]),
+        ("p2", "pack_field_bwd", "pack_field.cu", "ops/fields.py:124", train_launches, r21["p2_err"]),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,

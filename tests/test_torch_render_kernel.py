@@ -363,6 +363,7 @@ inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v)
   unsigned long long o = *p; *p = o + v; return o;
 }
 inline void __syncwarp(unsigned = 0) {}
+inline void __syncthreads() {}
 inline unsigned __match_any_sync(unsigned, int) { return 1u; }
 inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
 inline int __any_sync(unsigned, bool p) { return p; }

@@ -220,8 +220,10 @@ def endpoint_render(
 
     ``kernel``: "auto" runs the CUDA kernels for 3-D fields on a CUDA
     device and the plain march otherwise; "cuda" runs the kernels or
-    raises; "plain" runs the plain march.  ``translucency`` is an int64
-    grid holding uint32 values, or a float grid in [0, 1]; its
+    raises; "plain" runs the plain march.  The field's build follows it
+    (``build_packed_field(kernel=)``: P1, and P2 in the backward, on the
+    kernels' route; the plain body on the plain one).  ``translucency``
+    is an int64 grid holding uint32 values, or a float grid in [0, 1]; its
     absorption acts on termination only and gets no gradient.  ``layout``
     picks the kernel path's table: "lines" (the default, K1-K4) or
     "points" (K5, K6); the plain path ignores it, as the JAX "xla" branch
@@ -250,7 +252,7 @@ def endpoint_render(
         kernel = "plain"
     use_cuda = use_kernels(kernel, ior.device, positions.shape[-1])
 
-    packed = build_packed_field(ior, translucency)
+    packed = build_packed_field(ior, translucency, kernel=kernel)
     trc = None if translucency is None else cropped_translucency(translucency)
     pos = positions - 0.5
     dirs = directions * interp_linear(ior, pos)[..., None]
@@ -288,11 +290,11 @@ def make_train_step(
     loss)``.  Every rank passes the global batch and takes its rows of
     ``mesh[axis]``'s share; the field is replicated.  Each rank marches its
     share in ``accum_steps`` micro-batches through ``endpoint_render``
-    (``kernel="auto"``: K1-K4 on the card), each with its own backward into
-    one local gradient, then the gradient and the loss are summed over the
-    axis's group in **one** ``all_reduce`` (≙ JAX's psum pair; with
-    accumulation the one collective a step, BASELINE config 4's voxel-grad
-    all-reduce).  The step takes ``ior.detach()`` as its leaf, so it never
+    (``kernel="auto"``: P1, K1-K4 and P2 on the card), each with its own
+    backward into one local gradient, then the gradient and the loss are
+    summed over the axis's group in **one** ``all_reduce`` (≙ JAX's psum
+    pair; with accumulation the one collective a step, BASELINE config
+    4's voxel-grad all-reduce).  The step takes ``ior.detach()`` as its leaf, so it never
     accumulates into the caller's tensor, and returns a detached field and
     a 0-d loss, equal on every rank.  Raises ``ValueError`` when the batch
     does not split evenly over the axis or a rank's share by

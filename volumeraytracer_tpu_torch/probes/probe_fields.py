@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""Where the training paths' time goes on one GPU now that the packed field
+is built by P1 and differentiated by P2, for this checkout and, with
+``--parent``, another one in turns.
+
+    python3 -m volumeraytracer_tpu_torch.probes.probe_fields [--parent DIR] [--out FILE.json]
+
+``DIR`` holds another checkout of the repository (for example the parent
+commit, unpacked with ``git archive`` into a directory that .gitignore
+lists).  With ``--parent``, one child process per version runs in the
+order parent, this checkout, this checkout, parent; without it, one child
+of this checkout.  Each child imports ``volumeraytracer_tpu_torch`` from
+its own root and times four calls, each ending in a sync:
+
+- ``line``: the line train step at the bench (``chip_smoke.py``'s
+  ``train_step``: ``endpoint_render`` of the 256³ lens, 362² rays, budget
+  512, the loss Σ end y, backward, SGD);
+- ``points``: the same with ``layout="points"``;
+- ``camera``: ``image_loss``'s value and gradient to the index, σ and the
+  3-channel emission at phase 17's 1024² camera through 256³;
+- ``bricks``: phase 20a's train step, one brick of the 512³ lens
+  (``make_brick_train_step`` at world size 1, budget 256, k_steps 32,
+  131,072 scattered rays at |d| = 1, targets 2 voxels past each start).
+
+For each: the host clock of ``REPS`` calls after a warm-up, the peak of
+``max_memory_allocated`` above the call's start, the first call's loss,
+and ``torch.profiler``'s device time by operation, busy share and host
+time (``probe_fixed._profile``).  Fails unless each call's first loss is
+within rtol 1e-5 of the first child's.  Prints one line a call and child
+with the card's name and power limit, and writes everything to ``--out``
+as JSON.  Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+#: timed calls of each after the warm-up
+REPS = 5
+CALLS = ("line", "points", "camera", "bricks")
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _calls(sm, torch, dev) -> dict:
+    """The four calls, each a function that returns its loss."""
+    import numpy as np
+
+    from volumeraytracer_tpu_torch import PinholeCamera, endpoint_render, image_loss, render_image
+    from volumeraytracer_tpu_torch.ops.fields import build_packed_field
+    from volumeraytracer_tpu_torch.parallel import bricks, make_mesh
+    from volumeraytracer_tpu_torch.workloads import build_scattered_rays
+
+    lens = sm.lens_field()
+    ior = torch.from_numpy(lens).to(dev)
+    pos, dirs = (torch.from_numpy(a).to(dev) for a in sm.bench_rays())
+
+    def train_step(leaf, layout):
+        leaf.grad = None
+        end_pos, _ = endpoint_render(leaf, pos, dirs, sm.BUDGET, sm.INV, 64, kernel="auto", layout=layout)
+        loss = end_pos[:, 1].sum()
+        loss.backward()
+        with torch.no_grad():
+            leaf -= 1e-3 * leaf.grad
+        return loss
+
+    line_leaf = ior.clone().requires_grad_(True)
+    point_leaf = ior.clone().requires_grad_(True)
+
+    n = lens.shape[0]
+    blob = torch.from_numpy(sm.blob_field(n - 2)).to(dev)
+    sigma, e = 0.3 * blob, 2.0 * blob
+    emission = torch.stack([e, 0.5 * e, 0.0 * e], dim=-1)
+    cam = PinholeCamera(origin=(1.5, n / 2, n / 2), forward=(1.0, 0.0, 0.0), up=(0.0, 0.0, 1.0), width=1024,
+                        height=1024, fov=0.45, speed=0.5)
+    rkw = dict(budget=sm.BUDGET, invscale=sm.INV, sigma=sigma, emission=emission, background=(0.1, 0.05, 0.0))
+    ax = np.linspace(-1.0, 1.0, n, dtype=np.float32)
+    xx, yy, zz = np.meshgrid(ax, ax, ax, indexing="ij")
+    true_ior = torch.from_numpy(1.0 + 0.55 * np.exp(-4.0 * (xx * xx + yy * yy + zz * zz))).to(dev)
+    del xx, yy, zz
+    with torch.no_grad():
+        target = render_image(build_packed_field(true_ior), true_ior, cam, **rkw)["image"]
+    del true_ior
+    leaves = [x.clone().requires_grad_(True) for x in (ior, sigma, emission)]
+
+    def camera():
+        for leaf in leaves:
+            leaf.grad = None
+        loss = image_loss(leaves[0], cam, target, budget=sm.BUDGET, invscale=sm.INV, sigma=leaves[1],
+                          emission=leaves[2], background=rkw["background"])
+        loss.backward()
+        return loss
+
+    grid = sm.P20_GRID
+    big = torch.from_numpy(sm.lens_field(grid)).to(dev)
+    bpos, bdirs = build_scattered_rays(sm.P20_RAYS, grid=grid, seed=0)
+    bpos, bdirs = torch.from_numpy(bpos).to(dev), torch.from_numpy(bdirs / 16.0).to(dev)
+    targets = bpos + torch.tensor([2.0, 0.0, 0.0], device=dev)
+    mesh = make_mesh(axis="bricks")
+    slab = bricks.shard_slabs(mesh, bricks.build_ior_slabs(big, 1)[0])
+    del big
+    step = bricks.make_brick_train_step(mesh, grid - 2, budget=sm.P20_TRAIN["budget"], invscale=sm.INV,
+                                        k_steps=sm.P20_TRAIN["k_steps"], lr=1e-6)
+    return {
+        "line": lambda: train_step(line_leaf, None),
+        "points": lambda: train_step(point_leaf, "points"),
+        "camera": camera,
+        "bricks": lambda: step(slab, bpos, bdirs, targets)[1],
+    }
+
+
+def child(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.distributed as dist
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.probes.probe_fixed import _profile
+    from volumeraytracer_tpu_torch.probes.probe_k4k6 import _smoke
+
+    if not Path(_build.__file__).resolve().is_relative_to(root.resolve()):
+        raise SystemExit(f"probe_fields: imported {_build.__file__}, not from {root}")
+    dev = torch.device("cuda", 0)
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    _build.load()
+    out = {"build_s": time.perf_counter() - t0}
+    for name, fn in _calls(_smoke(), torch, dev).items():
+        sync()
+        _build.launches.clear()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(fn())
+        sync()
+        res = {"loss": loss, "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               "launches": dict(_build.launches)}
+        times = []
+        for _ in range(REPS):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["ms"] = times
+        res["profile"] = _profile(torch, fn, reps=3)
+        out[name] = res
+    dist.destroy_process_group()
+    return out
+
+
+def _print(label: str, res: dict, card: str) -> None:
+    for name in CALLS:
+        o = res[name]
+        prof = o["profile"]
+        top = ", ".join(f"{d['name'][:40]} {d['ms']:.3f} ms ×{d['launches']:.0f}" for d in prof["device_ops"][:8])
+        print(f"probe_fields {label} {name}: {[round(x, 3) for x in o['ms']]} ms (host clock with a sync), peak "
+              f"{o['peak_gib']:.3f} GiB above the start, loss {o['loss']:.8g}, launches {o['launches']}; profile: "
+              f"device {prof['device_ms']:.3f} ms, busy share {prof['busy_share']:.3f}, host {prof['host_ms']:.2f} ms; "
+              f"{top} [{card}]")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, help="another checkout of the repository, timed in turns with this one")
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child is not None:
+        print(json.dumps(child(args.child)))
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_fields: no CUDA device")
+    if args.parent is not None and not (args.parent / "volumeraytracer_tpu_torch").is_dir():
+        raise SystemExit("--parent must name a checkout that holds volumeraytracer_tpu_torch/")
+    card = _card()
+    print(card)
+
+    def run_child(label, root):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root.resolve())]
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(REPO), timeout=1200,
+                              env={**os.environ, "PYTHONDONTWRITEBYTECODE": "1"})
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout[-5000:] + proc.stderr[-20000:])
+            raise SystemExit(f"probe_fields: the {label} child failed ({proc.returncode})")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["label"] = label
+        _print(label, res, card)
+        return res
+
+    if args.parent is None:
+        runs = [run_child("change", REPO)]
+    else:
+        runs = [run_child("parent", args.parent), run_child("change", REPO), run_child("change", REPO),
+                run_child("parent", args.parent)]
+    for name in CALLS:
+        ref = runs[0][name]["loss"]
+        losses = [r[name]["loss"] for r in runs]
+        if any(abs(x - ref) > 1e-5 * abs(ref) for x in losses):
+            raise SystemExit(f"probe_fields: {name}'s first losses differ beyond rtol 1e-5: {losses}")
+    print(f"probe_fields first losses within rtol 1e-5 across {len(runs)} runs [{card}]")
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
+
+
+if __name__ == "__main__":
+    main()
