@@ -272,7 +272,14 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      their yardsticks, one cuDNN call each with TF32 off (conv3d of the
      log field with the stamp as a (3, 1, 3, 3, 3) weight; conv_transpose3d
      of the cotangent's channels 0-2), checked to compute P1's channels
-     and P2's dL, at 256^3, and P1's and P2's at the slab.
+     and P2's dL, at 256^3, and P1's and P2's at the slab, each with its
+     share of the bound and achieved TB/s; their ptxas report and stack
+     frame; P2 at 256^3 under a cotangent nine voxels in ten zero (as a
+     train step's), within 1e-5 of the plain VJP's largest value, and its
+     time.
+
+``python3 chip_smoke.py --phase21`` runs phases 1, 2 and 21 alone, a
+quick check of P1 and P2 that prints no result line.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
@@ -294,6 +301,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -400,6 +408,14 @@ def bench_rays(n_rays=131072, grid=256):
     pos = np.stack([np.full(side * side, 2.0, np.float32), yy.ravel(), zz.ravel()], axis=-1)
     dirs = np.tile(np.array([[16.0, 0.0, 0.0]], np.float32), (side * side, 1))
     return pos, dirs
+
+
+def lens40_translucency(n=40):
+    """Phase 4's translucency of lens40: transparent but for an opaque x
+    plane at 9."""
+    tr = np.full((n, n, n), 0xFFFFFFFF, np.int64)
+    tr[9] = 0
+    return tr
 
 
 def grin(n, amp=0.4):
@@ -2326,23 +2342,31 @@ def phase20(dev, card) -> dict:
     return r20
 
 
-def phase21(dev, t, timed, card, ior256, ior40, tr40) -> dict:
+def phase21(dev, t, timed, card, ior256, ior40, tr40, ptxas) -> dict:
     """P1 and P2, the packed-field build and its adjoint, on the card (see
     the module doc, phase 21); returns their errors, times and bounds at the
-    bench's 256³ for the kernels line."""
+    bench's 256³ for the kernels line.  ``ptxas``: phase 2's report by
+    kernel."""
     import torch
 
     from volumeraytracer_tpu_torch import RaytraceScene
     from volumeraytracer_tpu_torch.kernels import _build
     from volumeraytracer_tpu_torch.kernels import pack_field as pf
     from volumeraytracer_tpu_torch.ops.fields import (
-        STAMP_3D, STAMP_WEIGHT_3D, TRANSPARENT, build_packed_field, ior_log,
+        STAMP_3D, STAMP_WEIGHT_3D, TRANSPARENT, build_packed_field, ior_log, pack_field_vjp_plain,
     )
     from volumeraytracer_tpu_torch.parallel import bricks
     from volumeraytracer_tpu_torch.types import DIFF_DIV, IORLOG_UNIT
 
     sync = torch.cuda.synchronize
     r = {"p1_err": 0.0, "p2_err": 0.0}
+    # ptxas' report, and each kernel's stack frame (a helper not inlined
+    # into it would need one)
+    frames = dict(re.findall(r"Function properties for \S*?(pack_field_(?:fwd|bwd))_kernel\S*\s+(\d+) bytes stack frame",
+                             _build.build_log))
+    for name in ("pack_field_fwd", "pack_field_bwd"):
+        print(f"phase 21 ptxas {name}: " + ", ".join(f"{k} {v}" for k, v in ptxas[name].items())
+              + f", stack frame {frames.get(name, '?')} bytes")
 
     sync()
     _build.launches.clear()
@@ -2352,15 +2376,28 @@ def phase21(dev, t, timed, card, ior256, ior40, tr40) -> dict:
         raise AssertionError(f"a scene's construction on the card launched {dict(_build.launches)}, expected P1 once")
     print("phase 21 RaytraceScene(256^3 lens) on the card: P1 launched once")
 
-    def bounds(shape):
-        """P1's and P2's bounds at an ior of ``shape``: P1 reads the ior once
-        and writes the 16 B records, P2 reads the records and the ior and
-        writes the gradient; their operations as PACK_OPS and PACK_BWD_OPS
-        count them."""
+    def nbytes(shape):
+        """The bytes of P1's and P2's bounds at an ior of ``shape``: P1 reads
+        the ior once and writes the 16 B records, P2 reads the records and
+        the ior and writes the gradient."""
         n_in = shape[0] * shape[1] * shape[2]
         n_out = (shape[0] - 2) * (shape[1] - 2) * (shape[2] - 2)
-        return (kernel_bound(PACK_OPS * n_out + 2 * n_in, 4 * n_in + 16 * n_out),
-                kernel_bound(PACK_BWD_OPS * n_in + 3 * n_out, 16 * n_out + 8 * n_in))
+        return n_in, n_out, 4 * n_in + 16 * n_out, 16 * n_out + 8 * n_in
+
+    def bounds(shape):
+        """P1's and P2's bounds at an ior of ``shape``: the bytes of
+        ``nbytes``, their operations as PACK_OPS and PACK_BWD_OPS count
+        them."""
+        n_in, n_out, b1, b2 = nbytes(shape)
+        return (kernel_bound(PACK_OPS * n_out + 2 * n_in, b1), kernel_bound(PACK_BWD_OPS * n_in + 3 * n_out, b2))
+
+    def rates(where, shape, ms1, ms2):
+        """A line of P1's and P2's times, bounds, shares and achieved TB/s
+        (the bound's bytes over the time)."""
+        (p1b, _), (p2b, _) = bounds(shape)
+        _, _, b1, b2 = nbytes(shape)
+        print(f"phase 21 {where}: P1 {ms1:.4f} ms (bound {p1b:.4f}, share {p1b / ms1:.3f}, {b1 / ms1 / 1e9:.3f} TB/s), "
+              f"P2 {ms2:.4f} ms (bound {p2b:.4f}, share {p2b / ms2:.3f}, {b2 / ms2 / 1e9:.3f} TB/s) {card}")
 
     slab = bricks.build_ior_slabs(torch.from_numpy(lens_field(P20_GRID)).to(dev), 1)[0][0]
     for name, ior, tr in (("256^3 bench lens", ior256, None),
@@ -2397,10 +2434,8 @@ def phase21(dev, t, timed, card, ior256, ior40, tr40) -> dict:
         print(f"phase 21 {name}: P1 equal to the plain body bit for bit (packed {tuple(got.shape)}); P2 vs the plain "
               f"autograd backward max err {err:.3g} of {top:.3g}")
         if name.startswith("phase 20a"):
-            (p1b, _), (p2b, _) = bounds(tuple(ior.shape))
-            print(f"phase 21 time at the slab: P1 {timed(lambda: pf.pack_field_cuda(ior, TRANSPARENT), 10):.4f} ms (bound "
-                  f"{p1b:.4f}), P2 {timed(lambda: pf.pack_field_bwd_cuda(ior, cot), 10):.4f} ms (bound {p2b:.4f}) "
-                  f"{card}")
+            rates("time at the slab", tuple(ior.shape), timed(lambda: pf.pack_field_cuda(ior, TRANSPARENT), 10),
+                  timed(lambda: pf.pack_field_bwd_cuda(ior, cot), 10))
         del got, ref, cot, leaf, g_ref, g_got
     del slab
 
@@ -2488,10 +2523,27 @@ def phase21(dev, t, timed, card, ior256, ior40, tr40) -> dict:
         print(f"phase 21 time {label} 256^3: {times[key]:.4f} ms {card}")
     print(f"phase 21 the yardsticks against P1's channels 0-2 and P2's dL: max err over the largest "
           f"{lib_err[0]:.3g}, {lib_err[1]:.3g}")
+    rates("time at 256^3", tuple(ior256.shape), times["p1"], times["p2"])
+
+    # P2 under a cotangent nine voxels in ten zero (a train step's is
+    # sparse: only the voxels its rays pass get a gradient), against the
+    # plain VJP within 1e-5 of its largest, and its time
+    keep = torch.rand(cot.shape[:3], generator=torch.Generator(device=dev).manual_seed(23), device=dev) >= 0.9
+    sparse = cot * keep[..., None]
+    got, ref = pf.pack_field_bwd_cuda(ior256, sparse), pack_field_vjp_plain(ior256, sparse)
+    sync()
+    err, top = (got - ref).abs().max().item(), ref.abs().max().item()
+    if not (bool(torch.isfinite(got).all()) and err <= 1e-5 * top):
+        raise AssertionError(f"P2 under a sparse cotangent: max err {err:.3g} beyond 1e-5 of the plain VJP's {top:.3g}")
+    r["p2_err"] = max(r["p2_err"], err)
+    print(f"phase 21 P2 at 256^3 under a cotangent nine tenths zero: {timed(lambda: pf.pack_field_bwd_cuda(ior256, sparse), 20):.4f} "
+          f"ms (a dense one {times['p2']:.4f}); against the plain VJP max err {err:.3g} of {top:.3g} {card}")
     return r
 
 
-def main() -> None:
+def main(quick21: bool = False) -> None:
+    """The phases in order; ``quick21`` (``--phase21``) runs phases 1, 2 and
+    21 alone and prints no result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2517,6 +2569,26 @@ def main() -> None:
         """numpy data (converted on the host) → tensor on the card."""
         return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(dtype))).to(dev)
 
+    def timed(fn, reps, warm=1):
+        for _ in range(warm):
+            fn()
+        sync()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        sync()
+        return start.elapsed_time(stop) / reps
+
+    def turns(old, new, reps):
+        """Times of ``old`` and ``new`` in turns (old, new, new, old):
+        ([old, old], [new, new])."""
+        t_old, t_new = [timed(old, reps)], [timed(new, reps)]
+        t_new.append(timed(new, reps))
+        t_old.append(timed(old, reps))
+        return t_old, t_new
+
     # 1. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2540,6 +2612,10 @@ def main() -> None:
         raise AssertionError(f"ptxas reports spills: {spills}")
     if set(ptxas) != set(KERNELS):
         raise AssertionError(f"ptxas reported {sorted(ptxas)}, not the kernels {sorted(KERNELS)}")
+    if quick21:
+        phase21(dev, t, timed, card, t(lens_field()), grin(40), lens40_translucency(), ptxas)
+        print("chip_smoke --phase21: phases 1, 2 and 21 passed")
+        return
 
     # 3. K1 against its plain version, bit-exact
     lens = lens_field()
@@ -2569,8 +2645,7 @@ def main() -> None:
     # 4. K2 against the plain march on tests/test_lines.py's scenes
     n = 40
     ior40 = grin(n)
-    tr40 = np.full((n, n, n), 0xFFFFFFFF, np.int64)
-    tr40[9] = 0
+    tr40 = lens40_translucency()
     packed40 = build_packed_field(t(ior40), t(tr40, np.int64))
     pos, dirs = (t(a) for a in lines_rays(70)[:2])
     for budget in (64, 300):
@@ -2668,26 +2743,6 @@ def main() -> None:
           f"{int(r.end_iteration[0])} steps, end x {float(r.end_position[0, 0]):.3f}")
 
     # 7. times
-    def timed(fn, reps, warm=1):
-        for _ in range(warm):
-            fn()
-        sync()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        sync()
-        return start.elapsed_time(stop) / reps
-
-    def turns(old, new, reps):
-        """Times of ``old`` and ``new`` in turns (old, new, new, old):
-        ([old, old], [new, new])."""
-        t_old, t_new = [timed(old, reps)], [timed(new, reps)]
-        t_new.append(timed(new, reps))
-        t_old.append(timed(old, reps))
-        return t_old, t_new
-
     table, nb = line_table_cuda.build_line_table_cuda(packed256)
     p0 = pos - 0.5
     d = dirs * interp_linear(ior256, p0)[..., None]
@@ -3571,7 +3626,7 @@ def main() -> None:
     # 21. P1 and P2, the packed-field build and its adjoint, against the
     # plain body and its autograd at 256^3, on lens40 with its translucency
     # and at phase 20a's 512^3 slab; a scene's construction
-    r21 = phase21(dev, t, timed, card, ior256, ior40, tr40)
+    r21 = phase21(dev, t, timed, card, ior256, ior40, tr40, ptxas)
     times.update(r21["times"])
 
     # bounds from this run's shapes and executed steps: each input read once,
@@ -3668,4 +3723,4 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--phase20-worker"]:
         phase20_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     else:
-        main()
+        main(quick21=sys.argv[1:2] == ["--phase21"])

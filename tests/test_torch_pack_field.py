@@ -9,7 +9,11 @@ tensors and 2-D fields take the plain body and launch nothing.  The CUDA
 source is compiled for the host with g++ (tests/
 test_torch_render_kernel.py's ``HOST_SHIM``, one thread a block) and driven
 through the wrappers, the ``autograd.Function`` and ``endpoint_render``:
-P1 against the plain body, P2 against ``pack_field_vjp_plain``.
+P1 against the plain body, P2 against ``pack_field_vjp_plain``.  That build
+sets a block's x chunk to ``HOST_CX`` planes, so that small fields span
+several chunks as the card's large ones do; a second build keeps the
+card's chunk (``CX``), and the variants of ``probes/sweep_pack.py`` that
+change the tile, the rows a thread or the ring are built and held alike.
 """
 
 import contextlib
@@ -37,11 +41,23 @@ from volumeraytracer_tpu_torch.kernels import _build
 from volumeraytracer_tpu_torch.kernels import pack_field as pf
 from volumeraytracer_tpu_torch.ops.march import march_float
 from volumeraytracer_tpu_torch.ops.fields import TRANSPARENT, build_packed_field, pack_field_vjp_plain
+from volumeraytracer_tpu_torch.probes import sweep_pack
 
 SHAPES = [(12, 12, 12), (9, 13, 7), (20, 6, 11)]
-#: a shape that spans two of the kernels' x chunks, two y tiles and two z
-#: tiles (16, 8 and 32 voxels)
-WIDE = (19, 11, 40)
+#: the x planes a block of the host build marches (VRT_PACK_CX); the
+#: card's are CX in csrc/pack_field.cu
+HOST_CX = 5
+#: a shape that spans several of the host build's x chunks, two y tiles and
+#: two z tiles (16 and 32 voxels), ragged on each axis, in P1's outputs
+#: (19, 19, 38) and P2's voxels (21, 21, 40)
+WIDE = (21, 21, 40)
+#: the shape WIDE was when a tile was 8 x 32 and a chunk 16 planes: kept,
+#: one y tile and two z tiles
+NARROW = (19, 11, 40)
+#: the smallest fields (3 voxels on an axis; along x, one output plane,
+#: where the copies of planes ahead run past the end) and x extents shorter
+#: than the planes a block reads and copies before its first output
+EDGES = [(3, 3, 3), (3, 20, 37), (4, 19, 3), (5, 3, 36), (17, 4, 5)]
 TRANSLUCENCY = ["none", "uint32", "float"]
 #: P2 against the plain VJP, and the plain VJP against the transposes of
 #: JAX and autograd: float32 sums of the same terms in another order
@@ -159,16 +175,18 @@ def test_wrappers_raise_off_the_card_and_on_bad_inputs(monkeypatch):
         pf.pack_field_bwd_cuda(io, torch.zeros((4, 5, 6, 3)))
 
 
-def _host_library(tmp):
-    """P1's and P2's CUDA source compiled for the host by g++ (no
-    contraction) through HOST_SHIM, one thread a block."""
+def _host_library(tmp, cx=HOST_CX, source=None):
+    """P1's and P2's CUDA source (or ``source``, a variant of it) compiled
+    for the host by g++ (no contraction) through HOST_SHIM, one thread a
+    block, a block's x chunk ``cx`` planes (None: the card's, CX)."""
     (tmp / "cuda_runtime.h").write_text(HOST_SHIM)
     text, k = re.subn(r"(\w+)<<<(\w+),[^;]*?>>>\(", r"HOST_LAUNCH(\2, \1)(",
-                      (_build._HERE / "csrc" / "pack_field.cu").read_text())
+                      source or (_build._HERE / "csrc" / "pack_field.cu").read_text())
     assert k == 2
     (tmp / "pack_field.cpp").write_text(text)
     lib_path = tmp / "libpack_host.so"
-    proc = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", f"-I{tmp}",
+    defines = [] if cx is None else [f"-DVRT_PACK_CX={cx}"]
+    proc = subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared", f"-I{tmp}", *defines,
                            "-o", str(lib_path), str(tmp / "pack_field.cpp")], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(str(lib_path))
@@ -183,6 +201,14 @@ def host_kernels(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this host")
     return _host_library(tmp_path_factory.mktemp("pack_host"))
+
+
+@pytest.fixture(scope="module")
+def host_kernels_card_chunks(tmp_path_factory):
+    """The host build with the card's x chunk (CX)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    return _host_library(tmp_path_factory.mktemp("pack_host_card_chunks"), cx=None)
 
 
 def _open_host(monkeypatch, lib):
@@ -215,9 +241,7 @@ def _p1_atol(ior: torch.Tensor) -> float:
     return (812 * 2 * float(np.spacing(np.float32(top))) + 9 * 0.5 * float(np.spacing(np.float32(812 * top)))) / 207872
 
 
-@pytest.mark.parametrize("tr_kind", TRANSLUCENCY)
-@pytest.mark.parametrize("shape", SHAPES + [WIDE], ids=lambda s: "x".join(map(str, s)))
-def test_host_p1_matches_the_plain_body(shape, tr_kind, on_host):
+def _check_host_p1(shape, tr_kind):
     """P1 from its CUDA source through ``build_packed_field(kernel="cuda")``
     on CPU tensors: one launch, the gradient channels within ``_p1_atol`` of
     the plain body's, the opacity channel equal."""
@@ -231,14 +255,15 @@ def test_host_p1_matches_the_plain_body(shape, tr_kind, on_host):
     assert torch.equal(got[..., 3], ref[..., 3])
 
 
-@pytest.mark.parametrize("layout", ["contiguous", "strided"])
-@pytest.mark.parametrize("shape", SHAPES + [WIDE], ids=lambda s: "x".join(map(str, s)))
-def test_host_p2_matches_the_plain_vjp(shape, layout, on_host):
+def _check_host_p2(shape, layout, sparse=False):
     """P2 from its CUDA source through ``pack_field_bwd_cuda`` on CPU
     tensors, under a cotangent as made and as a strided view (made
-    contiguous by the wrapper): one launch, within 1e-5 of the largest
-    value of ``pack_field_vjp_plain``."""
+    contiguous by the wrapper), or (``sparse``) with nine values in ten
+    zero, as a train step's: one launch, within 1e-5 of the largest value
+    of ``pack_field_vjp_plain``."""
     ior, _, cot = _inputs(shape, "none", seed=3 * sum(shape))
+    if sparse:
+        cot[np.random.default_rng(sum(shape)).random(cot.shape[:3]) < 0.9] = 0.0
     io = torch.from_numpy(ior)
     d = torch.from_numpy(cot)
     if layout == "strided":
@@ -246,7 +271,59 @@ def test_host_p2_matches_the_plain_vjp(shape, layout, on_host):
         assert not d.is_contiguous()
     got = pf.pack_field_bwd_cuda(io, d)
     assert dict(_build.launches) == {"pack_field_bwd": 1}
-    _assert_vjp_close(got.numpy(), pack_field_vjp_plain(io, d).numpy(), "P2 against the plain VJP")
+    ref = pack_field_vjp_plain(io, d).numpy()
+    _assert_vjp_close(got.numpy(), ref, "P2 against the plain VJP")
+    # where the plain gradient is exactly 0, so is P2's
+    assert not got.numpy()[ref == 0].any()
+
+
+@pytest.mark.parametrize("tr_kind", TRANSLUCENCY)
+@pytest.mark.parametrize("shape", SHAPES + [NARROW, WIDE], ids=lambda s: "x".join(map(str, s)))
+def test_host_p1_matches_the_plain_body(shape, tr_kind, on_host):
+    """P1 (``_check_host_p1``) in the host build's x chunks."""
+    _check_host_p1(shape, tr_kind)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("shape", SHAPES + [NARROW, WIDE], ids=lambda s: "x".join(map(str, s)))
+def test_host_p2_matches_the_plain_vjp(shape, layout, on_host):
+    """P2 (``_check_host_p2``) in the host build's x chunks."""
+    _check_host_p2(shape, layout)
+
+
+@pytest.mark.parametrize("tr_kind", ["none", "float"])
+@pytest.mark.parametrize("shape", EDGES, ids=lambda s: "x".join(map(str, s)))
+def test_host_p1_on_the_smallest_fields(shape, tr_kind, on_host):
+    """P1 (``_check_host_p1``) where an axis has 3 voxels or x is shorter
+    than the planes a block loads ahead."""
+    _check_host_p1(shape, tr_kind)
+
+
+@pytest.mark.parametrize("shape", EDGES, ids=lambda s: "x".join(map(str, s)))
+def test_host_p2_on_the_smallest_fields(shape, on_host):
+    """P2 (``_check_host_p2``) where an axis has 3 voxels or x is shorter
+    than the planes a block loads ahead."""
+    _check_host_p2(shape, "contiguous")
+
+
+@pytest.mark.parametrize("shape", [WIDE, (3, 20, 37), (40, 5, 6)], ids=lambda s: "x".join(map(str, s)))
+def test_host_p2_under_a_sparse_cotangent(shape, on_host):
+    """P2 (``_check_host_p2``) under a cotangent nine tenths zeros, which
+    takes ``div_rn``'s zero branch."""
+    _check_host_p2(shape, "contiguous", sparse=True)
+
+
+@pytest.mark.parametrize("kernel", ["p1", "p2"])
+@pytest.mark.parametrize("shape", [WIDE, (3, 20, 37), (40, 5, 6)], ids=lambda s: "x".join(map(str, s)))
+def test_host_kernels_in_the_cards_chunks(shape, kernel, host_kernels_card_chunks, monkeypatch):
+    """P1 and P2 (``_check_host_p1``, ``_check_host_p2``) built with the
+    card's x chunk (CX, 32 planes): one chunk for WIDE and (3, 20, 37), two
+    for (40, 5, 6)."""
+    _open_host(monkeypatch, host_kernels_card_chunks)
+    if kernel == "p1":
+        _check_host_p1(shape, "uint32")
+    else:
+        _check_host_p2(shape, "strided")
 
 
 def test_host_kernels_through_autograd(on_host):
@@ -319,3 +396,64 @@ def test_endpoint_render_passes_its_kernel_to_the_build(host_kernels, monkeypatc
     auto = grads("auto")
     assert dict(_build.launches) == {"pack_field_fwd": 1, "pack_field_bwd": 1}
     _assert_vjp_close(auto.numpy(), plain.numpy(), "endpoint_render through P1 and P2")
+
+
+def test_sweep_variant_sources():
+    """``probes.sweep_pack``'s first variant is the source as it is; each
+    other one changes the constants it names and nothing else, and every
+    variant exports its blocks an SM; a source without a constant raises."""
+    src = (_build._HERE / "csrc" / "pack_field.cu").read_text()
+    head, tail = src.rsplit("}  // namespace", 1)
+    assert sweep_pack.VARIANTS[0] == (0,) * 6
+    assert sweep_pack.variant_source(src, 0, 0, 0, 0, 0) == \
+        head + sweep_pack.PROBES + "}  // namespace" + tail + sweep_pack.EXPORTS
+    v = sweep_pack.variant_source(src, 8, 64, 4, 3, 2)
+    for text in ("constexpr int TY = 8, TZ = 64;", "constexpr int RY = 4;", "constexpr int NS = 3;"):
+        assert text in v and text not in src
+    assert v.count("__launch_bounds__(THREADS, 2)") == 2
+    with pytest.raises(ValueError, match="RY"):
+        sweep_pack.variant_source(src.replace("constexpr int RY", "constexpr int ROWS"), 0, 0, 2, 0, 0)
+
+
+def test_sweep_sass_counts():
+    """``probes.sweep_pack.sass_counts`` on a short listing: P1's and P2's
+    instructions by family, all and in each loop, other kernels left out."""
+    sass = """
+        Function : _ZN12_GLOBAL__N_121pack_field_fwd_kernelEPKfS1_P6float4iiiiiif
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDGSTS.E [R2], desc[UR4][R4.64] ;
+        /*0020*/                   LDS R3, [R2] ;
+        /*0030*/                   FADD R3, R3, R3 ;
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0050*/               @P0 BRA 0x10 ;
+        /*0060*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_121pack_field_bwd_kernelEPKfPK6float4Pfiiiii
+        /*0000*/                   FMUL R2, R2, R3 ;
+        /*0010*/                   STG.E desc[UR4][R4.64], R2 ;
+        /*0020*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_122line_table_fold_kernelEPKfP6float4iiiiii
+        /*0000*/                   EXIT ;
+"""
+    assert sweep_pack.sass_counts(sass) == {
+        "pack_field_fwd": {"all": {"total": 7, "LDS": 1, "LDGSTS": 1, "BAR": 1, "MOV": 1, "FADD": 1, "BRA": 1},
+                           "loops": [{"total": 5, "LDS": 1, "LDGSTS": 1, "BAR": 1, "FADD": 1, "BRA": 1}]},
+        "pack_field_bwd": {"all": {"total": 3, "STG": 1, "FMUL": 1}, "loops": []},
+    }
+
+
+@pytest.mark.parametrize("variant", [v for v in sweep_pack.VARIANTS if any(v[:4])], ids=str)
+def test_host_sweep_variants(variant, tmp_path, monkeypatch):
+    """Each sweep variant that changes the tile, the rows a thread or the
+    ring, built for the host in ``HOST_CX`` chunks: P1 and P2 as
+    ``_check_host_p1`` and ``_check_host_p2`` (a sparse cotangent) hold
+    them on WIDE and on a field one output plane thick."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    src = sweep_pack.variant_source((_build._HERE / "csrc" / "pack_field.cu").read_text(), *variant[:4], 0)
+    lib = _host_library(tmp_path, source=src.replace(sweep_pack.PROBES, "").replace(sweep_pack.EXPORTS, ""))
+    _open_host(monkeypatch, lib)
+    for shape in (WIDE, (3, 20, 37)):
+        _build.launches.clear()
+        _check_host_p1(shape, "float")
+        _build.launches.clear()
+        _check_host_p2(shape, "contiguous", sparse=True)

@@ -380,6 +380,12 @@ inline int __float2int_rz(float f) {
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return 0; }
+#define VRT_HOST_SHIM 1
+inline float no_fold(float x) { return x; }
+inline void cp_async4(float* d, const float* s, bool valid) { *d = valid ? *s : 0.0f; }
+inline void cp_async16(float4* d, const float4* s, bool valid) { *d = valid ? *s : float4{0.0f, 0.0f, 0.0f, 0.0f}; }
+inline void cp_async_commit() {}
+template <int pending> inline void cp_async_wait() {}
 template <class T> inline int cudaMemcpyFromSymbol(void* dst, const T& sym, size_t n) {
   memcpy(dst, &sym, n); return 0;
 }

@@ -3,7 +3,7 @@
 is built by P1 and differentiated by P2, for this checkout and, with
 ``--parent``, another one in turns.
 
-    python3 -m volumeraytracer_tpu_torch.probes.probe_fields [--parent DIR] [--out FILE.json]
+    python3 -m volumeraytracer_tpu_torch.probes.probe_fields [--parent DIR] [--kernels-only] [--out FILE.json]
 
 ``DIR`` holds another checkout of the repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
@@ -26,9 +26,20 @@ For each: the host clock of ``REPS`` calls after a warm-up, the peak of
 ``max_memory_allocated`` above the call's start, the first call's loss,
 and ``torch.profiler``'s device time by operation, busy share and host
 time (``probe_fixed._profile``).  Fails unless each call's first loss is
-within rtol 1e-5 of the first child's.  Prints one line a call and child
-with the card's name and power limit, and writes everything to ``--out``
-as JSON.  Needs one CUDA device.
+within rtol 1e-5 of the first child's.
+
+Then P1 and P2 alone (``_kernel_times``, CUDA events over ``KERNEL_REPS``
+launches after a warm-up) at the bench's 256³ lens and at phase 20a's
+512³ slab: P1, and P2 under a seeded normal cotangent (dense), the same
+with nine voxels in ten zeroed (sparse), zeros, the cotangent that the
+line step (at 256³) or the brick step (at the slab) handed P2, and that
+cotangent's zero pattern filled with the dense values; with the share of
+the step's cotangent records whose channels 0-2 are all zero.
+``--kernels-only`` skips the four calls (and so the steps' cotangents).
+
+Prints one line a call and child with the card's name and power limit,
+then each kernel time of each child beside the others', and writes
+everything to ``--out`` as JSON.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -45,6 +56,10 @@ REPO = Path(__file__).resolve().parents[2]
 #: timed calls of each after the warm-up
 REPS = 5
 CALLS = ("line", "points", "camera", "bricks")
+#: launches a kernel time averages, after one warm-up
+KERNEL_REPS = 20
+#: the train steps whose cotangent into P2 is kept, and the field it is timed at
+STEP_COTANGENTS = {"line": "256", "bricks": "slab"}
 
 
 def _card() -> str:
@@ -119,12 +134,60 @@ def _calls(sm, torch, dev) -> dict:
     }
 
 
-def child(root: Path) -> dict:
+def _kernel_times(sm, torch, dev, step_cot: dict) -> dict:
+    """P1's and P2's times in ms (module doc) at the 256³ lens ("256") and
+    the 512³ slab ("slab"); ``step_cot`` maps those names to the cotangent
+    a train step handed P2."""
+    from volumeraytracer_tpu_torch.kernels import pack_field as pf
+    from volumeraytracer_tpu_torch.ops.fields import TRANSPARENT
+    from volumeraytracer_tpu_torch.parallel import bricks
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(KERNEL_REPS):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / KERNEL_REPS
+
+    out = {}
+    for name in ("256", "slab"):
+        if name == "256":
+            ior = torch.from_numpy(sm.lens_field()).to(dev)
+        else:
+            ior = bricks.build_ior_slabs(torch.from_numpy(sm.lens_field(sm.P20_GRID)).to(dev), 1)[0][0]
+        shape = tuple(int(n) - 2 for n in ior.shape) + (4,)
+        gen = torch.Generator(device=dev).manual_seed(20)
+        dense = torch.randn(shape, generator=gen, device=dev)
+        res = {"p1": timed(lambda: pf.pack_field_cuda(ior, TRANSPARENT)),
+               "p2_dense": timed(lambda: pf.pack_field_bwd_cuda(ior, dense))}
+        cot = dense * (torch.rand(shape[:3], generator=gen, device=dev) >= 0.9)[..., None]
+        res["p2_sparse"] = timed(lambda: pf.pack_field_bwd_cuda(ior, cot))
+        cot = torch.zeros_like(dense)
+        res["p2_zero"] = timed(lambda: pf.pack_field_bwd_cuda(ior, cot))
+        step = step_cot.get(name)
+        if step is not None:
+            res["p2_step"] = timed(lambda: pf.pack_field_bwd_cuda(ior, step))
+            nonzero = (step[..., :3] != 0).any(-1, keepdim=True)
+            res["step_zero_share"] = 1.0 - float(nonzero.float().mean())
+            cot = dense * nonzero
+            res["p2_step_pattern_dense"] = timed(lambda: pf.pack_field_bwd_cuda(ior, cot))
+        out[name] = res
+        del ior, dense, cot, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def child(root: Path, kernels_only: bool) -> dict:
     sys.path.insert(0, str(root))
     import torch
     import torch.distributed as dist
 
     from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import pack_field as pf
     from volumeraytracer_tpu_torch.probes.probe_fixed import _profile
     from volumeraytracer_tpu_torch.probes.probe_k4k6 import _smoke
 
@@ -135,7 +198,17 @@ def child(root: Path) -> dict:
     t0 = time.perf_counter()
     _build.load()
     out = {"build_s": time.perf_counter() - t0}
-    for name, fn in _calls(_smoke(), torch, dev).items():
+    sm = _smoke()
+    bwd, step_cot = pf.pack_field_bwd_cuda, {}
+
+    def keep_cotangent(name):
+        """P2's wrapper, keeping the first cotangent it is given in step_cot."""
+        def wrapper(ior, d_packed):
+            step_cot.setdefault(STEP_COTANGENTS[name], d_packed.detach().clone())
+            return bwd(ior, d_packed)
+        return wrapper
+
+    for name, fn in ({} if kernels_only else _calls(sm, torch, dev)).items():
         sync()
         _build.launches.clear()
         base = torch.cuda.memory_allocated()
@@ -154,12 +227,22 @@ def child(root: Path) -> dict:
         res["ms"] = times
         res["profile"] = _profile(torch, fn, reps=3)
         out[name] = res
-    dist.destroy_process_group()
+        if name in STEP_COTANGENTS:  # one more call, to keep its cotangent into P2
+            pf.pack_field_bwd_cuda = keep_cotangent(name)
+            try:
+                fn()
+            finally:
+                pf.pack_field_bwd_cuda = bwd
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    out["kernels"] = _kernel_times(sm, torch, dev, step_cot)
     return out
 
 
 def _print(label: str, res: dict, card: str) -> None:
     for name in CALLS:
+        if name not in res:
+            continue
         o = res[name]
         prof = o["profile"]
         top = ", ".join(f"{d['name'][:40]} {d['ms']:.3f} ms ×{d['launches']:.0f}" for d in prof["device_ops"][:8])
@@ -172,11 +255,12 @@ def _print(label: str, res: dict, card: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="another checkout of the repository, timed in turns with this one")
+    ap.add_argument("--kernels-only", action="store_true", help="time P1 and P2 alone, not the four calls")
     ap.add_argument("--out", type=Path)
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        print(json.dumps(child(args.child)))
+        print(json.dumps(child(args.child, args.kernels_only)))
         return
     import torch
 
@@ -188,7 +272,8 @@ def main() -> None:
     print(card)
 
     def run_child(label, root):
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root.resolve())]
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root.resolve()),
+               *(["--kernels-only"] if args.kernels_only else [])]
         proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(REPO), timeout=1200,
                               env={**os.environ, "PYTHONDONTWRITEBYTECODE": "1"})
         if proc.returncode != 0:
@@ -204,12 +289,17 @@ def main() -> None:
     else:
         runs = [run_child("parent", args.parent), run_child("change", REPO), run_child("change", REPO),
                 run_child("parent", args.parent)]
-    for name in CALLS:
+    for field in ("256", "slab"):
+        for key in runs[0]["kernels"][field]:
+            row = " ".join(f"{r['label']} {r['kernels'][field].get(key, float('nan')):.4f}" for r in runs)
+            print(f"probe_fields kernels {field} {key}: {row} [{card}]")
+    for name in ([] if args.kernels_only else CALLS):
         ref = runs[0][name]["loss"]
         losses = [r[name]["loss"] for r in runs]
         if any(abs(x - ref) > 1e-5 * abs(ref) for x in losses):
             raise SystemExit(f"probe_fields: {name}'s first losses differ beyond rtol 1e-5: {losses}")
-    print(f"probe_fields first losses within rtol 1e-5 across {len(runs)} runs [{card}]")
+    if not args.kernels_only:
+        print(f"probe_fields first losses within rtol 1e-5 across {len(runs)} runs [{card}]")
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
