@@ -61,9 +61,11 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      digests of the probes, volumeraytracer_tpu_torch/probes/probe_k4k6.py
      for K4-K6);
  14. the point train step at full size: endpoint_render(layout="points")
-     + backward + SGD, with K5, K6, P1 and P2 launched once each and K1-K4
-     not at all, d_ior against the plain path's and the line path's; times
-     of K5, K6, the plain point build and fold and the point train step;
+     + backward + SGD, with K5, K6, P1, P2, T1 and T2 (the point table's
+     build and fold, phase 22) launched once each and K1-K4 not at all,
+     d_ior against the plain path's and the line path's; times of K5, K6
+     and the point train step (T1's and T2's, and their plain versions,
+     in phase 22);
  15. the fixed-point path, trace_rays' default mode: (a) F1 (the uint32
      16.16 march) and the recording F1 (march_fixed_path) equal to the plain
      fixed march bit for bit on the phase 4 scenes at 16.16 positions,
@@ -276,10 +278,24 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      share of the bound and achieved TB/s; their ptxas report and stack
      frame; P2 at 256^3 under a cotangent nine voxels in ten zero (as a
      train step's), within 1e-5 of the plain VJP's largest value, and its
-     time.
+     time;
+ 22. T1 and T2 (kernels/march_pallas.py: point_table_build, the point
+     table's build, and point_table_fold, its gradient fold): at the bench's
+     256^3 lens with and without a seeded translucency's absorption row and
+     on lens40 (38^3, ragged on each axis) with and without its own, T1
+     through build_brick_table_cuda with one launch equal to the plain
+     build_brick_table bit for bit (int32 views); on a seeded gradient
+     table of each grid (a fifth of rows 0-3 +0.0, a tenth -0.0, rows 4-7
+     and lanes 1377.. NaN), T2 through fold_brickmajor_grads_cuda with one
+     launch equal to the plain fold_brickmajor_grads bit for bit and
+     finite; times (CUDA events over 20 calls; the plain versions over 3)
+     at 256^3, T1 also with the absorption row, and T2's yardstick, zeros +
+     index_add_ over a precomputed int32 index (checked against T2 within
+     1e-5); their bounds, shares and ptxas report.
 
-``python3 chip_smoke.py --phase21`` runs phases 1, 2 and 21 alone, a
-quick check of P1 and P2 that prints no result line.
+``python3 chip_smoke.py --phase21`` (``--phase22``) runs phases 1, 2 and
+21 (22) alone, a quick check of P1 and P2 (T1 and T2) that prints no
+result line.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
@@ -287,7 +303,8 @@ the point training step, F1 on the fixed trace, the recording K2 on the
 recorded float trace, the capped K2 and the corner build on
 march_lines_compact over the scattered rays, R1 on phase 17b's frame,
 R2 on phase 17c's image_loss gradient, S1 on phase 20a's trace and S2 on
-its first train step, P1 and P2 on the line training step), error
+its first train step, P1 and P2 on the line training step, T1 and T2 on
+the point training step), error
 against its plain
 version, times, its bound (the larger of its float32 operations over 67
 TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
@@ -2541,9 +2558,171 @@ def phase21(dev, t, timed, card, ior256, ior40, tr40, ptxas) -> dict:
     return r
 
 
-def main(quick21: bool = False) -> None:
-    """The phases in order; ``quick21`` (``--phase21``) runs phases 1, 2 and
-    21 alone and prints no result line."""
+def phase22(dev, t, timed, card, ior256, ior40, tr40, ptxas) -> dict:
+    """T1 and T2, the point table's build and its gradient fold, on the card
+    (see the module doc, phase 22); returns their errors, times and bounds
+    at the bench's 256³ for the kernels line.  ``ptxas``: phase 2's report
+    by kernel."""
+    import torch
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import march_pallas as mp
+    from volumeraytracer_tpu_torch.kernels.line_table import absorption_fraction
+    from volumeraytracer_tpu_torch.ops.fields import build_packed_field, cropped_translucency
+
+    sync = torch.cuda.synchronize
+    r = {"t1_err": 0.0, "t2_err": 0.0}
+    for name in ("point_table_build", "point_table_fold"):
+        print(f"phase 22 ptxas {name}: " + ", ".join(f"{k} {v}" for k, v in ptxas[name].items()))
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    def launched(fn, name):
+        """``fn()`` with the launch counts cleared before it; raises unless
+        it launched kernel ``name`` once and nothing else."""
+        sync()
+        _build.launches.clear()
+        out = fn()
+        sync()
+        if dict(_build.launches) != {name: 1}:
+            raise AssertionError(f"{name}'s wrapper launched {dict(_build.launches)}")
+        return out
+
+    rng = np.random.default_rng(22)
+    packed256 = build_packed_field(ior256)
+    tr256 = t(rng.integers(0, 2 ** 32, tuple(ior256.shape), dtype=np.uint64), np.int64)
+    packed40 = build_packed_field(t(ior40), t(tr40, np.int64))
+    fields = {"256^3 bench lens": (packed256, absorption_fraction(cropped_translucency(tr256)).contiguous()),
+              "lens40 (38^3, ragged)": (packed40, absorption_fraction(cropped_translucency(t(tr40, np.int64)))
+                                        .contiguous())}
+    del tr256
+    tables = {}
+    for name, (packed, absorb) in fields.items():
+        for ab in (None, absorb):
+            got, nb = launched(lambda: mp.build_brick_table_cuda(packed, ab), "point_table_build")
+            ref, nb_ref = mp.build_brick_table(packed, absorb=ab)
+            sync()
+            if nb != nb_ref or not torch.equal(bits(got), bits(ref)):
+                diff = (got - ref).abs().max().item() if got.shape == ref.shape else float("nan")
+                raise AssertionError(f"T1 differs from the plain build at {name}, absorption {ab is not None}: "
+                                     f"nb {nb} vs {nb_ref}, max {diff}")
+            if ab is not None and not bool(got[:, 4].any()):
+                raise AssertionError(f"T1 at {name}: the absorption row is empty")
+            r["t1_err"] = max(r["t1_err"], (got - ref).abs().max().item())
+            print(f"phase 22 T1 {name}, absorption {ab is not None}: table {tuple(got.shape)}, bricks {nb}, "
+                  f"one launch, equal to the plain build bit for bit")
+            tables[name] = nb
+            del got, ref
+
+    # T2 on a seeded gradient table: rows 0-3 normal with a fifth of them
+    # +0.0 and a tenth -0.0, rows 4-7 and lanes 1377.. NaN (T2 must not read them)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    gtables = {}
+    for name, (packed, _) in fields.items():
+        nb = tables[name]
+        g = torch.randn((nb[0] * nb[1] * nb[2], mp.GCH, mp.PVP), generator=gen, device=dev)
+        g[torch.rand(g.shape, generator=gen, device=dev) < 0.2] = 0.0
+        g[torch.rand(g.shape, generator=gen, device=dev) < 0.1] = -0.0
+        g[:, mp.NCH:] = float("nan")
+        g[:, :, mp.PV:] = float("nan")
+        got = launched(lambda: mp.fold_brickmajor_grads_cuda(g, packed.shape, nb), "point_table_fold")
+        ref = mp.fold_brickmajor_grads(g, packed.shape, nb)
+        sync()
+        if not (bool(torch.isfinite(got).all()) and torch.equal(bits(got), bits(ref))):
+            raise AssertionError(f"T2 differs from the plain fold at {name}: max "
+                                 f"{(got - ref).abs().max().item():.3g}, finite {bool(torch.isfinite(got).all())}")
+        r["t2_err"] = max(r["t2_err"], (got - ref).abs().max().item())
+        print(f"phase 22 T2 {name}: gradient {tuple(got.shape)}, one launch, equal to the plain fold bit for bit "
+              f"(rows 4-7 and lanes 1377.. NaN, never read)")
+        gtables[name] = g
+        del got, ref
+
+    # T2's yardstick: one index_add_ of the whole table into the padded point
+    # grid over a precomputed int32 index (K4's, phase 11); the entries T2
+    # does not fold (rows 4-7, lanes 1377..) go to 2^20 spare slots past the
+    # grid, so that their adds do not queue on one address
+    nb = tables["256^3 bench lens"]
+    g = gtables["256^3 bench lens"]
+    del gtables
+    ext = (nb[0] * mp.BX + 1, nb[1] * mp.BY + 1, nb[2] * mp.BZ + 1)
+    n_pts, spare = ext[0] * ext[1] * ext[2] * mp.NCH, 1 << 20
+    idx = torch.arange(n_pts, device=dev).reshape(*ext, mp.NCH)
+    idx = idx.unfold(0, mp.PX, mp.BX).unfold(1, mp.PY, mp.BY).unfold(2, mp.PZ, mp.BZ)
+    idx = idx.reshape(g.shape[0], mp.NCH, mp.PV)
+    idx = torch.nn.functional.pad(idx, (0, mp.PVP - mp.PV, 0, mp.GCH - mp.NCH), value=-1).reshape(-1)
+    unfolded = idx < 0
+    idx[unfolded] = n_pts + torch.arange(int(unfolded.sum()), device=dev) % spare
+    idx = idx.to(torch.int32)
+    del unfolded
+    gflat = g.reshape(-1)
+
+    def library_fold():
+        return torch.zeros(n_pts + spare, device=dev).index_add_(0, idx, gflat)
+
+    X, Y, Z, _ = packed256.shape
+    lib = library_fold()[:n_pts].reshape(*ext, mp.NCH)[:X, :Y, :Z]
+    t2 = mp.fold_brickmajor_grads_cuda(g, packed256.shape, nb)
+    torch.testing.assert_close(lib, t2, rtol=1e-5, atol=1e-5)
+    print(f"phase 22 T2 yardstick index_add_: max diff vs T2 {(lib - t2).abs().max().item():.3g}")
+    del lib, t2
+    times = {
+        "t1": timed(lambda: mp.build_brick_table_cuda(packed256), 20),
+        "t1_plain": timed(lambda: mp.build_brick_table(packed256), 3),
+        "t1_absorb": timed(lambda: mp.build_brick_table_cuda(*fields["256^3 bench lens"]), 20),
+        "t2": timed(lambda: mp.fold_brickmajor_grads_cuda(g, packed256.shape, nb), 20),
+        "t2_plain": timed(lambda: mp.fold_brickmajor_grads(g, packed256.shape, nb), 3),
+        "t2_library": timed(library_fold, 10),
+    }
+    r["times"] = times
+    del idx, gflat, g
+
+    # the bounds at 256³: T1 reads each packed record once (16 B; the
+    # absorption's 4 B with it) and writes the table; its float32
+    # operations are the 3 lo subtractions of each live lane.  T2 reads rows
+    # 0-3 of the entries whose point lies in the field (the bricks of the
+    # last layer of each axis reach past it) and writes the 16 B records;
+    # its operations are its adds, 4 channels times, at each point, the
+    # product of the terms each axis gives it (2 on a brick face with a
+    # brick below and on the far face, where the plain fold's pad adds
+    # +0.0, else 1) less one
+    n_bricks = nb[0] * nb[1] * nb[2]
+    table_bytes = n_bricks * mp.TCH * mp.PVP * 4
+    r["t1_bound"] = kernel_bound(3 * n_bricks * mp.PV, packed256.numel() * 4 + table_bytes)
+    t1_absorb_bound = kernel_bound(3 * n_bricks * mp.PV, packed256.numel() * 5 + table_bytes)
+
+    def terms(n, brick):
+        g = np.arange(n)
+        return int(np.where((g % brick == 0) & (g > 0), 2, 1).sum())
+
+    def in_field(n, brick, points, bricks):
+        """The entries of an axis's ``bricks`` bricks whose point lies in
+        its ``n`` points."""
+        return sum(max(0, min(points, n - k * brick)) for k in range(bricks))
+
+    adds = mp.NCH * (terms(X, mp.BX) * terms(Y, mp.BY) * terms(Z, mp.BZ) - X * Y * Z)
+    t2_read = (mp.NCH * 4 * in_field(X, mp.BX, mp.PX, nb[0]) * in_field(Y, mp.BY, mp.PY, nb[1])
+               * in_field(Z, mp.BZ, mp.PZ, nb[2]))
+    r["t2_bound"] = kernel_bound(adds, t2_read + packed256.numel() * 4)
+    for key, label, bound in (("t1", "T1 point_table_build", r["t1_bound"]),
+                              ("t1_absorb", "T1 point_table_build with the absorption row", t1_absorb_bound),
+                              ("t1_plain", "T1 plain build (build_brick_table)", None),
+                              ("t2", "T2 point_table_fold", r["t2_bound"]),
+                              ("t2_plain", "T2 plain fold (fold_brickmajor_grads)", None),
+                              ("t2_library", "T2 yardstick: zeros + index_add_ over a precomputed index", None)):
+        extra = "" if bound is None else f" (bound {bound[0]:.4f} ms by {bound[1]}, share {bound[0] / times[key]:.3f})"
+        print(f"phase 22 time {label} 256^3: {times[key]:.4f} ms{extra} {card}")
+    print(f"phase 22 bounds counted: T1 {packed256.numel() * 4} B of packed field read, {table_bytes} B of table "
+          f"written, {3 * n_bricks * mp.PV} subtractions; T2 {t2_read} B of rows 0-3 read (of "
+          f"{n_bricks * mp.NCH * mp.PV * 4} live), "
+          f"{packed256.numel() * 4} B written, {adds} adds")
+    return r
+
+
+def main(quick: str = "") -> None:
+    """The phases in order; ``quick`` "21" (``--phase21``) or "22"
+    (``--phase22``) runs phases 1, 2 and that phase alone and prints no
+    result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2612,9 +2791,10 @@ def main(quick21: bool = False) -> None:
         raise AssertionError(f"ptxas reports spills: {spills}")
     if set(ptxas) != set(KERNELS):
         raise AssertionError(f"ptxas reported {sorted(ptxas)}, not the kernels {sorted(KERNELS)}")
-    if quick21:
-        phase21(dev, t, timed, card, t(lens_field()), grin(40), lens40_translucency(), ptxas)
-        print("chip_smoke --phase21: phases 1, 2 and 21 passed")
+    if quick:
+        (phase21 if quick == "21" else phase22)(dev, t, timed, card, t(lens_field()), grin(40), lens40_translucency(),
+                                                 ptxas)
+        print(f"chip_smoke --phase{quick}: phases 1, 2 and {quick} passed")
         return
 
     # 3. K1 against its plain version, bit-exact
@@ -3148,7 +3328,7 @@ def main(quick21: bool = False) -> None:
           f"{bool(((got[3][:, 0] < 32.0) & (t(fpos)[:, 0] > 32.0)).any())}")
     del table, got, ref
 
-    # 14. the point train step at full size: K5 and K6 only
+    # 14. the point train step at full size: T1, K5, K6 and T2 (and P1, P2)
     ior_pt = ior256.clone().requires_grad_(True)
     sync()
     _build.launches.clear()
@@ -3158,7 +3338,8 @@ def main(quick21: bool = False) -> None:
     sync()
     point_s = time.perf_counter() - t0
     point_launches = dict(_build.launches)
-    want = {"march_points_fwd": 1, "march_points_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1}
+    want = {"march_points_fwd": 1, "march_points_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1,
+            "point_table_build": 1, "point_table_fold": 1}
     if point_launches != want:
         raise AssertionError(f"the point train step's kernel launches {point_launches}, expected {want}")
     if not bool(torch.isfinite(ior_pt.grad).all()):
@@ -3179,21 +3360,16 @@ def main(quick21: bool = False) -> None:
     big = k6["256^3 bench"]
     order, _ = mp.sort_point_rays(big["args"][2], pnb, big["args"][4] > 0)
     k6_args = (ptable, pnb, *(a[order].contiguous() for a in big["args"][2:]))
-    gpoints = torch.randn(tuple(ptable.shape), generator=gen, device=dev)
     ior_t = ior256.clone().requires_grad_(True)
     times.update({
         "k5": timed(lambda: mp.march_points_cuda(*k5_args, **k2_kw), 10),
         "k5_plain": k5_plain_ms,
         "k6": timed(lambda: mp.march_points_bwd_cuda(*k6_args, **big["bkw"]), 5),
         "k6_plain": big["plain_ms"],
-        "build_points_plain": timed(lambda: mp.build_brick_table(packed256), 3),
-        "fold_points_plain": timed(lambda: mp.fold_brickmajor_grads(gpoints, packed256.shape, pnb), 3),
         "step_points": timed(lambda: train_step(ior_t, "auto", layout="points"), 5),
     })
     for key, label in (("k5", "K5 march_points_fwd"), ("k5_plain", "K5 plain march (march_float, one run)"),
                        ("k6", "K6 march_points_bwd (incl. gtable zeroing)"), ("k6_plain", "K6 plain replay (one run)"),
-                       ("build_points_plain", "point table build (plain torch)"),
-                       ("fold_points_plain", "point gradient fold (plain torch)"),
                        ("step_points", "point train step kernel=auto, layout=points (fwd+bwd+SGD)")):
         extra = ""
         if key in ("k5", "k5_plain"):
@@ -3629,6 +3805,11 @@ def main(quick21: bool = False) -> None:
     r21 = phase21(dev, t, timed, card, ior256, ior40, tr40, ptxas)
     times.update(r21["times"])
 
+    # 22. T1 and T2, the point table's build and fold, against the plain
+    # build and fold bit for bit at 256^3 and on lens40
+    r22 = phase22(dev, t, timed, card, ior256, ior40, tr40, ptxas)
+    times.update(r22["times"])
+
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,
     # alive, br: 36 B a ray) and writes it, a replay reads 52 B a ray (end
@@ -3671,11 +3852,14 @@ def main(quick21: bool = False) -> None:
         # P1 and P2 at the bench's 256³ (phase 21)
         "p1": r21["p1_bound"],
         "p2": r21["p2_bound"],
+        # T1 and T2 at the bench's 256³ (phase 22)
+        "t1": r22["t1_bound"],
+        "t2": r22["t2_bound"],
     }
     for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
                        ("f1", "F1"), ("f1p", "recording F1"), ("k2p", "recording K2"), ("k2c", "capped K2"),
                        ("kc", "corner build"), ("r1", "R1"), ("r2", "R2"), ("s1", "S1"), ("s2", "S2"), ("p1", "P1"),
-                       ("p2", "P2")):
+                       ("p2", "P2"), ("t1", "T1"), ("t2", "T2")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
@@ -3703,6 +3887,9 @@ def main(quick21: bool = False) -> None:
         ("s2", "march_slab_bwd", "march_slab_bwd.cu", "parallel/bricks.py:311", r20["s2_launches"], r20["s2_err"]),
         ("p1", "pack_field_fwd", "pack_field.cu", "ops/fields.py:124", train_launches, r21["p1_err"]),
         ("p2", "pack_field_bwd", "pack_field.cu", "ops/fields.py:124", train_launches, r21["p2_err"]),
+        ("t1", "point_table_build", "point_table_build.cu", "kernels/march_pallas.py:133", point_launches,
+         r22["t1_err"]),
+        ("t2", "point_table_fold", "point_table_fold.cu", "kernels/march_bwd.py:577", point_launches, r22["t2_err"]),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
@@ -3723,4 +3910,4 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--phase20-worker"]:
         phase20_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     else:
-        main(quick21=sys.argv[1:2] == ["--phase21"])
+        main(quick={"--phase21": "21", "--phase22": "22"}.get(sys.argv[1] if sys.argv[1:] else "", ""))

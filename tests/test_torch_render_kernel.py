@@ -330,7 +330,8 @@ def test_ptxas_reader_keeps_the_largest_of_an_instantiation_set():
 #: what the CUDA sources need from the CUDA headers, for the host: one
 #: thread at a time, a block of one thread (VRT_BLOCK_THREADS), so that the
 #: warp's collectives hold one lane; R2 counts its global atomics
-#: (VRT_COUNT_ATOMICS)
+#: (VRT_COUNT_ATOMICS); bfloat16 as its bits, rounded to nearest even (a
+#: NaN as torch's 0x7FC0), for a source that includes cuda_bf16.h beside it
 HOST_SHIM = r"""
 #pragma once
 #include <math.h>
@@ -386,6 +387,16 @@ inline void cp_async4(float* d, const float* s, bool valid) { *d = valid ? *s : 
 inline void cp_async16(float4* d, const float4* s, bool valid) { *d = valid ? *s : float4{0.0f, 0.0f, 0.0f, 0.0f}; }
 inline void cp_async_commit() {}
 template <int pending> inline void cp_async_wait() {}
+struct __nv_bfloat16 { uint16_t bits; };
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u; memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)0x7fc0u};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(uint16_t)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 h) {
+  uint32_t u = (uint32_t)h.bits << 16; float f; memcpy(&f, &u, 4); return f;
+}
 template <class T> inline int cudaMemcpyFromSymbol(void* dst, const T& sym, size_t n) {
   memcpy(dst, &sym, n); return 0;
 }

@@ -19,7 +19,8 @@ library (``native.py``) — and training — ``endpoint_render`` with
 march kernel (K2), the reverse-replay adjoint kernel (K3) and the
 gradient-fold kernel (K4); the point-table layout of both —
 ``endpoint_render(layout="points")``, ``march_pallas_diff`` — through the
-point-table forward march (K5) and its adjoint (K6); and the models, in
+point-table build (T1), forward march (K5), adjoint (K6) and gradient fold
+(T2); and the models, in
 plain torch on the tensors' device: pinhole cameras with the
 emission/absorption render and image fitting (``PinholeCamera``,
 ``render_image``, ``render_rays_image``, ``render_transmittance``,

@@ -36,7 +36,7 @@ SOURCES = tuple(
     for name in (
         "line_table_build.cu", "corner_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu",
         "march_points_fwd.cu", "march_points_bwd.cu", "march_fixed.cu", "render_fwd.cu", "render_bwd.cu",
-        "march_slab_fwd.cu", "march_slab_bwd.cu", "pack_field.cu",
+        "march_slab_fwd.cu", "march_slab_bwd.cu", "pack_field.cu", "point_table_build.cu", "point_table_fold.cu",
     )
 )
 #: the headers the sources include, hashed with them
@@ -120,6 +120,10 @@ _SIGNATURES = {
     # output, the ior's shape, P1's transparent opacity
     "vrt_pack_field_fwd": (_P, _P, _P, _I, _I, _I, _F, _P),
     "vrt_pack_field_bwd": (_P, _P, _P, _I, _I, _I, _P),
+    # T1 and T2: the packed field, the absorption (or null), the table; the
+    # gradient table, the output; the field's shape, the brick grid
+    "vrt_point_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "vrt_point_table_fold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 #: launches of each kernel by name since the last ``clear()``

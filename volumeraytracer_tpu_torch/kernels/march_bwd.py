@@ -1,6 +1,6 @@
 """The differentiable march: forward build → march, backward replay → fold,
-over the line table (K1 → K2, K3 → K4) or the point table (plain build →
-K5, K6 → plain fold).
+over the line table (K1 → K2, K3 → K4) or the point table (T1 → K5, K6 →
+T2).
 
 Counterpart of ``volumeraytracer_tpu/kernels/march_bwd.py:_make_vjp_fn``
 and ``march_pallas_diff``, as one ``torch.autograd.Function`` that takes
@@ -37,12 +37,12 @@ from ..types import TraceResult
 from .line_table import absorption_fraction
 from .line_table_cuda import build_line_table_cuda, fold_line_grads_cuda
 from .march_lines import march_lines_bwd
-from .march_pallas import build_brick_table, fold_brickmajor_grads, march_pallas, march_points_bwd
+from .march_pallas import build_brick_table_cuda, fold_brickmajor_grads_cuda, march_pallas, march_points_bwd
 
 #: each layout's (table build, replay driver, fold), all called alike
 _LAYOUTS = {
     "lines": (build_line_table_cuda, march_lines_bwd, fold_line_grads_cuda),
-    "points": (build_brick_table, march_points_bwd, fold_brickmajor_grads),
+    "points": (build_brick_table_cuda, march_points_bwd, fold_brickmajor_grads_cuda),
 }
 
 

@@ -1,6 +1,6 @@
 """K5 and K6: the forward march over the point table and its reverse-replay
-adjoint, the point table's build and fold, and the functions that call
-them.
+adjoint; T1 and T2: the point table's build and its gradient fold; and the
+functions that call them.
 
 Counterpart of ``volumeraytracer_tpu/kernels/march_pallas.py`` and of the
 point half of ``kernels/march_bwd.py``.  The point table has the shape
@@ -14,8 +14,13 @@ next brick), lanes 1377..1407 zero, and the rows of ``line_table``: the
 bf16 hi of [dx, dy, dz, opacity, absorption], then the bf16 lo of dx, dy,
 dz.  The line table holds the same values at the same points, so a march
 over either reads the same numbers.  The build and the fold are XLA in the
-JAX package and plain torch here (``build_brick_table``,
-``fold_brickmajor_grads``), on the CPU and on the card alike.
+JAX package; here ``build_brick_table`` and ``fold_brickmajor_grads`` are
+their plain torch versions, and T1 (``csrc/point_table_build.cu``) and T2
+(``csrc/point_table_fold.cu``) their kernels, equal to them bit for bit.
+The wrappers ``build_brick_table_cuda`` and ``fold_brickmajor_grads_cuda``
+run the plain versions for CPU tensors and the kernels for CUDA tensors,
+or raise ``ValueError``, as tensors on any other device do; a failed build
+or launch raises through ``_build.check``.
 
 The forward kernel (``csrc/march_points_fwd.cu``) replaces the TPU kernel
 ``march_pallas.py:_march_kernel``, the adjoint kernel
@@ -34,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import _build
 from .line_table import LCH, NLO, TCH, _overlap_add, table_inputs, table_points
 from .march_lines import (
     _sort_by_brick, launch_march, launch_replay, march_lines, march_on_table, replay_plain, sorted_replay,
@@ -117,6 +123,84 @@ def march_points_cuda(table: torch.Tensor, nb: Tuple[int, int, int], bounds: Tup
     return launch_march("march_points_fwd", table, (TCH, PVP), nb, bounds, pos, dirs, rem, alive, br, **kw)
 
 
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    """Whether kernel ``name`` launches for ``t``: False on the CPU (the
+    plain version runs), True on a CUDA device, ``ValueError`` elsewhere."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
+    return True
+
+
+def _check_extent(what: str, shape) -> Tuple[int, int, int]:
+    """Raise unless ``shape`` is a packed field's (X, Y, Z, 4) with 2 to 2^31
+    - 1 points an axis; returns (X, Y, Z)."""
+    if len(shape) != 4 or int(shape[3]) != 4:
+        raise ValueError(f"{what}: packed must be (X, Y, Z, 4), got {tuple(shape)}")
+    X, Y, Z = (int(s) for s in shape[:3])
+    if min(X, Y, Z) < 2 or max(X, Y, Z) >= 2 ** 31:
+        raise ValueError(f"{what}: the point table needs 2 to 2^31 - 1 points an axis, got {(X, Y, Z)}")
+    return X, Y, Z
+
+
+def build_brick_table_cuda(
+    packed: torch.Tensor, absorb: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """T1: the (NB, 8, 1408) float32 point table of ``packed`` (X, Y, Z, 4)
+    float32 and the optional absorption-fraction grid ``absorb`` (X, Y, Z)
+    float32, plus the brick grid (nbx, nby, nbz); one launch on the current
+    stream.  ``packed`` is read as float4 records: its data must be 16-byte
+    aligned."""
+    if not _on_card("point_table_build", packed):
+        return build_brick_table(packed, absorb=absorb)
+    X, Y, Z = _check_extent("build_brick_table_cuda", packed.shape)
+    _build.check_tensor("packed", packed, torch.float32, (X, Y, Z, 4), packed.device)
+    if absorb is not None:
+        _build.check_tensor("absorb", absorb, torch.float32, (X, Y, Z), packed.device)
+    if packed.data_ptr() % 16:
+        raise ValueError("build_brick_table_cuda reads packed as float4: its data must be 16-byte aligned")
+    nb = brick_grid(packed.shape)
+    n_bricks = nb[0] * nb[1] * nb[2]
+    if n_bricks >= 2 ** 31:
+        raise ValueError(f"build_brick_table_cuda launches a block a brick: {n_bricks} bricks is too many")
+    table = torch.empty((n_bricks, TCH, PVP), dtype=torch.float32, device=packed.device)
+    lib = _build.load()
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vrt_point_table_build(
+            packed.data_ptr(), None if absorb is None else absorb.data_ptr(), table.data_ptr(),
+            X, Y, Z, *nb, stream,
+        )
+    _build.check(rc, "point_table_build")
+    _build.launches["point_table_build"] += 1
+    return table, nb
+
+
+def fold_brickmajor_grads_cuda(gtable: torch.Tensor, packed_shape, nb: Tuple[int, int, int]) -> torch.Tensor:
+    """T2: the (X, Y, Z, 4) float32 packed-field gradient of the (NB, 8,
+    1408) float32 point gradient table ``gtable`` on the brick grid ``nb``;
+    one launch on the current stream.  Reads rows 0-3 of the 1377 live
+    lanes only."""
+    if not _on_card("point_table_fold", gtable):
+        return fold_brickmajor_grads(gtable, packed_shape, nb)
+    X, Y, Z = _check_extent("fold_brickmajor_grads_cuda", packed_shape)
+    if tuple(nb) != brick_grid(packed_shape):
+        raise ValueError(f"packed_shape {tuple(packed_shape)} does not match the brick grid {tuple(nb)}")
+    _build.check_tensor("gtable", gtable, torch.float32, (nb[0] * nb[1] * nb[2], GCH, PVP), gtable.device)
+    zchunks = -(-Z // 256)  # csrc/point_table_fold.cu's ZCH
+    if X * Y * zchunks >= 2 ** 31:
+        raise ValueError(f"fold_brickmajor_grads_cuda launches a block a line chunk: {(X, Y, Z)} is too large")
+    out = torch.empty((X, Y, Z, 4), dtype=torch.float32, device=gtable.device)
+    lib = _build.load()
+    with torch.cuda.device(gtable.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vrt_point_table_fold(gtable.data_ptr(), out.data_ptr(), X, Y, Z, *nb, stream)
+    _build.check(rc, "point_table_fold")
+    _build.launches["point_table_fold"] += 1
+    return out
+
+
 def march_pallas(
     packed: torch.Tensor,
     start_position: torch.Tensor,
@@ -142,7 +226,7 @@ def march_pallas(
     ``march_lines`` instead; ``table``/``nb`` then come from the line
     table's build.
 
-    On CUDA tensors it builds the point table unless one is given, sorts
+    On CUDA tensors it builds the point table (T1) unless one is given, sorts
     the rays by point brick, launches K5 and restores the input order; on
     CPU tensors it runs the plain march.  ``translucency`` is the int64
     grid, ``absorb`` its float absorption fraction (the card's path only).
@@ -164,7 +248,7 @@ def march_pallas(
     if record_path:
         raise ValueError("record_path requires layout='lines'")
     return march_on_table(packed, start_position, start_direction, budget, **kw,
-                          build=build_brick_table, launch=march_points_cuda, sort=sort_point_rays)
+                          build=build_brick_table_cuda, launch=march_points_cuda, sort=sort_point_rays)
 
 
 def _bwd_points_plain(table, nb, end_pos, end_dir, nexec, d_pos, d_dir, *, bend, step, max_steps):

@@ -226,10 +226,10 @@ def endpoint_render(
     is an int64 grid holding uint32 values, or a float grid in [0, 1]; its
     absorption acts on termination only and gets no gradient.  ``layout``
     picks the kernel path's table: "lines" (the default, K1-K4) or
-    "points" (K5, K6); the plain path ignores it, as the JAX "xla" branch
-    does.  ``soft_opacity_tau`` > 0 runs the soft termination, on the plain
-    march only: "auto" sends it there (decided by the arguments, before
-    anything launches) and "cuda" raises.  Its transmittance gives the
+    "points" (T1, K5, K6, T2); the plain path ignores it, as the JAX "xla"
+    branch does.  ``soft_opacity_tau`` > 0 runs the soft termination, on
+    the plain march only: "auto" sends it there (decided by the arguments,
+    before anything launches) and "cuda" raises.  Its transmittance gives the
     opacity channel, and with it a float translucency, a gradient.
     ``return_transmittance``: return (end_position, end_direction,
     transmittance), the transmittance ``None`` unless soft termination
@@ -238,10 +238,10 @@ def endpoint_render(
     Differentiable with respect to ``ior``, the positions and the
     directions: the kernel path marches through
     ``kernels.march_bwd.march_pallas_diff`` (line layout: K1 → K2 forward,
-    K3 → K4 backward; point layout: K5 forward, K6 backward), the plain
-    path through the checkpointed ``march_float(differentiable=True)``, the
-    JAX "xla" branch, which is also the only one that carries the
-    soft-termination transmittance."""
+    K3 → K4 backward; point layout: T1 → K5 forward, K6 → T2 backward),
+    the plain path through the checkpointed
+    ``march_float(differentiable=True)``, the JAX "xla" branch, which is
+    also the only one that carries the soft-termination transmittance."""
     if layout not in (None, "lines", "points"):
         raise ValueError(f"unknown layout {layout!r}")
     soft = soft_opacity_tau is not None and soft_opacity_tau > 0.0

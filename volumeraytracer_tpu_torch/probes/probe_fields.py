@@ -34,7 +34,10 @@ launches after a warm-up) at the bench's 256³ lens and at phase 20a's
 with nine voxels in ten zeroed (sparse), zeros, the cotangent that the
 line step (at 256³) or the brick step (at the slab) handed P2, and that
 cotangent's zero pattern filled with the dense values; with the share of
-the step's cotangent records whose channels 0-2 are all zero.
+the step's cotangent records whose channels 0-2 are all zero.  At 256³
+also the point step's table build and gradient fold as that checkout's
+``kernels.march_bwd._LAYOUTS["points"]`` holds them (T1 and T2 where it
+has them, else the plain build and fold), the fold on a seeded table.
 ``--kernels-only`` skips the four calls (and so the steps' cotangents).
 
 Prints one line a call and child with the card's name and power limit,
@@ -139,7 +142,8 @@ def _kernel_times(sm, torch, dev, step_cot: dict) -> dict:
     the 512³ slab ("slab"); ``step_cot`` maps those names to the cotangent
     a train step handed P2."""
     from volumeraytracer_tpu_torch.kernels import pack_field as pf
-    from volumeraytracer_tpu_torch.ops.fields import TRANSPARENT
+    from volumeraytracer_tpu_torch.kernels.march_bwd import _LAYOUTS
+    from volumeraytracer_tpu_torch.ops.fields import TRANSPARENT, build_packed_field
     from volumeraytracer_tpu_torch.parallel import bricks
 
     def timed(fn):
@@ -175,6 +179,14 @@ def _kernel_times(sm, torch, dev, step_cot: dict) -> dict:
             res["step_zero_share"] = 1.0 - float(nonzero.float().mean())
             cot = dense * nonzero
             res["p2_step_pattern_dense"] = timed(lambda: pf.pack_field_bwd_cuda(ior, cot))
+        if name == "256":
+            build, _, fold = _LAYOUTS["points"]
+            packed = build_packed_field(ior)
+            table, nb = build(packed)
+            gtable = torch.randn(table.shape, generator=gen, device=dev)
+            res["point_build"] = timed(lambda: build(packed))
+            res["point_fold"] = timed(lambda: fold(gtable, packed.shape, nb))
+            del packed, table, gtable
         out[name] = res
         del ior, dense, cot, step
         torch.cuda.empty_cache()
