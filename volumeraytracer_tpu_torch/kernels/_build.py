@@ -13,9 +13,10 @@ compiles each to an object, and one more links them into a shared library:
 versions compute them, and fast math stays off so that ``1/|d|²`` is an
 IEEE division: the march's iteration counts depend on both.  The library's
 name carries a hash of the sources and flags, so an edited source is
-rebuilt.  Each C function returns ``cudaGetLastError()``; ``check`` raises
-on a nonzero code.  ``launches`` counts each kernel's launches by name;
-only a launch adds to it.
+rebuilt.  Each C function returns ``cudaGetLastError()``.  ``launch`` calls
+one inside the span ``vrt.kernel.<name>``, raises on a nonzero code
+(``check``) and counts the launch in ``launches`` by name; only a launch
+adds to it.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Optional
+
+from ..utils.profiling import annotate
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = tuple(
@@ -206,3 +209,14 @@ def check(rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def launch(name: str, *args) -> None:
+    """Call the library's ``vrt_<name>`` with ``args`` inside the span
+    ``vrt.kernel.<name>``, raise if it returned a CUDA error code, and
+    count the launch in ``launches[name]``."""
+    fn = getattr(load(), "vrt_" + name)
+    with annotate("vrt.kernel." + name):
+        rc = fn(*args)
+    check(rc, name)
+    launches[name] += 1

@@ -49,15 +49,12 @@ def build_line_table_cuda(
     X, Y, Z = _check_field("build_line_table_cuda", packed, absorb)
     nb = line_brick_grid(packed.shape)
     table = torch.empty((nb[0] * nb[1] * nb[2], LS, LL), dtype=torch.float32, device=packed.device)
-    lib = _build.load()
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_line_table_build(
-            packed.data_ptr(), None if absorb is None else absorb.data_ptr(), table.data_ptr(),
+        _build.launch(
+            "line_table_build", packed.data_ptr(), None if absorb is None else absorb.data_ptr(), table.data_ptr(),
             X, Y, Z, *nb, stream,
         )
-    _build.check(rc, "line_table_build")
-    _build.launches["line_table_build"] += 1
     return table, nb
 
 
@@ -76,15 +73,12 @@ def build_corner_table_cuda(
     lattice = corner_lattice(nb)
     points = torch.empty((*lattice, 4), dtype=torch.float32, device=packed.device)
     out_absorb = None if absorb is None else torch.empty(lattice, dtype=torch.float32, device=packed.device)
-    lib = _build.load()
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_corner_table_build(
-            packed.data_ptr(), None if absorb is None else absorb.data_ptr(), points.data_ptr(),
-            None if out_absorb is None else out_absorb.data_ptr(), X, Y, Z, *nb, stream,
+        _build.launch(
+            "corner_table_build", packed.data_ptr(), None if absorb is None else absorb.data_ptr(),
+            points.data_ptr(), None if out_absorb is None else out_absorb.data_ptr(), X, Y, Z, *nb, stream,
         )
-    _build.check(rc, "corner_table_build")
-    _build.launches["corner_table_build"] += 1
     return CornerTable(points, out_absorb), nb
 
 
@@ -100,10 +94,7 @@ def fold_line_grads_cuda(gtable: torch.Tensor, packed_shape, nb: Tuple[int, int,
         raise ValueError(f"packed_shape {tuple(packed_shape)} does not match the brick grid {tuple(nb)}")
     _build.check_tensor("gtable", gtable, torch.float32, (nb[0] * nb[1] * nb[2], LS, LL), gtable.device)
     out = torch.empty((X, Y, Z, C), dtype=torch.float32, device=gtable.device)
-    lib = _build.load()
     with torch.cuda.device(gtable.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_line_table_fold(gtable.data_ptr(), out.data_ptr(), X, Y, Z, *nb, stream)
-    _build.check(rc, "line_table_fold")
-    _build.launches["line_table_fold"] += 1
+        _build.launch("line_table_fold", gtable.data_ptr(), out.data_ptr(), X, Y, Z, *nb, stream)
     return out

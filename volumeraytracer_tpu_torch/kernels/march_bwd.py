@@ -34,6 +34,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..types import TraceResult
+from ..utils.profiling import annotate
 from .line_table import absorption_fraction
 from .line_table_cuda import build_line_table_cuda, fold_line_grads_cuda
 from .march_lines import march_lines_bwd
@@ -51,8 +52,9 @@ class _MarchDiff(torch.autograd.Function):
     def forward(ctx, packed, pos, dirs, translucency, budget, bend, step, min_bright, max_steps, layout, record_path,
                 path_offset):
         build, replay, fold = _LAYOUTS[layout]
-        absorb = None if translucency is None else absorption_fraction(translucency).contiguous()
-        table, nb = build(packed.contiguous(), absorb=absorb)
+        with annotate("vrt.driver.table_build"):
+            absorb = None if translucency is None else absorption_fraction(translucency).contiguous()
+            table, nb = build(packed.contiguous(), absorb=absorb)
         res, raw = march_pallas(
             packed, pos, dirs, budget, bend_scale=bend, step_scale=step,
             translucency=translucency, minimum_brightness=min_bright, return_state=True,
@@ -83,7 +85,8 @@ class _MarchDiff(torch.autograd.Function):
             bend=ctx.bend, step=ctx.step, max_steps=ctx.max_steps,
         )
         ctx.table = None
-        d_packed = ctx.fold(gtable, ctx.packed_shape, ctx.nb)
+        with annotate("vrt.driver.fold"):
+            d_packed = ctx.fold(gtable, ctx.packed_shape, ctx.nb)
         # a cut replay left adjoints half propagated: make that loud
         poison = torch.where(residual.any(), float("nan"), 1.0)
         return d_packed * poison, d_pos0 * poison, d_dir0 * poison, None, None, None, None, None, None, None, None, None

@@ -98,17 +98,14 @@ def march_fixed_cuda(packed: torch.Tensor, translucency: Optional[torch.Tensor],
         name = "march_fixed_path"
         rows, path = padded_path(n, path_len, device)
         extra = (rows.data_ptr(), rows.shape[1])
-    lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, "vrt_" + name)(
-            packed.data_ptr(), *bounds, None if translucency is None else translucency.data_ptr(),
+        _build.launch(
+            name, packed.data_ptr(), *bounds, None if translucency is None else translucency.data_ptr(),
             *ior_args, int(start_shift) & UINT32_MASK, pos.data_ptr(), dirs.data_ptr(),
             *(t.data_ptr() for t in (pos_out, dir_out, iters, br)), *extra,
             int(pos_offset) & UINT32_MASK, n, int(budget), *inv, int(min_bright), stream,
         )
-    _build.check(rc, name)
-    _build.launches[name] += 1
     return TraceResult(end_position=pos_out, end_direction=dir_out, end_iteration=iters, remaining_light=br,
                        path=path)
 

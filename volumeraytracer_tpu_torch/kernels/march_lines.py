@@ -47,6 +47,7 @@ import torch
 
 from ..ops.march import _finish, march_float_state
 from ..types import BRIGHTNESS_MAX, TraceResult
+from ..utils.profiling import annotate
 from . import _build
 from .line_table import (
     BRIGHT_MAX_F, LBX, LBY, LBZ, LCH, LL, LPY, LS, NLO, TCH, CornerTable, corner_lattice, line_brick_grid,
@@ -127,17 +128,14 @@ def launch_march(name, table, rows, nb, bounds, pos, dirs, rem, alive, br, *, be
     if max_steps is not None:
         name = name + "_capped"
         extra = (int(max_steps),)
-    lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, "vrt_" + name)(
-            *tables, *nb, *bounds,
+        _build.launch(
+            name, *tables, *nb, *bounds,
             *(t.data_ptr() for t in (pos, dirs, rem, alive, br)),
             *(t.data_ptr() for t in out[:5]), *extra,
             n, *bend, *step, min_bright, int(has_absorb), stream,
         )
-    _build.check(rc, name)
-    _build.launches[name] += 1
     return out
 
 
@@ -175,8 +173,10 @@ def _brick_and_cell(pos: torch.Tensor, nb, size):
     the position's cell (x, y, z) within that brick: (N,) and (N, 3) int64,
     positions floored and clipped to the brick grid ``nb``."""
     dev = pos.device
-    size_t = torch.tensor(list(size), dtype=torch.int64, device=dev)
-    extent = torch.tensor([n * s for n, s in zip(nb, size)], dtype=torch.int64, device=dev)
+    # host lists copied to the card: each copy waits for the stream
+    with annotate("vrt.sync.brick_cell"):
+        size_t = torch.tensor(list(size), dtype=torch.int64, device=dev)
+        extent = torch.tensor([n * s for n, s in zip(nb, size)], dtype=torch.int64, device=dev)
     cell = torch.minimum(torch.clamp(torch.floor(pos).to(torch.int64), min=0), extent - 1)
     b = cell // size_t
     return (b[:, 0] * nb[1] + b[:, 1]) * nb[2] + b[:, 2], cell - b * size_t
@@ -273,47 +273,52 @@ def march_on_table(packed, start_position, start_direction, budget, *, bend_scal
             }
         return result
 
-    has_absorb = translucency is not None or absorb is not None
-    if table is None:
-        absorb = table_inputs(packed, translucency, absorb)
-        table, nb = build(packed.contiguous(), absorb=None if absorb is None else absorb.contiguous())
-    n = start_position.shape[0]
-    dev = packed.device
-    pos = start_position.to(torch.float32)
-    dirs = start_direction.to(torch.float32)
-    if init_state is None:
-        alive = torch.ones((n,), dtype=torch.int32, device=dev)
-        rem = torch.full((n,), budget - 1, dtype=torch.int32, device=dev)
-        br = torch.ones((n,), dtype=torch.float32, device=dev)
-        order, inv = sort(pos, nb)
-    else:
-        rem, alive, br = (init_state[k].to(device=dev, dtype=d) for k, d in (
-            ("remaining", torch.int32), ("alive", torch.int32), ("brightness", torch.float32)))
-        order, inv = sort(pos, nb, alive != 0)
-        rem, alive, br = (x[order].contiguous() for x in (rem, alive, br))
-    extra = dict(path_row=order, path_len=budget + 1, path_offset=path_offset) if record_path else {}
-    if max_steps is not None:
-        extra = dict(max_steps=max_steps)
-    outs = launch(
-        table, nb, tuple(int(s) for s in packed.shape[:3]),
-        pos[order].contiguous(), dirs[order].contiguous(), rem, alive, br,
-        bend=bend, step=step,
-        min_bright=float(minimum_brightness) / BRIGHT_MAX_F,
-        has_absorb=has_absorb, **extra,
-    )
-    end_pos, end_dir, rem, alive, br = (o[inv] for o in outs[:5])
+    with annotate("vrt.driver.march"):
+        has_absorb = translucency is not None or absorb is not None
+        if table is None:
+            with annotate("vrt.driver.table_build"):
+                absorb = table_inputs(packed, translucency, absorb)
+                table, nb = build(packed.contiguous(), absorb=None if absorb is None else absorb.contiguous())
+        n = start_position.shape[0]
+        dev = packed.device
+        pos = start_position.to(torch.float32)
+        dirs = start_direction.to(torch.float32)
+        if init_state is None:
+            alive = torch.ones((n,), dtype=torch.int32, device=dev)
+            rem = torch.full((n,), budget - 1, dtype=torch.int32, device=dev)
+            br = torch.ones((n,), dtype=torch.float32, device=dev)
+            with annotate("vrt.driver.sort"):
+                order, inv = sort(pos, nb)
+                pos, dirs = pos[order].contiguous(), dirs[order].contiguous()
+        else:
+            rem, alive, br = (init_state[k].to(device=dev, dtype=d) for k, d in (
+                ("remaining", torch.int32), ("alive", torch.int32), ("brightness", torch.float32)))
+            with annotate("vrt.driver.sort"):
+                order, inv = sort(pos, nb, alive != 0)
+                pos, dirs, rem, alive, br = (x[order].contiguous() for x in (pos, dirs, rem, alive, br))
+        extra = dict(path_row=order, path_len=budget + 1, path_offset=path_offset) if record_path else {}
+        if max_steps is not None:
+            extra = dict(max_steps=max_steps)
+        outs = launch(
+            table, nb, tuple(int(s) for s in packed.shape[:3]), pos, dirs, rem, alive, br,
+            bend=bend, step=step,
+            min_bright=float(minimum_brightness) / BRIGHT_MAX_F,
+            has_absorb=has_absorb, **extra,
+        )
+        with annotate("vrt.driver.unsort"):
+            end_pos, end_dir, rem, alive, br = (o[inv] for o in outs[:5])
 
-    end_remaining = torch.where(alive != 0, 0, rem).to(torch.int64)
-    result = TraceResult(
-        end_position=end_pos,
-        end_direction=end_dir,
-        end_iteration=budget - end_remaining,
-        remaining_light=_light(br),
-        path=outs[5] if record_path else None,
-    )
-    if return_state:
-        return result, {"remaining": rem, "alive": alive, "brightness": br}
-    return result
+        end_remaining = torch.where(alive != 0, 0, rem).to(torch.int64)
+        result = TraceResult(
+            end_position=end_pos,
+            end_direction=end_dir,
+            end_iteration=budget - end_remaining,
+            remaining_light=_light(br),
+            path=outs[5] if record_path else None,
+        )
+        if return_state:
+            return result, {"remaining": rem, "alive": alive, "brightness": br}
+        return result
 
 
 def march_lines(
@@ -383,20 +388,26 @@ def _compact_loop(phase, nb, state, max_phases: int):
     the state after its steps) and sort them again by their current cell,
     the dead ones last (one host sync a phase asks whether any is alive).
     Returns the end state in the input order."""
-    perm, _ = sort_line_rays(state[0], nb)
-    state = [s[perm] for s in state]
+    with annotate("vrt.driver.sort"):
+        perm, _ = sort_line_rays(state[0], nb)
+        state = [s[perm] for s in state]
     for k in range(max_phases):
         state = list(phase(tuple(state)))
-        if k + 1 == max_phases or not bool((state[3] != 0).any()):
+        if k + 1 == max_phases:
             break
-        order, _ = sort_line_rays(state[0], nb, state[3] != 0)
-        state = [s[order] for s in state]
-        perm = perm[order]
+        with annotate("vrt.sync.compact_any"):
+            if not bool((state[3] != 0).any()):
+                break
+        with annotate("vrt.driver.sort"):
+            order, _ = sort_line_rays(state[0], nb, state[3] != 0)
+            state = [s[order] for s in state]
+            perm = perm[order]
     ends = []
-    for s in state:
-        end = torch.empty_like(s)
-        end[perm] = s
-        ends.append(end)
+    with annotate("vrt.driver.unsort"):
+        for s in state:
+            end = torch.empty_like(s)
+            end[perm] = s
+            ends.append(end)
     return ends
 
 
@@ -474,8 +485,9 @@ def march_lines_compact(
         has_absorb = translucency is not None or absorb is not None
         if table is None:
             absorb = table_inputs(packed, translucency, absorb)
-            table, nb = build_corner_table_cuda(packed.contiguous(),
-                                                absorb=None if absorb is None else absorb.contiguous())
+            with annotate("vrt.driver.table_build"):
+                table, nb = build_corner_table_cuda(packed.contiguous(),
+                                                    absorb=None if absorb is None else absorb.contiguous())
         bounds = tuple(int(s) for s in packed.shape[:3])
         state = (pos, dirs, torch.full((n,), budget - 1, dtype=torch.int32, device=dev),
                  torch.ones((n,), dtype=torch.int32, device=dev), torch.ones((n,), dtype=torch.float32, device=dev))
@@ -515,17 +527,14 @@ def launch_replay(name, plain, table, rows, nb, end_pos, end_dir, nexec, d_pos, 
     gtable = torch.zeros_like(table)
     d_pos0, d_dir0, recon = (torch.empty_like(end_pos) for _ in range(3))
     residual = torch.empty_like(nexec)
-    lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, "vrt_" + name)(
-            table.data_ptr(), gtable.data_ptr(), *nb,
+        _build.launch(
+            name, table.data_ptr(), gtable.data_ptr(), *nb,
             *(t.data_ptr() for t in (end_pos, end_dir, nexec, d_pos, d_dir)),
             *(t.data_ptr() for t in (d_pos0, d_dir0, recon, residual)),
             n, int(max_steps), *bend, *step, stream,
         )
-    _build.check(rc, name)
-    _build.launches[name] += 1
     return gtable, d_pos0, d_dir0, recon, residual
 
 
@@ -650,15 +659,16 @@ def sorted_replay(launch, sort, table, nb, end_pos, end_dir, nexec, d_pos, d_dir
     valid)``; rays with nothing to replay last), runs the adjoint wrapper
     ``launch`` and restores the order.  Returns (gtable, d_pos0, d_dir0,
     recon_pos, residual)."""
-    nexec = nexec.to(torch.int32)
-    order, inv = sort(end_pos, nb, nexec > 0)
-    gtable, *rays = launch(
-        table, nb, *(t[order].to(torch.float32).contiguous() for t in (end_pos, end_dir)),
-        nexec[order].contiguous(),
-        *(t[order].to(torch.float32).contiguous() for t in (d_pos, d_dir)),
-        bend=bend, step=step, max_steps=max_steps,
-    )
-    return (gtable, *(r[inv] for r in rays))
+    with annotate("vrt.driver.replay"):
+        nexec = nexec.to(torch.int32)
+        with annotate("vrt.driver.sort"):
+            order, inv = sort(end_pos, nb, nexec > 0)
+            sorted_rays = (*(t[order].to(torch.float32).contiguous() for t in (end_pos, end_dir)),
+                           nexec[order].contiguous(),
+                           *(t[order].to(torch.float32).contiguous() for t in (d_pos, d_dir)))
+        gtable, *rays = launch(table, nb, *sorted_rays, bend=bend, step=step, max_steps=max_steps)
+        with annotate("vrt.driver.unsort"):
+            return (gtable, *(r[inv] for r in rays))
 
 
 def march_lines_bwd(table, nb, end_pos, end_dir, nexec, d_pos, d_dir, *, bend, step, max_steps):

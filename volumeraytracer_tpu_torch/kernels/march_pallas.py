@@ -165,15 +165,12 @@ def build_brick_table_cuda(
     if n_bricks >= 2 ** 31:
         raise ValueError(f"build_brick_table_cuda launches a block a brick: {n_bricks} bricks is too many")
     table = torch.empty((n_bricks, TCH, PVP), dtype=torch.float32, device=packed.device)
-    lib = _build.load()
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_point_table_build(
-            packed.data_ptr(), None if absorb is None else absorb.data_ptr(), table.data_ptr(),
+        _build.launch(
+            "point_table_build", packed.data_ptr(), None if absorb is None else absorb.data_ptr(), table.data_ptr(),
             X, Y, Z, *nb, stream,
         )
-    _build.check(rc, "point_table_build")
-    _build.launches["point_table_build"] += 1
     return table, nb
 
 
@@ -192,12 +189,9 @@ def fold_brickmajor_grads_cuda(gtable: torch.Tensor, packed_shape, nb: Tuple[int
     if X * Y * zchunks >= 2 ** 31:
         raise ValueError(f"fold_brickmajor_grads_cuda launches a block a line chunk: {(X, Y, Z)} is too large")
     out = torch.empty((X, Y, Z, 4), dtype=torch.float32, device=gtable.device)
-    lib = _build.load()
     with torch.cuda.device(gtable.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_point_table_fold(gtable.data_ptr(), out.data_ptr(), X, Y, Z, *nb, stream)
-    _build.check(rc, "point_table_fold")
-    _build.launches["point_table_fold"] += 1
+        _build.launch("point_table_fold", gtable.data_ptr(), out.data_ptr(), X, Y, Z, *nb, stream)
     return out
 
 

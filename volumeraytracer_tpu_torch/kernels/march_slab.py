@@ -171,14 +171,10 @@ def slab_window_cuda(slab, state, my: int, num: int, xs: int, bounds_m1, offset,
     _build.check_tensor("alive", state[3], torch.bool, (n,), slab.device)
     consts = _consts(bounds_m1, offset, bend, step, slab.device)
     out = tuple(torch.empty_like(t) for t in state)
-    lib = _build.load()
     with torch.cuda.device(slab.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_march_slab_fwd(slab.data_ptr(), *(int(v) for v in slab.shape[:3]), consts.data_ptr(),
-                                    *(t.data_ptr() for t in state), *(t.data_ptr() for t in out), n, my, num, xs,
-                                    k_steps, stream)
-    _build.check(rc, "march_slab_fwd")
-    _build.launches["march_slab_fwd"] += 1
+        _build.launch("march_slab_fwd", slab.data_ptr(), *(int(v) for v in slab.shape[:3]), consts.data_ptr(),
+                      *(t.data_ptr() for t in state), *(t.data_ptr() for t in out), n, my, num, xs, k_steps, stream)
     return out
 
 
@@ -212,18 +208,14 @@ def slab_window_bwd_cuda(slab, state, end_remaining, my: int, num: int, xs: int,
         d_slab = new_d_slab(slab)
     _build.check_tensor("d_slab", d_slab, torch.float32, slab.shape, device)
     consts = _consts(bounds_m1, offset, bend, step, device)
-    lib = _build.load()
-    stash = int(lib.vrt_march_slab_stash())
+    stash = int(_build.load().vrt_march_slab_stash())
     segs = -(-k_steps // stash)
     ckpt = torch.empty((segs - 1, n, 6), dtype=torch.float32, device=device) if segs > 1 else None
     d_pos0, d_dir0 = torch.empty_like(d_pos), torch.empty_like(d_dir)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_march_slab_bwd(slab.data_ptr(), *(int(v) for v in slab.shape[:3]), consts.data_ptr(),
-                                    pos.data_ptr(), direction.data_ptr(), remaining.data_ptr(),
-                                    end_remaining.data_ptr(), d_pos.data_ptr(), d_dir.data_ptr(), d_slab.data_ptr(),
-                                    None if ckpt is None else ckpt.data_ptr(), d_pos0.data_ptr(), d_dir0.data_ptr(),
-                                    n, k_steps, stream)
-    _build.check(rc, "march_slab_bwd")
-    _build.launches["march_slab_bwd"] += 1
+        _build.launch("march_slab_bwd", slab.data_ptr(), *(int(v) for v in slab.shape[:3]), consts.data_ptr(),
+                      pos.data_ptr(), direction.data_ptr(), remaining.data_ptr(), end_remaining.data_ptr(),
+                      d_pos.data_ptr(), d_dir.data_ptr(), d_slab.data_ptr(), None if ckpt is None else ckpt.data_ptr(),
+                      d_pos0.data_ptr(), d_dir0.data_ptr(), n, k_steps, stream)
     return d_pos0, d_dir0, d_slab

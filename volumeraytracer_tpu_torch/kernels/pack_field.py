@@ -81,13 +81,10 @@ def pack_field_cuda(ior: torch.Tensor, opacity: Union[torch.Tensor, float]) -> t
     if grid:
         _build.check_tensor("opacity", opacity, torch.float32, (X, Y, Z), ior.device)
     out = torch.empty((X - 2, Y - 2, Z - 2, 4), dtype=torch.float32, device=ior.device)
-    lib = _build.load()
     with torch.cuda.device(ior.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_pack_field_fwd(ior.data_ptr(), opacity.data_ptr() if grid else None, out.data_ptr(),
-                                    X, Y, Z, 0.0 if grid else float(opacity), stream)
-    _build.check(rc, "pack_field_fwd")
-    _build.launches["pack_field_fwd"] += 1
+        _build.launch("pack_field_fwd", ior.data_ptr(), opacity.data_ptr() if grid else None, out.data_ptr(),
+                      X, Y, Z, 0.0 if grid else float(opacity), stream)
     return out
 
 
@@ -103,12 +100,9 @@ def pack_field_bwd_cuda(ior: torch.Tensor, d_packed: torch.Tensor) -> torch.Tens
         d_packed = d_packed.clone()
     _build.check_tensor("d_packed", d_packed, torch.float32, (X - 2, Y - 2, Z - 2, 4), ior.device)
     d_ior = torch.empty_like(ior)
-    lib = _build.load()
     with torch.cuda.device(ior.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_pack_field_bwd(ior.data_ptr(), d_packed.data_ptr(), d_ior.data_ptr(), X, Y, Z, stream)
-    _build.check(rc, "pack_field_bwd")
-    _build.launches["pack_field_bwd"] += 1
+        _build.launch("pack_field_bwd", ior.data_ptr(), d_packed.data_ptr(), d_ior.data_ptr(), X, Y, Z, stream)
     return d_ior
 
 

@@ -41,6 +41,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import annotate
 from . import _build, march_lines
 
 #: the channels one R1 launch carries in registers
@@ -259,18 +260,15 @@ def _launch_fwd(packed, sigma, emission, pos, dirs, budget, *, bend, step, order
     tau = torch.empty((n,), dtype=torch.float32, device=device)
     rad = torch.empty((n, channels), dtype=torch.float32, device=device)
     fields = _field_args(sigma, emission)
-    lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         for c0, nc in [(0, channels)] if record is not None else channel_groups(channels):
-            rc = lib.vrt_render_fwd(
-                packed.data_ptr(), *(int(v) for v in packed.shape[:3]), *fields, c0,
+            _build.launch(
+                "render_fwd", packed.data_ptr(), *(int(v) for v in packed.shape[:3]), *fields, c0,
                 None if record is None else record.data_ptr(), order.data_ptr(),
                 pos.data_ptr(), dirs.data_ptr(), *(t.data_ptr() for t in (end_pos, end_dir, iters, tau, rad)),
                 n, int(budget), *_vec3(bend), *_vec3(step), nc, stream,
             )
-            _build.check(rc, "render_fwd")
-            _build.launches["render_fwd"] += 1
     return end_pos, end_dir, iters, tau, rad
 
 
@@ -513,11 +511,10 @@ def _launch_bwd(packed, sigma, emission, pos0, end_pos, end_dir, nexec, tau_end,
         row = 4 if channels in (3, 4) else channels
         g_em = torch.zeros((*emission.shape[:3], row), dtype=torch.float32, device=device)[..., :channels]
     d_pos0, d_dir0 = torch.empty_like(end_pos), torch.empty_like(end_dir)
-    lib = _build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_render_bwd(
-            packed.data_ptr(), *(int(v) for v in packed.shape[:3]), *_field_args(sigma, emission), row,
+        _build.launch(
+            "render_bwd", packed.data_ptr(), *(int(v) for v in packed.shape[:3]), *_field_args(sigma, emission), row,
             *(None if t is None else t.data_ptr() for t in (record, g_record)), order.data_ptr(),
             *(t.data_ptr() for t in (pos0, end_pos, end_dir, nexec, tau_end, d_pos, d_dir, d_tau)),
             None if d_rad is None else d_rad.data_ptr(), g_packed.data_ptr(),
@@ -525,8 +522,6 @@ def _launch_bwd(packed, sigma, emission, pos0, end_pos, end_dir, nexec, tau_end,
             d_pos0.data_ptr(), d_dir0.data_ptr(), n,
             *_vec3(bend), *_vec3(step), stream,
         )
-    _build.check(rc, "render_bwd")
-    _build.launches["render_bwd"] += 1
     return g_packed, g_sigma, g_em, d_pos0, d_dir0
 
 
@@ -540,7 +535,8 @@ class _RenderDiff(torch.autograd.Function):
         # on the card the ray order and the record, once for R1 and R2
         order = record = None
         if packed.device.type == "cuda":
-            order = render_order(pos0, dir0, packed.shape)
+            with annotate("vrt.driver.render_order"):
+                order = render_order(pos0, dir0, packed.shape)
             record = field_record(sigma, emission)
         end_pos, end_dir, iters, tau, rad = render_cuda(packed, sigma, emission, pos0, dir0, budget, bend=bend,
                                                         step=step, chunk_steps=chunk_steps, order=order,

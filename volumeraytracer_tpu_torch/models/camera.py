@@ -36,6 +36,7 @@ from ..kernels import render as render_k
 from ..ops import march as march_ops
 from ..ops.interp import interp_linear
 from ..types import BRIGHTNESS_MAX
+from ..utils.profiling import annotate
 from .scene import as_tensor
 
 
@@ -59,26 +60,29 @@ class PinholeCamera:
         """(positions, directions), (H·W, 3) float32 on ``device`` (the card
         unless the caller asks for the CPU), pixels row-major (v, u):
         computed in float64 numpy, as in the JAX package, then cast."""
-        fwd = np.asarray(self.forward, np.float64)
-        fwd = fwd / np.linalg.norm(fwd)
-        up = np.asarray(self.up, np.float64)
-        right = np.cross(fwd, up)
-        right /= np.linalg.norm(right)
-        up = np.cross(right, fwd)
+        with annotate("vrt.entry.camera_rays"):
+            fwd = np.asarray(self.forward, np.float64)
+            fwd = fwd / np.linalg.norm(fwd)
+            up = np.asarray(self.up, np.float64)
+            right = np.cross(fwd, up)
+            right /= np.linalg.norm(right)
+            up = np.cross(right, fwd)
 
-        u = (np.arange(self.width) + 0.5) / self.width * 2.0 - 1.0
-        v = (np.arange(self.height) + 0.5) / self.height * 2.0 - 1.0
-        uu, vv = np.meshgrid(u, v, indexing="xy")
-        aspect = self.height / self.width
-        d = (
-            fwd[None, None]
-            + self.fov * uu[..., None] * right[None, None]
-            + self.fov * aspect * vv[..., None] * up[None, None]
-        )
-        d = d / np.linalg.norm(d, axis=-1, keepdims=True) * self.speed
-        o = np.broadcast_to(np.asarray(self.origin, np.float64), d.shape)
-        return (torch.from_numpy(o.reshape(-1, 3).astype(np.float32)).to(device),
-                torch.from_numpy(d.reshape(-1, 3).astype(np.float32)).to(device))
+            u = (np.arange(self.width) + 0.5) / self.width * 2.0 - 1.0
+            v = (np.arange(self.height) + 0.5) / self.height * 2.0 - 1.0
+            uu, vv = np.meshgrid(u, v, indexing="xy")
+            aspect = self.height / self.width
+            d = (
+                fwd[None, None]
+                + self.fov * uu[..., None] * right[None, None]
+                + self.fov * aspect * vv[..., None] * up[None, None]
+            )
+            d = d / np.linalg.norm(d, axis=-1, keepdims=True) * self.speed
+            o = np.broadcast_to(np.asarray(self.origin, np.float64), d.shape)
+            o, d = o.reshape(-1, 3).astype(np.float32), d.reshape(-1, 3).astype(np.float32)
+            # pageable host memory: each copy waits for the stream
+            with annotate("vrt.sync.camera_copy"):
+                return torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
 
 
 class _RenderState(NamedTuple):
@@ -111,9 +115,10 @@ def _start(ior, positions, directions, invscale):
     packed frame); with the march's bend and step scales."""
     dim = positions.shape[-1]
     bend, step = march_ops.march_scales(np.broadcast_to(np.asarray(invscale, np.float32), (dim,)))
-    pos = positions - 0.5
-    dirs = directions * interp_linear(ior, pos)[..., None]
-    return pos - 0.5, dirs, bend, step
+    with annotate("vrt.driver.start_sample"):
+        pos = positions - 0.5
+        dirs = directions * interp_linear(ior, pos)[..., None]
+        return pos - 0.5, dirs, bend, step
 
 
 def render_transmittance(packed, ior, positions, directions, *, budget: int, invscale=2.0, sigma=None,
@@ -190,7 +195,8 @@ def render_rays_image(packed, ior, positions, directions, *, budget, invscale=2.
     if radiance is not None:
         image = radiance
         if background is not None:
-            bg = torch.atleast_1d(as_tensor(background, torch.float32, pos.device))
+            with annotate("vrt.sync.background"):
+                bg = torch.atleast_1d(as_tensor(background, torch.float32, pos.device))
             t = trans if trans is not None else torch.ones(pos.shape[:1], dtype=torch.float32, device=pos.device)
             image = image + t[..., None] * bg
         if image.shape[-1] == 1:

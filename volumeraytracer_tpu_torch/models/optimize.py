@@ -31,6 +31,7 @@ import torch
 
 from ..parallel.shard import endpoint_render
 from ..types import TraceResult
+from ..utils.profiling import annotate
 from .scene import as_tensor
 
 
@@ -129,18 +130,23 @@ def _fit(loss_fn, init_ior, dev, steps, optimizer, learning_rate, smoothness, ch
     losses = []
     step = start_step
     for step in range(start_step, steps):
-        opt.zero_grad(set_to_none=True)
-        ior = softplus_ior(theta)
-        loss = loss_fn(ior)
-        if smoothness > 0.0:
-            loss = loss + smoothness * smoothness_penalty(ior)
-        loss.backward()
-        opt.step()
-        losses.append(loss.detach().item())
-        if log is not None:
-            log(step, losses[-1])
-        if checkpoint_dir is not None and (step % checkpoint_every == 0 or step == steps - 1):
-            _save_checkpoint(checkpoint_dir, step, {"theta": theta.detach(), "opt_state": opt.state_dict()})
+        with annotate("vrt.entry.fit_step"):
+            opt.zero_grad(set_to_none=True)
+            with annotate("vrt.entry.loss"):
+                ior = softplus_ior(theta)
+                loss = loss_fn(ior)
+                if smoothness > 0.0:
+                    loss = loss + smoothness * smoothness_penalty(ior)
+            with annotate("vrt.entry.backward"):
+                loss.backward()
+            with annotate("vrt.entry.optimizer"):
+                opt.step()
+            with annotate("vrt.sync.loss_item"):
+                losses.append(loss.detach().item())
+            if log is not None:
+                log(step, losses[-1])
+            if checkpoint_dir is not None and (step % checkpoint_every == 0 or step == steps - 1):
+                _save_checkpoint(checkpoint_dir, step, {"theta": theta.detach(), "opt_state": opt.state_dict()})
     with torch.no_grad():
         ior = softplus_ior(theta).cpu().numpy()
     return FitResult(ior=ior, losses=np.asarray(losses, np.float64), step=step)

@@ -57,6 +57,7 @@ from ..types import (
 )
 from ..utils import serialization
 from ..utils.logging import get_logger
+from ..utils.profiling import annotate
 
 
 def as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -130,7 +131,8 @@ class RaytraceScene:
         ray out of range only when there is one."""
         if pos.shape[0] == 0:
             return
-        lo, hi = torch.stack(torch.aminmax(pos, dim=0)).tolist()
+        with annotate("vrt.sync.validate_fixed"):
+            lo, hi = torch.stack(torch.aminmax(pos, dim=0)).tolist()
         if min(lo) >= FIX_ONE and all(h + 1 < b * FIX_ONE for h, b in zip(hi, self.bounds)):
             return
         bounds = torch.tensor(self.bounds, dtype=torch.int64, device=pos.device)
@@ -175,98 +177,102 @@ class RaytraceScene:
         soft-termination ``transmittance`` (N,), differentiable with
         respect to the opacity channel, on the plain march.
         """
-        if mode not in ("fixed", "float"):
-            raise ValueError(f"unknown mode {mode!r}")
-        native = kernel == "native"
-        if native and mode != "float":
-            raise ValueError("kernel='native' runs the float march only; use mode='float'")
-        if soft_opacity_tau is not None:
-            if mode != "float":
-                raise ValueError("soft_opacity_tau requires mode='float'")
-            if kernel in ("cuda", "native"):
-                raise ValueError("soft_opacity_tau runs on the plain march only (the kernels' termination is "
-                                 "straight-through); use kernel='auto' or 'plain'")
-            kernel = "plain"
-        if mode == "float" and dir_fixed:
-            raise ValueError("dir_fixed requires mode='fixed'")
-        use_cuda = not native and use_kernels(kernel, self.device, self.dim)
-        sp_shape, sd_shape = np.shape(start_position), np.shape(start_direction)
-        if sp_shape[-1:] != (self.dim,) or sd_shape[-1:] != (self.dim,):
-            raise ValueError(
-                f"start_position/start_direction must have trailing dim {self.dim} "
-                f"(scene bounds {self.bounds}); got {sp_shape} and {sd_shape}"
-            )
-        if sp_shape != sd_shape:
-            raise ValueError(
-                f"start_position {sp_shape} and start_direction {sd_shape} must have the same shape"
-            )
-        if invscale is None:
-            invscale = np.ones(self.dim, np.float32)
-        invscale = np.broadcast_to(np.asarray(invscale, np.float32), (self.dim,))
-        chunk_steps = chunk_steps or self.options.chunk_steps
+        with annotate("vrt.entry.trace_rays"):
+            with annotate("vrt.entry.validate"):
+                if mode not in ("fixed", "float"):
+                    raise ValueError(f"unknown mode {mode!r}")
+                native = kernel == "native"
+                if native and mode != "float":
+                    raise ValueError("kernel='native' runs the float march only; use mode='float'")
+                if soft_opacity_tau is not None:
+                    if mode != "float":
+                        raise ValueError("soft_opacity_tau requires mode='float'")
+                    if kernel in ("cuda", "native"):
+                        raise ValueError("soft_opacity_tau runs on the plain march only (the kernels' termination is "
+                                         "straight-through); use kernel='auto' or 'plain'")
+                    kernel = "plain"
+                if mode == "float" and dir_fixed:
+                    raise ValueError("dir_fixed requires mode='fixed'")
+                use_cuda = not native and use_kernels(kernel, self.device, self.dim)
+                sp_shape, sd_shape = np.shape(start_position), np.shape(start_direction)
+                if sp_shape[-1:] != (self.dim,) or sd_shape[-1:] != (self.dim,):
+                    raise ValueError(
+                        f"start_position/start_direction must have trailing dim {self.dim} "
+                        f"(scene bounds {self.bounds}); got {sp_shape} and {sd_shape}"
+                    )
+                if sp_shape != sd_shape:
+                    raise ValueError(
+                        f"start_position {sp_shape} and start_direction {sd_shape} must have the same shape"
+                    )
+                if invscale is None:
+                    invscale = np.ones(self.dim, np.float32)
+                invscale = np.broadcast_to(np.asarray(invscale, np.float32), (self.dim,))
+                chunk_steps = chunk_steps or self.options.chunk_steps
 
-        if self.options.write_instance:
-            self._dump_instance(start_position, start_direction, invscale, iterations, minimum_brightness,
-                                trace_path, normalize_length, mode)
-        if self.options.loglevel < 0:
-            self._log.info("trace_rays: %d rays, mode=%s kernel=%s budget=%d", int(np.prod(sp_shape[:-1])), mode,
-                           kernel, iterations)
+            if self.options.write_instance:
+                self._dump_instance(start_position, start_direction, invscale, iterations, minimum_brightness,
+                                    trace_path, normalize_length, mode)
+            if self.options.loglevel < 0:
+                self._log.info("trace_rays: %d rays, mode=%s kernel=%s budget=%d", int(np.prod(sp_shape[:-1])), mode,
+                               kernel, iterations)
 
-        if mode == "fixed":
-            # numpy positions are checked on the host before they are
-            # uploaded, as the JAX package checks them; tensors where they lie
-            on_host = not isinstance(start_position, torch.Tensor)
-            pos = as_fixed(start_position, "cpu" if on_host else self.device).reshape(-1, self.dim)
-            self._validate_fixed(pos)
-            pos = pos.to(self.device)
-            march = dict(invscale=invscale, iterations=iterations, minimum_brightness=minimum_brightness,
-                         trace_path=trace_path, chunk_steps=chunk_steps, use_cuda=use_cuda)
-            if dir_fixed:
-                return self._trace_fixed_dir_quantized(pos, start_direction, normalize_length, **march)
+            if mode == "fixed":
+                # numpy positions are checked on the host before they are
+                # uploaded, as the JAX package checks them; tensors where they lie
+                on_host = not isinstance(start_position, torch.Tensor)
+                pos = as_fixed(start_position, "cpu" if on_host else self.device).reshape(-1, self.dim)
+                with annotate("vrt.entry.validate"):
+                    self._validate_fixed(pos)
+                pos = pos.to(self.device)
+                march = dict(invscale=invscale, iterations=iterations, minimum_brightness=minimum_brightness,
+                             trace_path=trace_path, chunk_steps=chunk_steps, use_cuda=use_cuda)
+                if dir_fixed:
+                    return self._trace_fixed_dir_quantized(pos, start_direction, normalize_length, **march)
+                dirs = as_tensor(start_direction, torch.float32, self.device).reshape(-1, self.dim)
+                return self._trace_fixed(pos, dirs, normalize_length, **march)
+
+            bend, step = march_ops.march_scales(invscale)
+            pos = as_tensor(start_position, torch.float32, self.device).reshape(-1, self.dim)
             dirs = as_tensor(start_direction, torch.float32, self.device).reshape(-1, self.dim)
-            return self._trace_fixed(pos, dirs, normalize_length, **march)
 
-        bend, step = march_ops.march_scales(invscale)
-        pos = as_tensor(start_position, torch.float32, self.device).reshape(-1, self.dim)
-        dirs = as_tensor(start_direction, torch.float32, self.device).reshape(-1, self.dim)
-
-        if native and (self.dim != 3 or trace_path or differentiable or self.translucency_cropped is not None):
-            raise ValueError("kernel='native' supports only plain 3-D float marches "
-                             "(no trace_path, differentiable, translucency or soft_opacity_tau)")
-        # −0.5, sample n there for |v| = n, −0.5 again: net −1 voxel into the
-        # cropped frame of the packed field
-        if normalize_length:
-            p = pos - 0.5
-            dirs = dirs * interp_linear(self.ior, p)[..., None]
-            p = p - 0.5
-        else:
-            p = pos - 1.0
-        if native:
-            return self._trace_float_native(p, dirs, bend, step, iterations)
-        if use_cuda:
-            # the recording kernel writes the path +1 voxel into the scene
-            # frame as it stores it
-            res = (march_lines_diff if differentiable else march_lines)(
-                self.packed, p, dirs, iterations, bend_scale=bend, step_scale=step,
-                translucency=self.translucency_cropped, minimum_brightness=minimum_brightness,
-                record_path=trace_path, path_offset=1.0,
+            if native and (self.dim != 3 or trace_path or differentiable or self.translucency_cropped is not None):
+                raise ValueError("kernel='native' supports only plain 3-D float marches "
+                                 "(no trace_path, differentiable, translucency or soft_opacity_tau)")
+            # −0.5, sample n there for |v| = n, −0.5 again: net −1 voxel into the
+            # cropped frame of the packed field
+            if normalize_length:
+                with annotate("vrt.driver.start_sample"):
+                    p = pos - 0.5
+                    dirs = dirs * interp_linear(self.ior, p)[..., None]
+                    p = p - 0.5
+            else:
+                p = pos - 1.0
+            if native:
+                return self._trace_float_native(p, dirs, bend, step, iterations)
+            if use_cuda:
+                # the recording kernel writes the path +1 voxel into the scene
+                # frame as it stores it
+                res = (march_lines_diff if differentiable else march_lines)(
+                    self.packed, p, dirs, iterations, bend_scale=bend, step_scale=step,
+                    translucency=self.translucency_cropped, minimum_brightness=minimum_brightness,
+                    record_path=trace_path, path_offset=1.0,
+                )
+            else:
+                res = march_ops.march_float(
+                    self.packed, self.translucency_cropped, p, dirs, iterations,
+                    bend_scale=bend, step_scale=step, minimum_brightness=minimum_brightness,
+                    chunk_steps=chunk_steps, differentiable=differentiable, record_path=trace_path,
+                    soft_opacity_tau=soft_opacity_tau,
+                )
+            # +1 voxel back into the scene frame, paths included
+            return TraceResult(
+                end_position=res.end_position + 1.0,
+                end_direction=res.end_direction,
+                end_iteration=res.end_iteration,
+                remaining_light=res.remaining_light,
+                path=res.path if res.path is None or use_cuda else res.path + 1.0,
+                transmittance=res.transmittance,
             )
-        else:
-            res = march_ops.march_float(
-                self.packed, self.translucency_cropped, p, dirs, iterations,
-                bend_scale=bend, step_scale=step, minimum_brightness=minimum_brightness,
-                chunk_steps=chunk_steps, differentiable=differentiable, record_path=trace_path,
-                soft_opacity_tau=soft_opacity_tau,
-            )
-        # +1 voxel back into the scene frame, paths included
-        return TraceResult(
-            end_position=res.end_position + 1.0,
-            end_direction=res.end_direction,
-            end_iteration=res.end_iteration,
-            remaining_light=res.remaining_light,
-            path=res.path if res.path is None or use_cuda else res.path + 1.0,
-            transmittance=res.transmittance,
-        )
 
     def _trace_float_native(self, p, dirs, bend, step, iterations) -> TraceResult:
         """The float march through the host C++ library (``native.py``) from

@@ -30,6 +30,7 @@ import torch
 
 from ..kernels import pack_field
 from ..types import BRIGHTNESS_MAX, DIFF_DIV, IORLOG_UNIT, OPACITY_BIAS, OPACITY_SHIFT
+from ..utils.profiling import annotate
 
 STAMP_3D = np.array([[14.0, 47.0, 14.0], [47.0, 162.0, 47.0], [14.0, 47.0, 14.0]])
 STAMP_2D = np.array([47.0, 162.0, 47.0])
@@ -111,16 +112,17 @@ def build_packed_field(ior: torch.Tensor, translucency: Optional[torch.Tensor] =
     dim = ior.ndim
     if dim not in (2, 3):
         raise ValueError(f"dim must be 2 or 3, got {dim}")
-    if pack_field.use_kernels(kernel, ior.device, dim):
-        opacity = TRANSPARENT if translucency is None else opacity_channel(translucency).contiguous()
-        return pack_field._PackField.apply(ior.contiguous(), opacity)
-    logf = ior_log(ior)
-    diffs = [_axis_diff(logf, a, dim) for a in range(dim)]
-    if translucency is None:
-        extra = torch.full(diffs[0].shape, TRANSPARENT, dtype=torch.float32, device=ior.device)
-    else:
-        extra = crop1(opacity_channel(translucency))
-    return torch.stack(diffs + [extra], dim=-1)
+    with annotate("vrt.driver.pack_field"):
+        if pack_field.use_kernels(kernel, ior.device, dim):
+            opacity = TRANSPARENT if translucency is None else opacity_channel(translucency).contiguous()
+            return pack_field._PackField.apply(ior.contiguous(), opacity)
+        logf = ior_log(ior)
+        diffs = [_axis_diff(logf, a, dim) for a in range(dim)]
+        if translucency is None:
+            extra = torch.full(diffs[0].shape, TRANSPARENT, dtype=torch.float32, device=ior.device)
+        else:
+            extra = crop1(opacity_channel(translucency))
+        return torch.stack(diffs + [extra], dim=-1)
 
 
 def pack_field_vjp_plain(ior: torch.Tensor, d_packed: torch.Tensor) -> torch.Tensor:

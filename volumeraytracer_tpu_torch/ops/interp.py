@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..types import FIX_ONE
+from ..utils.profiling import annotate
 
 
 def _flat_strides(shape: Sequence[int]) -> list:
@@ -32,11 +33,13 @@ def _corner_index(base_idx: torch.Tensor, spatial_shape) -> torch.Tensor:
     ``base_idx`` (..., dim): (..., 2^dim) int64."""
     dim = base_idx.shape[-1]
     strides = _flat_strides(spatial_shape)
-    offsets = torch.tensor(
-        [sum(s * o for s, o in zip(strides, off)) for off in itertools.product((0, 1), repeat=dim)],
-        dtype=torch.int64, device=base_idx.device,
-    )
-    stride_t = torch.tensor(strides, dtype=torch.int64, device=base_idx.device)
+    # host lists copied to the card: each copy waits for the stream
+    with annotate("vrt.sync.corner_index"):
+        offsets = torch.tensor(
+            [sum(s * o for s, o in zip(strides, off)) for off in itertools.product((0, 1), repeat=dim)],
+            dtype=torch.int64, device=base_idx.device,
+        )
+        stride_t = torch.tensor(strides, dtype=torch.int64, device=base_idx.device)
     flat_base = (base_idx.to(torch.int64) * stride_t).sum(-1)
     return flat_base[..., None] + offsets
 
@@ -86,7 +89,8 @@ def interp_linear(field: torch.Tensor, pos_vox: torch.Tensor) -> torch.Tensor:
         field = field[..., None]
     spatial = field.shape[:-1]
     base = torch.floor(pos_vox)
-    hi = torch.tensor([s - 2 for s in spatial], dtype=torch.int64, device=pos_vox.device)
+    with annotate("vrt.sync.interp_bounds"):
+        hi = torch.tensor([s - 2 for s in spatial], dtype=torch.int64, device=pos_vox.device)
     base_i = torch.minimum(torch.clamp(base.to(torch.int64), min=0), hi)
     corners = gather_corners(field.reshape(-1, field.shape[-1]), base_i, spatial)
     out = _corner_sum(corners, pos_vox - base)

@@ -36,6 +36,7 @@ from ..ops.fields import build_packed_field, cropped_translucency
 from ..ops.interp import interp_linear
 from ..ops.march import march_float, march_scales
 from ..types import TraceResult
+from ..utils.profiling import annotate
 
 
 def _device(device, rank: int = 0) -> torch.device:
@@ -254,9 +255,10 @@ def endpoint_render(
 
     packed = build_packed_field(ior, translucency, kernel=kernel)
     trc = None if translucency is None else cropped_translucency(translucency)
-    pos = positions - 0.5
-    dirs = directions * interp_linear(ior, pos)[..., None]
-    pos = pos - 0.5
+    with annotate("vrt.driver.start_sample"):
+        pos = positions - 0.5
+        dirs = directions * interp_linear(ior, pos)[..., None]
+        pos = pos - 0.5
     bend, step = march_scales([invscale] * pos.shape[-1])
     if use_cuda:
         res = march_pallas_diff(
@@ -310,19 +312,24 @@ def make_train_step(
         if per % accum_steps:
             raise ValueError(f"per-rank batch {per} not divisible by accum_steps {accum_steps}")
         m = per // accum_steps
-        field = ior.detach().requires_grad_()
-        loss = torch.zeros((), dtype=torch.float32, device=ior.device)
-        for k in range(accum_steps):
-            rows = slice(me * per + k * m, me * per + (k + 1) * m)
-            end_pos, _ = endpoint_render(field, positions[rows], directions[rows], budget, invscale, chunk_steps)
-            micro = ((end_pos - targets[rows]) ** 2).sum() / n
-            micro.backward()
-            loss = loss + micro.detach()
-        buf = torch.cat([field.grad.reshape(-1), loss.reshape(1)])
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-        with torch.no_grad():
-            new = ior.detach() - lr * buf[:-1].view_as(ior)
-        return new, buf[-1].clone()
+        with annotate("vrt.entry.train_step"):
+            field = ior.detach().requires_grad_()
+            loss = torch.zeros((), dtype=torch.float32, device=ior.device)
+            for k in range(accum_steps):
+                rows = slice(me * per + k * m, me * per + (k + 1) * m)
+                with annotate("vrt.entry.forward"):
+                    end_pos, _ = endpoint_render(field, positions[rows], directions[rows], budget, invscale,
+                                                 chunk_steps)
+                    micro = ((end_pos - targets[rows]) ** 2).sum() / n
+                with annotate("vrt.entry.backward"):
+                    micro.backward()
+                loss = loss + micro.detach()
+            with annotate("vrt.entry.all_reduce"):
+                buf = torch.cat([field.grad.reshape(-1), loss.reshape(1)])
+                dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+            with annotate("vrt.entry.update"), torch.no_grad():
+                new = ior.detach() - lr * buf[:-1].view_as(ior)
+            return new, buf[-1].clone()
 
     return train_step
 

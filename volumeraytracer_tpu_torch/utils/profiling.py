@@ -8,7 +8,8 @@ and per-ray path recording (``trace_rays(..., trace_path=True)`` here too):
 
   * :func:`trace` — a ``torch.profiler`` trace of the CPU (and the card's
     kernels when CUDA is available), written as a Chrome/Perfetto JSON file;
-  * :func:`annotate` — a named span that shows up in such a trace;
+  * :func:`annotate` — the program's span, which shows up in such a trace
+    and costs one check when no profiler records;
   * :func:`cost_report` — the operations, bytes and memory of one run of a
     function, counted op by op as torch dispatches them;
   * :func:`benchmark` — the reference's rays-per-wall-clock protocol
@@ -56,8 +57,40 @@ def trace(log_dir: str, create_perfetto_link: bool = False) -> Iterator[None]:
             log_dir, f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"))
 
 
+#: what ``annotate`` returns while no profiler records: one shared no-op
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named span context manager; the region appears in profiler traces."""
+    """The program's span: a context manager that, while a profiler records
+    (``torch.profiler``, :func:`trace`), is ``record_function(name)``, and
+    otherwise one shared no-op, so that a span costs one check when no one
+    traces (``record_function`` itself costs ~10 µs entered untraced).
+
+    Spans land in the same Kineto trace as the card's activity, on its
+    clock, as ``user_annotation`` events of the thread that entered them
+    (the autograd engine's backward thread included), so a device idle gap
+    can be put down to the innermost span around it.  The program names
+    them ``vrt.<layer>.<what>``:
+
+      * ``vrt.entry.*``: a user's call and its phases: a train step
+        (``train_step``; ``forward``, ``backward``, ``all_reduce``,
+        ``update``), a trace request (``trace_rays``; ``validate``), a fit
+        step (``fit_step``; ``loss``, ``backward``, ``optimizer``), a
+        camera's rays (``camera_rays``);
+      * ``vrt.driver.*``: the work between the kernels (``pack_field``,
+        ``start_sample``, ``table_build``, ``march``, ``sort``,
+        ``unsort``, ``replay``, ``fold``, ``render_order``);
+      * ``vrt.kernel.<name>``: one launch of a hand-written kernel, under
+        its ``kernels._build.launches`` key;
+      * ``vrt.sync.<site>``: a place where the host waits for the card.
+
+    A span's parent is the innermost span that encloses it in time, and its
+    unit the ``vrt.entry.*`` step or request span that encloses it: the
+    program's callers drive one call at a time (one closed-loop client),
+    so time enclosure identifies both, and no span carries an id."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
     return record_function(name)
 
 
