@@ -292,10 +292,27 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      at 256^3, T1 also with the absorption row, and T2's yardstick, zeros +
      index_add_ over a precomputed int32 index (checked against T2 within
      1e-5); their bounds, shares and ptxas report.
+ 23. N1 and N2 (kernels/start_sample.py: start_sample_fwd, the |v| = n
+     start sample, and start_sample_bwd, its adjoint): at 1024^2 rays
+     through the bench's 256^3 lens, a camera's (every ray on one start
+     voxel), coherent ones (a jittered y, z grid at x = 2, ~4 a cell) and
+     scattered ones, N1 through start_sample_cuda with one launch equal to
+     start_sample_plain bit for bit; N2 through start_sample, every input
+     differentiable under seeded cotangents of both outputs, with one
+     launch of each kernel: d dir equal to the float32 plain autograd's bit
+     for bit, d pos within 2e-6 of each ray's scale of the float64
+     autograd's, d ior within N2_TOL of its largest value (a dropped or
+     doubled group of a warp's rays on one base voxel moves it by more:
+     the median group of each ray set's first 8 warps is shown to, by ten
+     times); times (CUDA events: N1 and N2 queued behind a spin of the
+     card, so without their launches' host time, and one after another;
+     the plain forward and the plain backward alone over 3, with theirs),
+     N2 into the field alone as the train steps and the camera run it,
+     and their bounds by bytes.
 
-``python3 chip_smoke.py --phase21`` (``--phase22``) runs phases 1, 2 and
-21 (22) alone, a quick check of P1 and P2 (T1 and T2) that prints no
-result line.
+``python3 chip_smoke.py --phase21`` (``--phase22``, ``--phase23``) runs
+phases 1, 2 and 21 (22, 23) alone, a quick check of P1 and P2 (T1 and T2;
+N1 and N2) that prints no result line.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
@@ -304,7 +321,8 @@ recorded float trace, the capped K2 and the corner build on
 march_lines_compact over the scattered rays, R1 on phase 17b's frame,
 R2 on phase 17c's image_loss gradient, S1 on phase 20a's trace and S2 on
 its first train step, P1 and P2 on the line training step, T1 and T2 on
-the point training step), error
+the point training step, N1 and N2 on the line training step and timed
+at phase 23's camera), error
 against its plain
 version, times, its bound (the larger of its float32 operations over 67
 TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
@@ -327,6 +345,14 @@ import numpy as np
 
 BUDGET = 512
 INV = 2.0
+#: the |v| = n start sample's kernels, N1 and N2, once each in a window that
+#: differentiates a float march from its start
+SAMPLE = {"start_sample_fwd": 1, "start_sample_bwd": 1}
+#: N2's field gradient against float64 autograd through the plain sample,
+#: as a share of its largest value: float32 sums in another order read
+#: 2-9e-6 on the H100 at a camera's 1024² rays, 8 voxels of ~1 M terms each;
+#: one group of a warp's rays more or fewer moves it by ~2e-3 (phase 23)
+N2_TOL = 1e-4
 BEND = INV / 65536.0
 STEP = INV * (float(0x42000000) / 65536.0 / 65536.0)
 
@@ -553,6 +579,7 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     from volumeraytracer_tpu_torch.kernels import _build
     from volumeraytracer_tpu_torch.kernels import pack_field as pf
     from volumeraytracer_tpu_torch.kernels import render as rk
+    from volumeraytracer_tpu_torch.kernels import start_sample as ss
     from volumeraytracer_tpu_torch.models import camera as camera_mod
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field
 
@@ -644,8 +671,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         sync()
         render_first_s = time.perf_counter() - t0
         r["r1_launches"] = frame_launches = dict(_build.launches)
-        if frame_launches != {"render_fwd": 1}:
-            raise AssertionError(f"render_image's launches {frame_launches}, expected R1 once (3 channels, one group)")
+        if frame_launches != {"start_sample_fwd": 1, "render_fwd": 1}:
+            raise AssertionError(f"render_image's launches {frame_launches}, expected N1 and R1 once (3 channels, one "
+                                 f"group)")
         img, trans = out["image"], out["transmittance"]
         image = img.cpu().numpy()
         if tuple(img.shape) != (width, width, 3) or not bool(torch.isfinite(img).all()):
@@ -658,8 +686,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
             raise AssertionError("channel 2 (no emission, no background) is not 0")
         _build.launches.clear()
         out0 = render_image(packed, ior, cam, budget=BUDGET, invscale=INV, sigma=sigma, emission=None, background=None)
-        if dict(_build.launches) != {"render_fwd": 1}:
-            raise AssertionError(f"the emission-off render's launches {dict(_build.launches)}, expected R1 once")
+        if dict(_build.launches) != {"start_sample_fwd": 1, "render_fwd": 1}:
+            raise AssertionError(f"the emission-off render's launches {dict(_build.launches)}, expected N1 and R1 "
+                                 f"once")
         if not (torch.equal(out0["image"], out0["transmittance"]) and torch.equal(out0["transmittance"], trans)):
             raise AssertionError("the emission-off image is not the transmittance")
         cpos, cdirs = cam.rays(device=dev)
@@ -681,8 +710,8 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
             if (tr_out["transmittance"] is None) == (s_ is not None) or (
                     s_ is not None and not torch.equal(tr_out["transmittance"], trans.reshape(-1))):
                 raise AssertionError(f"render_transmittance (sigma {s_ is not None}): transmittance differs")
-        if trans_launches != [{"render_fwd": 1}] * 2:
-            raise AssertionError(f"render_transmittance's launches {trans_launches}, expected R1 once each")
+        if trans_launches != [{"start_sample_fwd": 1, "render_fwd": 1}] * 2:
+            raise AssertionError(f"render_transmittance's launches {trans_launches}, expected N1 and R1 once each")
         del out0, tiles, tr_out
         print(f"phase 17b camera {width}x{width} through {n}^3, budget {BUDGET}: launches {frame_launches}, first call "
               f"{render_first_s:.3f} s (the kernel build is phase 2's); T in [{trans.min().item():.4g}, "
@@ -781,8 +810,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     grad_s = time.perf_counter() - t0
     grad_peak = torch.cuda.max_memory_allocated()
     r["r2_launches"] = grad_launches = dict(_build.launches)
-    if grad_launches != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1}:
-        raise AssertionError(f"image_loss's gradient launched {grad_launches}, expected R1, R2, P1 and P2 once each")
+    if grad_launches != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1, **SAMPLE}:
+        raise AssertionError(f"image_loss's gradient launched {grad_launches}, expected R1, R2, P1, P2, N1 and N2 "
+                             f"once each")
     for name, leaf in zip(("ior", "sigma", "emission"), leaves):
         g = leaf.grad
         if not (bool(torch.isfinite(g).all()) and g.abs().max().item() > 0):
@@ -874,10 +904,11 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     grads = {}
     for route in ("kernels", "plain"):
         leaves = [x.clone().requires_grad_(True) for x in (ior, sigma, emission)]
-        saved = rk.use_kernels, pf.use_kernels
+        saved = rk.use_kernels, pf.use_kernels, ss.use_kernels
         if route == "plain":
             rk.use_kernels = lambda device, dim: False
             pf.use_kernels = lambda kernel, device, dim: False
+            ss.use_kernels = lambda kernel, device, dim: False
         try:
             sync()
             _build.launches.clear()
@@ -889,9 +920,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
             grads[route] = (loss.item(), [leaf.grad for leaf in leaves], dict(_build.launches),
                             time.perf_counter() - t0)
         finally:
-            rk.use_kernels, pf.use_kernels = saved
-    if grads["kernels"][2] != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1} or \
-            grads["plain"][2]:
+            rk.use_kernels, pf.use_kernels, ss.use_kernels = saved
+    if grads["kernels"][2] != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1,
+                               **SAMPLE} or grads["plain"][2]:
         raise AssertionError(f"launches {grads['kernels'][2]} (kernels) and {grads['plain'][2]} (plain)")
     close(torch.tensor(grads["kernels"][0]), torch.tensor(grads["plain"][0]), rtol=1e-5, atol=0)
     notes = []
@@ -917,15 +948,17 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         loss = tr_out["end_position"][:, 1].sum() + (tr_out["transmittance"].sum() if s_ is not None else 0.0)
         loss.backward()
         sync()
-        if dict(_build.launches) != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1}:
+        if dict(_build.launches) != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1,
+                                     **SAMPLE}:
             raise AssertionError(f"render_transmittance's gradient (sigma {s_ is not None}) launched "
-                                 f"{dict(_build.launches)}, expected R1, R2 (and P1, P2 for its field) once each")
+                                 f"{dict(_build.launches)}, expected R1, R2, N1, N2 (and P1, P2 for its field) once "
+                                 f"each")
         if not (bool(torch.isfinite(leaf.grad).all()) and leaf.grad.abs().max().item() > 0):
             raise AssertionError("render_transmittance's d/d ior is not finite and nonzero")
     _build.launches.clear()
     tr_out = render_transmittance(packed, ior, cpos_s, cdirs_s, budget=BUDGET, invscale=INV, sigma=sigma,
                                   differentiable=False)
-    if dict(_build.launches) != {"render_fwd": 1} or tr_out["transmittance"].requires_grad:
+    if dict(_build.launches) != {"start_sample_fwd": 1, "render_fwd": 1} or tr_out["transmittance"].requires_grad:
         raise AssertionError(f"render_transmittance(differentiable=False) launched {dict(_build.launches)}")
     print(f"phase 17c render_transmittance {small}x{small}: its gradient (end positions and T, with and without "
           f"σ) launched R1 and R2 once each, P1 and P2 once for its field; differentiable=False R1 alone")
@@ -1439,7 +1472,7 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     end_pos[:, 1].sum().backward()
     sync()
     want = {"line_table_build": 1, "march_lines_fwd": 1, "march_lines_bwd": 1, "line_table_fold": 1,
-            "pack_field_fwd": 1, "pack_field_bwd": 1}
+            "pack_field_fwd": 1, "pack_field_bwd": 1, **SAMPLE}
     if dict(_build.launches) != want or not bool(torch.isfinite(ior_k.grad).all()):
         raise AssertionError(f"scattered fwd+bwd: launches {dict(_build.launches)} or a non-finite gradient")
     sub = slice(0, 4096)
@@ -1510,9 +1543,9 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
         scene = RaytraceScene(lens, options=Options(write_instance=dump), device=dev)
         direct = scene.trace_rays(bench_pos, bench_dirs, invscale=[INV] * 3, iterations=BUDGET, mode="float")
         res, launched, line = replay([dump, "--mode", "float"])
-        if launched != {"pack_field_fwd": 1, "line_table_build": 1, "march_lines_fwd": 1}:
-            raise AssertionError(f"the float replay launched {launched}, expected one P1 (its scene), one K1 and "
-                                 f"one K2")
+        if launched != {"pack_field_fwd": 1, "start_sample_fwd": 1, "line_table_build": 1, "march_lines_fwd": 1}:
+            raise AssertionError(f"the float replay launched {launched}, expected one P1 (its scene), one N1, one "
+                                 f"K1 and one K2")
         bad = differs(res, direct)
         if bad:
             raise AssertionError(f"the float replay differs from the direct trace in {bad}")
@@ -1617,9 +1650,10 @@ def phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, line_s
     sync = torch.cuda.synchronize
     fields = ("end_position", "end_direction", "end_iteration", "remaining_light")
     n_rays = pos.shape[0]
-    # the line train step's kernels: K1-K4 and, for the field, P1 and P2
+    # the line train step's kernels: K1-K4, N1 and N2 and, for the field, P1
+    # and P2
     line_kernels = ("line_table_build", "march_lines_fwd", "march_lines_bwd", "line_table_fold", "pack_field_fwd",
-                    "pack_field_bwd")
+                    "pack_field_bwd", *SAMPLE)
 
     # 19a. world size 1 on the card: the group and the mesh
     info = init_distributed()
@@ -2719,10 +2753,182 @@ def phase22(dev, t, timed, card, ior256, ior40, tr40, ptxas) -> dict:
     return r
 
 
+def phase23(dev, t, timed, card, ior256, ptxas, n_side=1024) -> dict:
+    """N1 and N2, the |v| = n start sample and its adjoint, on the card (see
+    the module doc, phase 23), at ``n_side``² rays of each set; returns
+    their errors, times and bounds at the camera's rays for the kernels
+    line.  ``ptxas``: phase 2's report by kernel."""
+    import torch
+
+    from volumeraytracer_tpu_torch import PinholeCamera
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import start_sample as ss
+    from volumeraytracer_tpu_torch.ops.interp import start_sample, start_sample_plain
+
+    sync = torch.cuda.synchronize
+    for name in ("start_sample_fwd", "start_sample_bwd"):
+        print(f"phase 23 ptxas {name}: " + ", ".join(f"{k} {v}" for k, v in ptxas[name].items()))
+    grid = ior256.shape[0]
+    n = n_side * n_side
+    gen = torch.Generator(device=dev).manual_seed(23)
+    cam = PinholeCamera(origin=(1.5, grid / 2, grid / 2), forward=(1.0, 0.0, 0.0), up=(0.0, 0.0, 1.0),
+                        width=n_side, height=n_side, fov=0.45, speed=0.5)
+    ys = torch.linspace(8.0, grid - 8.0, n_side, device=dev)
+    yy, zz = torch.meshgrid(ys, ys, indexing="ij")
+    coh = torch.stack([torch.full_like(yy, 2.0), yy, zz], dim=-1).reshape(-1, 3)
+    coh[:, 1:] += (torch.rand((n, 2), generator=gen, device=dev) * 2.0 - 1.0) * (0.5 * (grid - 16.0) / (n_side - 1))
+    scat = torch.rand((n, 3), generator=gen, device=dev) * (grid - 8.0) + 4.0
+    scat_dir = torch.randn((n, 3), generator=gen, device=dev)
+    ray_sets = {"camera": cam.rays(device=dev),
+                "coherent": (coh, torch.tensor([16.0, 0.0, 0.0], device=dev).expand(n, 3).contiguous()),
+                "scattered": (scat, scat_dir / torch.linalg.vector_norm(scat_dir, dim=-1, keepdim=True) * 16.0)}
+    del coh, scat, scat_dir, yy, zz
+    ior64 = ior256.double()
+    r = {"n1_err": 0.0, "n2_err": 0.0, "times": {}}
+
+    def device_timed(fn, reps=20):
+        """ms a call of ``fn`` on the card: the calls queued behind a spin
+        of the card (``torch.cuda._sleep``), so that the host's time to
+        launch them, longer than N1's or N2's own, stays off the clock."""
+        fn()
+        sync()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        sync()
+        return start.elapsed_time(stop) / reps
+
+    def base_voxel(pos):
+        p = pos - 0.5
+        hi = torch.tensor([s - 2 for s in ior256.shape], device=dev)
+        return torch.minimum(torch.floor(p).to(torch.int64).clamp(min=0), hi)
+
+    for kind, (pos, dirs) in ray_sets.items():
+        # N1 bit for bit
+        sync()
+        _build.launches.clear()
+        got = ss.start_sample_cuda(ior256, pos, dirs)
+        sync()
+        if dict(_build.launches) != {"start_sample_fwd": 1}:
+            raise AssertionError(f"start_sample_cuda launched {dict(_build.launches)}")
+        ref = start_sample_plain(ior256, pos, dirs)
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"N1 differs from the plain sample on the {kind} rays: max "
+                                 f"{(got[1] - ref[1]).abs().max().item():.3g} in dirs'")
+        r["n1_err"] = max(r["n1_err"], (got[0] - ref[0]).abs().max().item(), (got[1] - ref[1]).abs().max().item())
+        del got, ref
+
+        # N2 against autograd through the plain sample
+        g_pos = torch.randn(pos.shape, generator=gen, device=dev)
+        g_dir = torch.randn(dirs.shape, generator=gen, device=dev)
+
+        def grads(fn, dtype, field):
+            leaves = [x.to(dtype).clone().requires_grad_(True) for x in (field, pos, dirs)]
+            p, d = fn(*leaves)
+            return torch.autograd.grad((p * g_pos.to(dtype)).sum() + (d * g_dir.to(dtype)).sum(), leaves)
+
+        sync()
+        _build.launches.clear()
+        got = grads(start_sample, torch.float32, ior256)
+        sync()
+        if dict(_build.launches) != SAMPLE:
+            raise AssertionError(f"start_sample's gradient launched {dict(_build.launches)}, expected N1 and N2 once")
+        plain = grads(start_sample_plain, torch.float32, ior256)
+        ref = grads(start_sample_plain, torch.float64, ior64)
+        if not torch.equal(got[2], plain[2]):
+            raise AssertionError(f"N2's d dir differs from the plain autograd's on the {kind} rays")
+        top = ref[0].abs().max().item()
+        gap = (got[0].double() - ref[0]).abs().max().item()
+        plain_gap = (plain[0].double() - ref[0]).abs().max().item()
+        if not (top > 0 and gap <= N2_TOL * top):
+            raise AssertionError(f"N2's d ior on the {kind} rays: max |N2 - float64| {gap:.4g} over the largest "
+                                 f"{top:.4g} = {gap / top:.3g} > {N2_TOL}")
+        # each ray's scale of d pos: |gp| + |gd|·|d| · 2 max n (the weights'
+        # derivative sums to 2 in absolute value)
+        scale = g_pos.abs().double() + 2.0 * ior256.max().item() * (g_dir.abs() * dirs.abs()).sum(
+            -1, keepdim=True).double()
+        pos_gap = ((got[1].double() - ref[1]).abs() / scale).max().item()
+        if not pos_gap <= 2e-6:
+            raise AssertionError(f"N2's d pos on the {kind} rays: {pos_gap:.3g} of its scale from float64")
+        if kind == "camera":
+            r["n2_err"] = (got[0].double() - ref[0]).abs().max().item()
+        # what one group of a warp's rays on one base voxel adds to d ior,
+        # over the largest value, for the groups of the first 8 warps: the
+        # largest of its 8 corner sums of w · s in float64
+        p = pos[:256] - 0.5
+        fr = (p - torch.floor(p)).double()
+        s_ray = (g_dir[:256].double() * dirs[:256].double()).sum(-1)
+        w = torch.stack([(fr[:, 0] if o & 4 else 1.0 - fr[:, 0]) * (fr[:, 1] if o & 2 else 1.0 - fr[:, 1])
+                         * (fr[:, 2] if o & 1 else 1.0 - fr[:, 2]) for o in range(8)], -1) * s_ray[:, None]
+        base = base_voxel(pos[:256])
+        effects = []
+        for warp in range(8):
+            lanes = slice(32 * warp, 32 * warp + 32)
+            for key in torch.unique(base[lanes], dim=0):
+                rows = (base[lanes] == key).all(-1)
+                effects.append(w[lanes][rows].sum(0).abs().max().item() / top)
+        effect = float(np.median(effects))
+        if not effect > 10 * N2_TOL:
+            raise AssertionError(f"on the {kind} rays the median group moves d ior by {effect:.3g} of its largest "
+                                 f"value, under ten times N2_TOL: the check would not see it")
+        print(f"phase 23 {kind} {n_side}^2 rays through {grid}^3: N1 equal to the plain sample bit for bit, one "
+              f"launch; N2 d ior {gap / top:.3g} of its largest value from float64 (float32 autograd "
+              f"{plain_gap / top:.3g}; limit {N2_TOL}; the first 8 warps' {len(effects)} groups move it by "
+              f"{min(effects):.3g}-{max(effects):.3g}, median {effect:.3g}), d dir equal to the plain autograd's, d pos {pos_gap:.3g} of "
+              f"its scale")
+        del got, plain, ref, scale
+
+        # times: N1, the plain forward, N2 into the field alone (zeroing
+        # included) and the plain backward alone; the plain versions with
+        # their host time (their host waits would stop a spin's queue)
+        times = {"n1": device_timed(lambda: ss.start_sample_cuda(ior256, pos, dirs)),
+                 "n1_host": timed(lambda: ss.start_sample_cuda(ior256, pos, dirs), 20)}
+
+        def plain_fwd():
+            with torch.no_grad():
+                start_sample_plain(ior256, pos, dirs)
+
+        times["n1_plain"] = timed(plain_fwd, 3)
+        times["n2"] = device_timed(lambda: ss.start_sample_bwd_cuda(ior256, pos, dirs, None, g_dir, False, False))
+        times["n2_host"] = timed(lambda: ss.start_sample_bwd_cuda(ior256, pos, dirs, None, g_dir, False, False), 20)
+        leaf = ior256.clone().requires_grad_(True)
+        d = start_sample_plain(leaf, pos, dirs)[1]
+        times["n2_plain"] = timed(lambda: torch.autograd.grad(d, leaf, g_dir, retain_graph=True), 3)
+        del leaf, d
+        # bytes: N1 reads the rays (24 B) and writes them (24 B) and reads
+        # the distinct corner voxels; N2 reads the rays and the cotangent of
+        # dirs' (36 B), writes the zeroed d ior and adds into the distinct
+        # corner voxels (read and written).  Their float32 operations (~50 a
+        # ray) take under 1% of the bytes' time
+        base = base_voxel(pos)
+        corners = int(torch.unique(torch.cat([base + torch.tensor([(o >> 2) & 1, (o >> 1) & 1, o & 1], device=dev)
+                                              for o in range(8)]), dim=0).shape[0])
+        n1_bytes, n2_bytes = 48 * n + 4 * corners, 36 * n + ior256.numel() * 4 + 8 * corners
+        bounds = {"n1": kernel_bound(50 * n, n1_bytes), "n2": kernel_bound(50 * n, n2_bytes)}
+        for key, label in (("n1", "N1 start_sample_fwd"), ("n1_host", "N1 launched one after another"),
+                           ("n1_plain", "N1 plain forward (start_sample_plain)"),
+                           ("n2", "N2 start_sample_bwd into the field"),
+                           ("n2_host", "N2 into the field launched one after another"),
+                           ("n2_plain", "N2 plain backward (autograd, index_put_ accumulate)")):
+            b = bounds.get(key)
+            extra = "" if b is None else f" (bound {b[0]:.4f} ms by {b[1]}, share {b[0] / times[key]:.3f})"
+            print(f"phase 23 time {label} {kind}: {times[key]:.4f} ms{extra} {card}")
+        print(f"phase 23 bounds counted {kind}: {corners} distinct corner voxels; N1 {n1_bytes} B, N2 {n2_bytes} B")
+        if kind == "camera":
+            r["times"] = times
+            r["n1_bound"], r["n2_bound"] = bounds["n1"], bounds["n2"]
+        del base
+        torch.cuda.empty_cache()
+    return r
+
+
 def main(quick: str = "") -> None:
-    """The phases in order; ``quick`` "21" (``--phase21``) or "22"
-    (``--phase22``) runs phases 1, 2 and that phase alone and prints no
-    result line."""
+    """The phases in order; ``quick`` "21" (``--phase21``), "22"
+    (``--phase22``) or "23" (``--phase23``) runs phases 1, 2 and that phase
+    alone and prints no result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2791,9 +2997,12 @@ def main(quick: str = "") -> None:
         raise AssertionError(f"ptxas reports spills: {spills}")
     if set(ptxas) != set(KERNELS):
         raise AssertionError(f"ptxas reported {sorted(ptxas)}, not the kernels {sorted(KERNELS)}")
-    if quick:
+    if quick == "23":
+        phase23(dev, t, timed, card, t(lens_field()), ptxas)
+    elif quick:
         (phase21 if quick == "21" else phase22)(dev, t, timed, card, t(lens_field()), grin(40), lens40_translucency(),
                                                  ptxas)
+    if quick:
         print(f"chip_smoke --phase{quick}: phases 1, 2 and {quick} passed")
         return
 
@@ -3071,7 +3280,7 @@ def main(quick: str = "") -> None:
     grad_s = time.perf_counter() - t0
     train_launches = dict(_build.launches)
     want = {"line_table_build": 1, "march_lines_fwd": 1, "march_lines_bwd": 1, "line_table_fold": 1,
-            "pack_field_fwd": 1, "pack_field_bwd": 1}
+            "pack_field_fwd": 1, "pack_field_bwd": 1, **SAMPLE}
     if train_launches != want:
         raise AssertionError(f"the training step's kernel launches {train_launches}, expected {want}")
     ior_p = ior256.clone().requires_grad_(True)
@@ -3339,7 +3548,7 @@ def main(quick: str = "") -> None:
     point_s = time.perf_counter() - t0
     point_launches = dict(_build.launches)
     want = {"march_points_fwd": 1, "march_points_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1,
-            "point_table_build": 1, "point_table_fold": 1}
+            "point_table_build": 1, "point_table_fold": 1, **SAMPLE}
     if point_launches != want:
         raise AssertionError(f"the point train step's kernel launches {point_launches}, expected {want}")
     if not bool(torch.isfinite(ior_pt.grad).all()):
@@ -3657,9 +3866,9 @@ def main(quick: str = "") -> None:
     sync()
     path_first_s = time.perf_counter() - t0
     path_launches = dict(_build.launches)
-    if path_launches != {"line_table_build": 1, "march_lines_fwd_path": 1}:
-        raise AssertionError(f"the recorded trace's kernel launches {path_launches}, expected one of K1 and of "
-                             f"the recording K2")
+    if path_launches != {"start_sample_fwd": 1, "line_table_build": 1, "march_lines_fwd_path": 1}:
+        raise AssertionError(f"the recorded trace's kernel launches {path_launches}, expected one of N1, of K1 and "
+                             f"of the recording K2")
     if not all(torch.equal(getattr(pres, f), getattr(res, f)) for f in fields_):
         raise AssertionError("the recorded trace's end state differs from the unrecorded trace's (phase 5)")
     if not bool(torch.isfinite(pres.path).all()):
@@ -3700,7 +3909,7 @@ def main(quick: str = "") -> None:
         diff[record] = (dict(_build.launches), ior_r.grad, rp.grad, rd.grad, rres.path)
     # P1 builds the scene's field, P2 its gradient
     want = {"line_table_build": 1, "march_lines_fwd_path": 1, "march_lines_bwd": 1, "line_table_fold": 1,
-            "pack_field_fwd": 1, "pack_field_bwd": 1}
+            "pack_field_fwd": 1, "pack_field_bwd": 1, **SAMPLE}
     if diff[True][0] != want:
         raise AssertionError(f"the differentiable recorded trace's launches {diff[True][0]}, expected {want}")
     if diff[True][4] is None or diff[True][4].requires_grad:
@@ -3810,6 +4019,11 @@ def main(quick: str = "") -> None:
     r22 = phase22(dev, t, timed, card, ior256, ior40, tr40, ptxas)
     times.update(r22["times"])
 
+    # 23. N1 and N2, the start sample and its adjoint, against the plain
+    # sample bit for bit and float64 autograd at 1024² rays through 256^3
+    r23 = phase23(dev, t, timed, card, ior256, ptxas)
+    times.update(r23["times"])
+
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,
     # alive, br: 36 B a ray) and writes it, a replay reads 52 B a ray (end
@@ -3855,11 +4069,14 @@ def main(quick: str = "") -> None:
         # T1 and T2 at the bench's 256³ (phase 22)
         "t1": r22["t1_bound"],
         "t2": r22["t2_bound"],
+        # N1 and N2 at phase 23's 1024² camera through 256³
+        "n1": r23["n1_bound"],
+        "n2": r23["n2_bound"],
     }
     for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
                        ("f1", "F1"), ("f1p", "recording F1"), ("k2p", "recording K2"), ("k2c", "capped K2"),
                        ("kc", "corner build"), ("r1", "R1"), ("r2", "R2"), ("s1", "S1"), ("s2", "S2"), ("p1", "P1"),
-                       ("p2", "P2"), ("t1", "T1"), ("t2", "T2")):
+                       ("p2", "P2"), ("t1", "T1"), ("t2", "T2"), ("n1", "N1"), ("n2", "N2")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
@@ -3890,6 +4107,8 @@ def main(quick: str = "") -> None:
         ("t1", "point_table_build", "point_table_build.cu", "kernels/march_pallas.py:133", point_launches,
          r22["t1_err"]),
         ("t2", "point_table_fold", "point_table_fold.cu", "kernels/march_bwd.py:577", point_launches, r22["t2_err"]),
+        ("n1", "start_sample_fwd", "start_sample.cu", "parallel/shard.py:214", train_launches, r23["n1_err"]),
+        ("n2", "start_sample_bwd", "start_sample.cu", "parallel/shard.py:214", train_launches, r23["n2_err"]),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
@@ -3910,4 +4129,5 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--phase20-worker"]:
         phase20_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     else:
-        main(quick={"--phase21": "21", "--phase22": "22"}.get(sys.argv[1] if sys.argv[1:] else "", ""))
+        main(quick={"--phase21": "21", "--phase22": "22", "--phase23": "23"}.get(sys.argv[1] if sys.argv[1:] else "",
+                                                                                 ""))

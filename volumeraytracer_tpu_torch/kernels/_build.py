@@ -40,6 +40,7 @@ SOURCES = tuple(
         "line_table_build.cu", "corner_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu",
         "march_points_fwd.cu", "march_points_bwd.cu", "march_fixed.cu", "render_fwd.cu", "render_bwd.cu",
         "march_slab_fwd.cu", "march_slab_bwd.cu", "pack_field.cu", "point_table_build.cu", "point_table_fold.cu",
+        "start_sample.cu",
     )
 )
 #: the headers the sources include, hashed with them
@@ -50,6 +51,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 _MARCH_FWD = (
     _P, _I, _I, _I, _I, _I, _I,  # table, nb, bounds
     _P, _P, _P, _P, _P,  # state in
@@ -127,6 +129,10 @@ _SIGNATURES = {
     # gradient table, the output; the field's shape, the brick grid
     "vrt_point_table_build": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "vrt_point_table_fold": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # N1 and N2: the field, its shape and strides; the rays (N2: their
+    # cotangents, d ior, d pos and d dir), n
+    "vrt_start_sample_fwd": (_P, _I, _I, _I, _L, _L, _L, _P, _P, _P, _P, _L, _P),
+    "vrt_start_sample_bwd": (_P, _I, _I, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _L, _P),
 }
 
 #: launches of each kernel by name since the last ``clear()``

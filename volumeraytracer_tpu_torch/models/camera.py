@@ -34,7 +34,7 @@ import torch
 
 from ..kernels import render as render_k
 from ..ops import march as march_ops
-from ..ops.interp import interp_linear
+from ..ops.interp import interp_linear, start_sample
 from ..types import BRIGHTNESS_MAX
 from ..utils.profiling import annotate
 from .scene import as_tensor
@@ -111,14 +111,13 @@ def _as_field(x, dim: int, device):
 
 
 def _start(ior, positions, directions, invscale):
-    """|v| = n start: −0.5, sample n, −0.5 again (net −1 voxel into the
-    packed frame); with the march's bend and step scales."""
+    """|v| = n start (``ops.interp.start_sample``: N1 and N2 on the card):
+    −0.5, sample n, −0.5 again (net −1 voxel into the packed frame); with
+    the march's bend and step scales."""
     dim = positions.shape[-1]
     bend, step = march_ops.march_scales(np.broadcast_to(np.asarray(invscale, np.float32), (dim,)))
-    with annotate("vrt.driver.start_sample"):
-        pos = positions - 0.5
-        dirs = directions * interp_linear(ior, pos)[..., None]
-        return pos - 0.5, dirs, bend, step
+    pos, dirs = start_sample(ior, positions, directions)
+    return pos, dirs, bend, step
 
 
 def render_transmittance(packed, ior, positions, directions, *, budget: int, invscale=2.0, sigma=None,

@@ -50,7 +50,7 @@ from ..kernels.march_bwd import march_lines_diff
 from ..kernels.march_lines import march_lines, use_kernels
 from ..ops import march as march_ops
 from ..ops.fields import build_packed_field, cropped_translucency
-from ..ops.interp import interp_fixed, interp_linear
+from ..ops.interp import interp_fixed, interp_linear, start_sample
 from ..types import (
     BRIGHTNESS_MAX, DIR_UNIT_FIXED, FIX_HALF, FIX_ONE, UINT32_MASK, Options, RayInstance, RaySceneInstance,
     RaytraceInstance, TraceResult,
@@ -241,10 +241,7 @@ class RaytraceScene:
             # −0.5, sample n there for |v| = n, −0.5 again: net −1 voxel into the
             # cropped frame of the packed field
             if normalize_length:
-                with annotate("vrt.driver.start_sample"):
-                    p = pos - 0.5
-                    dirs = dirs * interp_linear(self.ior, p)[..., None]
-                    p = p - 0.5
+                p, dirs = start_sample(self.ior, pos, dirs, kernel=kernel)
             else:
                 p = pos - 1.0
             if native:

@@ -16,6 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..kernels import start_sample as start_k
 from ..types import FIX_ONE
 from ..utils.profiling import annotate
 
@@ -95,6 +96,28 @@ def interp_linear(field: torch.Tensor, pos_vox: torch.Tensor) -> torch.Tensor:
     corners = gather_corners(field.reshape(-1, field.shape[-1]), base_i, spatial)
     out = _corner_sum(corners, pos_vox - base)
     return out[..., 0] if squeeze else out
+
+
+def start_sample_plain(ior: torch.Tensor, positions: torch.Tensor, directions: torch.Tensor):
+    """The |v| = n start sample in plain torch: −0.5, the directions scaled
+    by the index sampled there, −0.5 again (net −1 voxel into the packed
+    frame), as the JAX package takes it.  Returns (positions, directions)."""
+    p = positions - 0.5
+    dirs = directions * interp_linear(ior, p)[..., None]
+    return p - 0.5, dirs
+
+
+def start_sample(ior: torch.Tensor, positions: torch.Tensor, directions: torch.Tensor, kernel: str = "auto"):
+    """The |v| = n start sample of a float march, differentiable with
+    respect to all three: N1 forward and N2 backward
+    (``kernels/start_sample.py``) for a 3-D field on a CUDA device where
+    ``kernel`` is ``"auto"`` or ``"cuda"`` (made contiguous; ``"cuda"``
+    raises off the card or for a 2-D field), else ``start_sample_plain``.
+    Returns (positions, directions)."""
+    with annotate("vrt.driver.start_sample"):
+        if start_k.use_kernels(kernel, ior.device, ior.ndim):
+            return start_k.start_sample_diff(ior.contiguous(), positions, directions)
+        return start_sample_plain(ior, positions, directions)
 
 
 def interp_fixed(field: torch.Tensor, pos_fix: torch.Tensor) -> torch.Tensor:

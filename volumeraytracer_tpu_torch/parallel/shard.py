@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from ..kernels.march_bwd import march_pallas_diff
 from ..kernels.march_lines import march_lines, use_kernels
 from ..ops.fields import build_packed_field, cropped_translucency
-from ..ops.interp import interp_linear
+from ..ops.interp import start_sample
 from ..ops.march import march_float, march_scales
 from ..types import TraceResult
 from ..utils.profiling import annotate
@@ -255,10 +255,7 @@ def endpoint_render(
 
     packed = build_packed_field(ior, translucency, kernel=kernel)
     trc = None if translucency is None else cropped_translucency(translucency)
-    with annotate("vrt.driver.start_sample"):
-        pos = positions - 0.5
-        dirs = directions * interp_linear(ior, pos)[..., None]
-        pos = pos - 0.5
+    pos, dirs = start_sample(ior, positions, directions, kernel=kernel)
     bend, step = march_scales([invscale] * pos.shape[-1])
     if use_cuda:
         res = march_pallas_diff(

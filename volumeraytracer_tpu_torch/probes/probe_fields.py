@@ -10,7 +10,7 @@ commit, unpacked with ``git archive`` into a directory that .gitignore
 lists).  With ``--parent``, one child process per version runs in the
 order parent, this checkout, this checkout, parent; without it, one child
 of this checkout.  Each child imports ``volumeraytracer_tpu_torch`` from
-its own root and times four calls, each ending in a sync:
+its own root and times five calls, each ending in a sync:
 
 - ``line``: the line train step at the bench (``chip_smoke.py``'s
   ``train_step``: ``endpoint_render`` of the 256³ lens, 362² rays, budget
@@ -20,7 +20,9 @@ its own root and times four calls, each ending in a sync:
   3-channel emission at phase 17's 1024² camera through 256³;
 - ``bricks``: phase 20a's train step, one brick of the 512³ lens
   (``make_brick_train_step`` at world size 1, budget 256, k_steps 32,
-  131,072 scattered rays at |d| = 1, targets 2 voxels past each start).
+  131,072 scattered rays at |d| = 1, targets 2 voxels past each start);
+- ``fit``: one ``fit_field_image`` step (Adam, lr 1e-3) of ``camera``'s
+  image fit, the camera's host rays included.
 
 For each: the host clock of ``REPS`` calls after a warm-up, the peak of
 ``max_memory_allocated`` above the call's start, the first call's loss,
@@ -38,7 +40,23 @@ the step's cotangent records whose channels 0-2 are all zero.  At 256³
 also the point step's table build and gradient fold as that checkout's
 ``kernels.march_bwd._LAYOUTS["points"]`` holds them (T1 and T2 where it
 has them, else the plain build and fold), the fold on a seeded table.
-``--kernels-only`` skips the four calls (and so the steps' cotangents).
+``--kernels-only`` skips the five calls (and so the steps' cotangents).
+
+Then the |v| = n start sample (``_sample_times``) at 1024² rays through the
+256³ lens for three ray sets: ``camera`` (every ray from phase 17's
+camera origin), ``coherent`` (the train cells' jittered bundle from x = 2)
+and ``scattered`` (uniform, |d| = 16): the sample alone (``fwd``, no
+gradient) and with its backward into the field (``fwd_bwd``), as that
+checkout takes it (``ops.interp.start_sample``, N1 and N2, where it has
+it; else the eager sample and its gather backward).  Where the checkout
+has N1 and N2, also each alone (``n1``, ``n2``: N2 with its d ior
+zeroing), N1 against the plain sample bit for bit and N2's d ior against
+autograd through the plain sample in float32 and float64 (largest
+difference over the largest float64 value; the child fails above 1e-3),
+the counting build's atomics over 8 × rays (``atomics_share``), and N2
+built without a warp's sums, so that each ray sends its own 8 atomics
+(``n2_ungrouped``: its time, zeroing included, and its d ior against
+float64 autograd, ``n2_ungrouped_gap_f64``).
 
 Prints one line a call and child with the card's name and power limit,
 then each kernel time of each child beside the others', and writes
@@ -58,11 +76,14 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 #: timed calls of each after the warm-up
 REPS = 5
-CALLS = ("line", "points", "camera", "bricks")
+CALLS = ("line", "points", "camera", "bricks", "fit")
 #: launches a kernel time averages, after one warm-up
 KERNEL_REPS = 20
 #: the train steps whose cotangent into P2 is kept, and the field it is timed at
 STEP_COTANGENTS = {"line": "256", "bricks": "slab"}
+#: the start sample's ray sets (module doc), 1024² rays each
+SAMPLE_RAYS = ("camera", "coherent", "scattered")
+SAMPLE_SIDE = 1024
 
 
 def _card() -> str:
@@ -71,10 +92,10 @@ def _card() -> str:
 
 
 def _calls(sm, torch, dev) -> dict:
-    """The four calls, each a function that returns its loss."""
+    """The five calls, each a function that returns its loss."""
     import numpy as np
 
-    from volumeraytracer_tpu_torch import PinholeCamera, endpoint_render, image_loss, render_image
+    from volumeraytracer_tpu_torch import PinholeCamera, endpoint_render, fit_field_image, image_loss, render_image
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field
     from volumeraytracer_tpu_torch.parallel import bricks, make_mesh
     from volumeraytracer_tpu_torch.workloads import build_scattered_rays
@@ -119,6 +140,9 @@ def _calls(sm, torch, dev) -> dict:
         loss.backward()
         return loss
 
+    def fit():
+        return fit_field_image(ior, cam, target, steps=1, learning_rate=1e-3, device=dev, **rkw).losses[0]
+
     grid = sm.P20_GRID
     big = torch.from_numpy(sm.lens_field(grid)).to(dev)
     bpos, bdirs = build_scattered_rays(sm.P20_RAYS, grid=grid, seed=0)
@@ -134,6 +158,7 @@ def _calls(sm, torch, dev) -> dict:
         "points": lambda: train_step(point_leaf, "points"),
         "camera": camera,
         "bricks": lambda: step(slab, bpos, bdirs, targets)[1],
+        "fit": fit,
     }
 
 
@@ -147,15 +172,7 @@ def _kernel_times(sm, torch, dev, step_cot: dict) -> dict:
     from volumeraytracer_tpu_torch.parallel import bricks
 
     def timed(fn):
-        fn()
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(KERNEL_REPS):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / KERNEL_REPS
+        return _timed(torch, fn)
 
     out = {}
     for name in ("256", "slab"):
@@ -189,6 +206,157 @@ def _kernel_times(sm, torch, dev, step_cot: dict) -> dict:
             del packed, table, gtable
         out[name] = res
         del ior, dense, cot, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _timed(torch, fn, reps=KERNEL_REPS) -> float:
+    """ms a call of ``fn`` by CUDA events over ``reps`` calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _sample_rays(torch, dev, kind: str, grid: int):
+    """(positions, directions) of a ray set of ``SAMPLE_SIDE``² rays (module doc)."""
+    from volumeraytracer_tpu_torch import PinholeCamera
+
+    side, n = SAMPLE_SIDE, SAMPLE_SIDE ** 2
+    gen = torch.Generator(device=dev).manual_seed(25)
+    if kind == "camera":
+        cam = PinholeCamera(origin=(1.5, grid / 2, grid / 2), forward=(1.0, 0.0, 0.0), up=(0.0, 0.0, 1.0),
+                            width=side, height=side, fov=0.45, speed=0.5)
+        return cam.rays(device=dev)
+    if kind == "coherent":
+        ys = torch.linspace(8.0, grid - 8.0, side, device=dev)
+        yy, zz = torch.meshgrid(ys, ys, indexing="ij")
+        pos = torch.stack([torch.full_like(yy, 2.0), yy, zz], dim=-1).reshape(-1, 3)
+        pos[:, 1:] += (torch.rand((n, 2), generator=gen, device=dev) * 2.0 - 1.0) * (0.5 * (grid - 16.0) / (side - 1))
+        dirs = torch.zeros_like(pos)
+        dirs[:, 0] = 16.0
+        return pos, dirs
+    pos = torch.rand((n, 3), generator=gen, device=dev) * (grid - 8.0) + 4.0
+    dirs = torch.randn((n, 3), generator=gen, device=dev)
+    return pos, dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True) * 16.0
+
+
+#: the line of N2 that sends a warp's sums where its rays share one base voxel
+N2_WARP_SUM = "if (__match_any_sync(FULL, valid ? c.base : -1) == FULL && valid) {"
+
+
+def _n2_build(_build, name: str, defines=(), ungrouped: bool = False):
+    """N2 built alone with ``defines`` (and, where ``ungrouped``, with no
+    warp's sums, so that each ray sends its own 8 atomics): its
+    ``vrt_start_sample_bwd`` and the library."""
+    import ctypes
+    import tempfile
+
+    from volumeraytracer_tpu_torch.probes.probe_render import build_source
+
+    text = (Path(_build.__file__).parent / "csrc" / "start_sample.cu").read_text()
+    if ungrouped:
+        if N2_WARP_SUM not in text:
+            raise SystemExit("probe_fields: N2's source no longer holds the line that sums a warp's rays")
+        text = text.replace(N2_WARP_SUM, "if (false) {")
+    lib, _ = build_source(_build, text, Path(tempfile.mkdtemp(dir=_build.BUILD_DIR)) / f"{name}.so", defines)
+    fn = lib.vrt_start_sample_bwd
+    fn.argtypes, fn.restype = _build._SIGNATURES["vrt_start_sample_bwd"], ctypes.c_int
+    return fn, lib
+
+
+def _counting_n2(_build):
+    """N2 built with ``VRT_COUNT_ATOMICS``: (its ``vrt_start_sample_bwd``, a
+    function that returns the atomics of its launches since the last call)."""
+    import ctypes
+
+    from volumeraytracer_tpu_torch.probes.probe_render import COUNTING
+
+    fn, lib = _n2_build(_build, "counting", (COUNTING,))
+    lib.vrt_start_sample_atomics.argtypes, lib.vrt_start_sample_atomics.restype = (ctypes.c_void_p,), ctypes.c_int
+
+    def read() -> int:
+        v = ctypes.c_ulonglong(0)
+        _build.check(lib.vrt_start_sample_atomics(ctypes.byref(v)), "start_sample_atomics")
+        return int(v.value)
+
+    read()
+    return fn, read
+
+
+def _sample_times(sm, torch, dev) -> dict:
+    """The start sample's times, checks and atomics share by ray set
+    (module doc)."""
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.ops import interp
+
+    has_kernels = hasattr(interp, "start_sample")
+    if has_kernels:
+        from volumeraytracer_tpu_torch.kernels import start_sample as ss
+
+        sample, plain = interp.start_sample, interp.start_sample_plain
+        count_fn, count_read = _counting_n2(_build)
+        ungrouped_fn, _ = _n2_build(_build, "ungrouped", ungrouped=True)
+    else:
+        def sample(ior, positions, directions):
+            p = positions - 0.5
+            return p - 0.5, directions * interp.interp_linear(ior, p)[..., None]
+
+    lens = sm.lens_field()
+    ior = torch.from_numpy(lens).to(dev)
+    leaf = ior.clone().requires_grad_(True)
+    out = {}
+    for kind in SAMPLE_RAYS:
+        pos, dirs = (x.contiguous() for x in _sample_rays(torch, dev, kind, lens.shape[0]))
+        g = torch.randn(dirs.shape, generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+
+        def fwd():
+            with torch.no_grad():
+                sample(ior, pos, dirs)
+
+        def fwd_bwd():
+            torch.autograd.grad(sample(leaf, pos, dirs)[1], leaf, g)
+
+        res = {"fwd": _timed(torch, fwd), "fwd_bwd": _timed(torch, fwd_bwd)}
+        if has_kernels:
+            n = pos.shape[0]
+            res["n1"] = _timed(torch, lambda: ss.start_sample_cuda(ior, pos, dirs))
+            res["n2"] = _timed(torch, lambda: ss.start_sample_bwd_cuda(ior, pos, dirs, None, g, False, False))
+            got, ref = ss.start_sample_cuda(ior, pos, dirs), plain(ior, pos, dirs)
+            res["n1_equal"] = bool(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
+            d_kernel = torch.autograd.grad(sample(leaf, pos, dirs)[1], leaf, g)[0]
+            d_plain = torch.autograd.grad(plain(leaf, pos, dirs)[1], leaf, g)[0]
+            leaf64 = ior.double().requires_grad_(True)
+            d64 = torch.autograd.grad(plain(leaf64, pos.double(), dirs.double())[1], leaf64, g.double())[0]
+            top = float(d64.abs().max())
+            res["n2_gap_f64"] = float((d_kernel.double() - d64).abs().max()) / top
+            res["plain_gap_f64"] = float((d_plain.double() - d64).abs().max()) / top
+            res["n2_gap_plain"] = float((d_kernel - d_plain).abs().max()) / top
+
+            def n2_build(fn):
+                """d ior by another build of N2, its zeroing included."""
+                d_ior = torch.zeros_like(ior)
+                with torch.cuda.device(dev):
+                    _build.check(fn(ior.data_ptr(), *ior.shape, *ior.stride(), pos.data_ptr(), dirs.data_ptr(), None,
+                                    g.data_ptr(), d_ior.data_ptr(), None, None, n,
+                                    torch.cuda.current_stream().cuda_stream), "start_sample_bwd")
+                return d_ior
+
+            count_read()
+            n2_build(count_fn)
+            torch.cuda.synchronize()
+            res["atomics_share"] = count_read() / (8.0 * n)
+            res["n2_ungrouped"] = _timed(torch, lambda: n2_build(ungrouped_fn))
+            res["n2_ungrouped_gap_f64"] = float((n2_build(ungrouped_fn).double() - d64).abs().max()) / top
+            del d_kernel, d_plain, d64, leaf64
+            if not res["n1_equal"] or res["n2_gap_f64"] > 1e-3:
+                raise SystemExit(f"probe_fields: the start sample's kernels fail their checks on {kind}: {res}")
+        out[kind] = res
         torch.cuda.empty_cache()
     return out
 
@@ -248,6 +416,11 @@ def child(root: Path, kernels_only: bool) -> dict:
     if dist.is_initialized():
         dist.destroy_process_group()
     out["kernels"] = _kernel_times(sm, torch, dev, step_cot)
+    out["sample"] = _sample_times(sm, torch, dev)
+    if _build.build_log:
+        from volumeraytracer_tpu_torch.probes.probe_k4k6 import ptxas_by_kernel
+
+        out["ptxas"] = {k: v for k, v in ptxas_by_kernel(_build.build_log).items() if k.startswith("start_sample")}
     return out
 
 
@@ -267,7 +440,8 @@ def _print(label: str, res: dict, card: str) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="another checkout of the repository, timed in turns with this one")
-    ap.add_argument("--kernels-only", action="store_true", help="time P1 and P2 alone, not the four calls")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="time P1, P2 and the start sample alone, not the five calls")
     ap.add_argument("--out", type=Path)
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -305,6 +479,13 @@ def main() -> None:
         for key in runs[0]["kernels"][field]:
             row = " ".join(f"{r['label']} {r['kernels'][field].get(key, float('nan')):.4f}" for r in runs)
             print(f"probe_fields kernels {field} {key}: {row} [{card}]")
+    for kind in SAMPLE_RAYS:
+        for key in sorted({k for r in runs for k in r["sample"][kind]}):
+            row = " ".join(f"{r['label']} {r['sample'][kind].get(key, float('nan')):.6g}" for r in runs)
+            print(f"probe_fields sample {kind} {key}: {row} [{card}]")
+    for r in runs:
+        if r.get("ptxas"):
+            print(f"probe_fields ptxas ({r['label']}): {r['ptxas']}")
     for name in ([] if args.kernels_only else CALLS):
         ref = runs[0][name]["loss"]
         losses = [r[name]["loss"] for r in runs]

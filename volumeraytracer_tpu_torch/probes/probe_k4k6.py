@@ -63,7 +63,7 @@ KERNELS = ("line_table_build", "corner_table_build", "march_lines_fwd_path", "ma
            "march_lines_bwd", "line_table_fold", "march_points_fwd", "march_points_bwd",
            "march_fixed_path_wide", "march_fixed_wide", "march_fixed_path", "march_fixed", "render_fwd", "render_bwd",
            "march_slab_fwd", "march_slab_bwd", "pack_field_fwd", "pack_field_bwd", "point_table_build",
-           "point_table_fold")
+           "point_table_fold", "start_sample_fwd", "start_sample_bwd")
 #: instruction families counted in K4's SASS
 FAMILIES = ("LDGSTS", "LDG", "STG", "LDS", "STS", "BAR", "LDGDEPBAR", "DEPBAR", "MUFU", "I2F", "F2I")
 
