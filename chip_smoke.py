@@ -235,7 +235,10 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      cell, the loss within rtol 1e-5, both steps' losses finite and equal
      on every rank), with S1 launched once a window of the trace, S1 and S2
      once a window each of the first train step, P1 and P2 once (the rank's
-     slab of the field) and no other kernel, one d
+     slab of the field), the start sample's N1 and N2 once with no call of
+     the eager interp_linear, and no other kernel, the start (brick_start)
+     equal bit for bit to the eager sample at the same positions on each
+     rank of a 1-D mesh, one d
      slab zeroed in that step's backward (``march_slab.zeroed``), and
      the share of rays that end in another brick than they start (at least
      0.3 for the trace at 4 bricks); on every brick of (a) and (b), S1
@@ -310,9 +313,10 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      N2 into the field alone as the train steps and the camera run it,
      and their bounds by bytes.
 
-``python3 chip_smoke.py --phase21`` (``--phase22``, ``--phase23``) runs
-phases 1, 2 and 21 (22, 23) alone, a quick check of P1 and P2 (T1 and T2;
-N1 and N2) that prints no result line.
+``python3 chip_smoke.py --phase20`` (``--phase21``, ``--phase22``,
+``--phase23``) runs phases 1, 2 and 20 (21, 22, 23) alone, a quick check of
+the brick path (P1 and P2; T1 and T2; N1 and N2) that prints no result
+line.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
@@ -2039,6 +2043,7 @@ def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dic
     import torch.distributed as dist
 
     from volumeraytracer_tpu_torch.kernels import _build, march_slab
+    from volumeraytracer_tpu_torch.ops import interp
     from volumeraytracer_tpu_torch.parallel import bricks
 
     sync = torch.cuda.synchronize
@@ -2068,11 +2073,32 @@ def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dic
 
     slab = bricks.shard_slabs(mesh, bricks.build_ior_slabs(ior, num)[0])
     x_packed = int(ior.shape[0]) - 2
+    if not two_d:
+        # the step's start (brick_start: N1 on the card) against the eager
+        # interp_linear sample at the same positions in the slab's frame,
+        # masked to the owner's rays and summed over the group, bit for bit
+        my = bricks._mesh_axis(mesh, "bricks")[2]
+        xs = bricks.slab_cells(x_packed, num)
+        _, got = bricks.brick_start(slab, my, num, xs, pos, dirs, group)
+        local = pos - bricks._slab_offset(my, xs, 3, pos.device)
+        want = dirs * interp.interp_linear(slab, local - 0.5)[:, None]
+        want = torch.where(bricks._owned_mask(pos[:, 0] - 1.0, my, num, xs)[:, None], want, 0.0)
+        dist.all_reduce(want, group=group)
+        out["start_equal"] = bool(torch.equal(got, want))
+        del got, local, want
     tkw = dict(budget=P20_TRAIN["budget"], invscale=INV, k_steps=P20_TRAIN["k_steps"], lr=lr)
     if two_d:
         step = bricks.make_brick_train_step2d(mesh, x_packed, pos.shape[0], **tkw)
     else:
         step = bricks.make_brick_train_step(mesh, x_packed, **tkw)
+    # the eager sample's calls (none: the start takes N1 and N2)
+    eager, plain_interp = [0], interp.interp_linear
+
+    def counted_interp(*args, **kwargs):
+        eager[0] += 1
+        return plain_interp(*args, **kwargs)
+
+    interp.interp_linear = counted_interp
     windows[0] = 0
     _build.launches.clear()
     march_slab.zeroed.clear()
@@ -2092,6 +2118,8 @@ def _p20_rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool) -> dic
             out["train_windows"] = windows[0]
             out["train_launches"] = dict(_build.launches)
             out["train_zeroed"] = march_slab.zeroed["d_slab"]
+            out["train_eager"] = eager[0]
+    interp.interp_linear = plain_interp
     out["train_mem"] = torch.cuda.max_memory_allocated() - base
     out.update(step_ms=step_ms, losses=losses, slab_bytes=slab.numel() * 4,
                strips=(new[:bricks.IOR_OVERLAP].cpu(), new[-bricks.IOR_OVERLAP:].cpu()))
@@ -2277,14 +2305,19 @@ def phase20(dev, card) -> dict:
 
     def check_launches(name, o):
         """S1 once a window of the trace; S1 and S2 once a window each of the
-        first train step, and P1 and P2 once (the rank's slab of the packed
-        field); no other kernel; one d slab zeroed in that step."""
+        first train step, P1 and P2 once (the rank's slab of the packed
+        field) and the start sample's N1 and N2 once, with no call of the
+        eager sample; no other kernel; one d slab zeroed in that step; on a
+        1-D mesh the start equal to the eager sample bit for bit."""
         want = ({"march_slab_fwd": o["trace_windows"]},
                 {"march_slab_fwd": o["train_windows"], "march_slab_bwd": o["train_windows"], "pack_field_fwd": 1,
-                 "pack_field_bwd": 1})
+                 "pack_field_bwd": 1, "start_sample_fwd": 1, "start_sample_bwd": 1})
         if (o["trace_launches"], o["train_launches"]) != want or o["train_zeroed"] != 1:
             raise AssertionError(f"{name}: launches trace {o['trace_launches']}, train step {o['train_launches']}, "
                                  f"d slabs zeroed {o['train_zeroed']}; want {want[0]}, {want[1]}, 1")
+        if o["train_eager"] != 0 or not o.get("start_equal", True):
+            raise AssertionError(f"{name}: the eager sample ran {o['train_eager']} times in the first step; the "
+                                 f"start equal to the eager sample: {o.get('start_equal')}")
 
     def report(name, outs):
         gmax = g_full.abs().max().item()
@@ -2926,9 +2959,9 @@ def phase23(dev, t, timed, card, ior256, ptxas, n_side=1024) -> dict:
 
 
 def main(quick: str = "") -> None:
-    """The phases in order; ``quick`` "21" (``--phase21``), "22"
-    (``--phase22``) or "23" (``--phase23``) runs phases 1, 2 and that phase
-    alone and prints no result line."""
+    """The phases in order; ``quick`` "20" (``--phase20``), "21"
+    (``--phase21``), "22" (``--phase22``) or "23" (``--phase23``) runs
+    phases 1, 2 and that phase alone and prints no result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2997,7 +3030,9 @@ def main(quick: str = "") -> None:
         raise AssertionError(f"ptxas reports spills: {spills}")
     if set(ptxas) != set(KERNELS):
         raise AssertionError(f"ptxas reported {sorted(ptxas)}, not the kernels {sorted(KERNELS)}")
-    if quick == "23":
+    if quick == "20":
+        phase20(dev, card)
+    elif quick == "23":
         phase23(dev, t, timed, card, t(lens_field()), ptxas)
     elif quick:
         (phase21 if quick == "21" else phase22)(dev, t, timed, card, t(lens_field()), grin(40), lens40_translucency(),
@@ -4129,5 +4164,5 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--phase20-worker"]:
         phase20_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     else:
-        main(quick={"--phase21": "21", "--phase22": "22", "--phase23": "23"}.get(sys.argv[1] if sys.argv[1:] else "",
-                                                                                 ""))
+        main(quick={"--phase20": "20", "--phase21": "21", "--phase22": "22", "--phase23": "23"}.get(
+            sys.argv[1] if sys.argv[1:] else "", ""))

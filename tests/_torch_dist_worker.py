@@ -22,6 +22,14 @@ Usage: _torch_dist_worker.py <job> <init> <world> <rank> <in.npz> <out.npz>
     whose UTF-8 bytes are ``host_lib``, the card's stream calls stubbed), whose march is
     ``bricks._SlabMarch``; writes both updates and losses, the windows and
     the kernels' launches and d slabs zeroed;
+  * ``bricks_start``: over all ranks as bricks, one ``make_brick_train_step``
+    step at lr 1 on the plain route, the eager interp_linear start sample
+    of this rank's slab masked to its rays and summed over the group, then
+    ``brick_start`` and the same step with the start through N1 and N2
+    compiled for the host (tests/test_torch_start_sample.py's library,
+    loaded from the path whose UTF-8 bytes are ``host_lib``, the card's
+    stream calls stubbed); writes the starts, the updates, the losses and
+    the launches;
   * ``bricks_train``: ``init_distributed(coordinator_address=<init>,
     ...)``, then for each ray case ("near", "cross") one step at lr 1 of
     ``make_brick_train_step`` over all ranks as bricks and of
@@ -29,8 +37,8 @@ Usage: _torch_dist_worker.py <job> <init> <world> <rank> <in.npz> <out.npz>
     steps of the first; then tests/test_multihost.py's step on
     ``make_host_mesh``; writes the slabs and losses.
 
-``init`` is a ``file://`` store for ``trace``, ``train``, ``bricks_fwd``
-and ``bricks_host`` (the group is started with
+``init`` is a ``file://`` store for ``trace``, ``train``, ``bricks_fwd``,
+``bricks_host`` and ``bricks_start`` (the group is started with
 ``torch.distributed.init_process_group``) and a ``host:port`` coordinator
 for ``multihost`` and ``bricks_train``.  Imports nothing of jax.
 """
@@ -107,6 +115,9 @@ def bricks_job(job, init, world, rank, data):
     if job == "bricks_host":
         dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
         return bricks_host(world, data)
+    if job == "bricks_start":
+        dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
+        return bricks_start(world, data)
 
     info = shard.init_distributed(coordinator_address=init, num_processes=world, process_id=rank, device="cpu")
     out["info"] = torch.tensor([info["process_index"], info["process_count"], info["global_devices"]])
@@ -181,6 +192,53 @@ def bricks_host(world, data):
     out["windows"] = torch.tensor(windows[0])
     out["launches"] = torch.tensor([_build.launches["march_slab_fwd"], _build.launches["march_slab_bwd"],
                                     ms.zeroed["d_slab"]])
+    return out
+
+
+def bricks_start(world, data):
+    """The ``bricks_start`` job on a started group (see the module doc)."""
+    import contextlib
+    import ctypes
+    import types
+
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import start_sample as ss
+    from volumeraytracer_tpu_torch.ops import interp
+    from volumeraytracer_tpu_torch.parallel import bricks, shard
+
+    mesh = shard.make_mesh(axis="bricks", device="cpu")
+    group, num, my = bricks._mesh_axis(mesh, "bricks")
+    ior, x_packed = data["ior"], data["ior"].shape[0] - 2
+    xs = bricks.slab_cells(x_packed, num)
+    slab = bricks.shard_slabs(mesh, bricks.build_ior_slabs(ior, world)[0])
+    pos, dirs = data["pos"], data["dirs"]
+    rays = (pos, dirs, data["target"])
+    step = bricks.make_brick_train_step(mesh, x_packed, budget=int(data["budget"]), invscale=float(data["invscale"]),
+                                        k_steps=int(data["k_steps"]), lr=1.0)
+    out = {}
+    new, out["plain_loss"] = step(slab, *rays)
+    out["plain_g"] = slab - new
+    local = pos - bricks._slab_offset(my, xs, 3, pos.device)
+    eager = dirs * interp.interp_linear(slab, local - 0.5)[:, None]
+    eager = torch.where(bricks._owned_mask(pos[:, 0] - 1.0, my, num, xs)[:, None], eager, 0.0)
+    dist.all_reduce(eager, group=group)
+    out["eager"] = eager
+    lib = ctypes.CDLL(bytes(data["host_lib"].numpy()).decode())
+    for name in ("vrt_start_sample_fwd", "vrt_start_sample_bwd"):
+        getattr(lib, name).argtypes, getattr(lib, name).restype = _build._SIGNATURES[name], ctypes.c_int
+    _build._lib = lib
+    ss._on_card = lambda device: True
+    torch.cuda.device = lambda d: contextlib.nullcontext()
+    torch.cuda.current_stream = lambda: types.SimpleNamespace(cuda_stream=None)
+    _build.launches.clear()
+    out["start"] = bricks.brick_start(slab, my, num, xs, pos, dirs, group)[1]
+    start_launches = dict(_build.launches)
+    _build.launches.clear()
+    new, out["kernel_loss"] = step(slab, *rays)
+    out["kernel_g"] = slab - new
+    out["launches"] = torch.tensor([start_launches.get("start_sample_fwd", 0), len(start_launches),
+                                    _build.launches["start_sample_fwd"], _build.launches["start_sample_bwd"],
+                                    len(_build.launches)])
     return out
 
 

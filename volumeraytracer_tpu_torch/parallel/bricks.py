@@ -47,6 +47,11 @@ from the JAX package, all from torch's idiom:
     backward (JAX's ``jax.checkpoint``) and keeps the all_reduce outside,
     so that the backward makes exactly one all_reduce a window.
 
+The |v| = n start of the train steps is ``ops/interp.py:start_sample`` on
+this rank's ior slab (N1 forward and N2 backward on a CUDA 3-D slab), its
+scaled directions masked to the rays whose start this rank owns and
+combined with one all_reduce.
+
 The window's local steps (``kernels/march_slab.py``) run as S1, a CUDA
 kernel, on a CUDA 3-D slab: every window of ``trace_rays_bricked``,
 ``trace_rays_bricked2d`` and both train steps is one S1 launch.  The
@@ -60,10 +65,19 @@ the plain torch loop, under ``torch.utils.checkpoint`` when
 differentiable.  Every rank of a group must make
 the same calls in the same order: each collective is made from state
 that is equal on every rank of its group.
+
+Spans (``utils/profiling.py:annotate``): ``vrt.entry.brick_train_step``
+a train step (phases ``forward``, ``backward``, ``halo_exchange``,
+``all_reduce``, ``update``), ``vrt.entry.trace_bricked`` a forward trace,
+``vrt.driver.brick_window`` a window's steps and combine,
+``vrt.driver.brick_replay`` a window of ``_SlabMarch``'s backward and
+``vrt.sync.brick_alive`` the host's wait a window.  ``windows`` counts
+the windows run.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -74,9 +88,10 @@ from torch.autograd.function import once_differentiable
 from ..kernels import march_slab
 from ..kernels.march_slab import _owned_mask
 from ..ops.fields import build_packed_field
-from ..ops.interp import interp_linear
+from ..ops.interp import start_sample
 from ..ops.march import march_scales
 from ..types import TraceResult
+from ..utils.profiling import annotate
 from .shard import _device, _ensure_group, _mesh_axis
 
 #: ior-grid halo per slab side: 1 (interp) + 2 (gradient-stamp shrink)
@@ -85,6 +100,11 @@ IOR_HALO = 3
 IOR_OVERLAP = 4
 #: the combine carries the remaining budget in float32, exact below 2^24
 _MAX_BUDGET = 1 << 24
+
+#: windows run since the last ``clear()``: "march" a window of a forward
+#: march (S1 or the plain steps, and the combine), "replay" a window of
+#: ``_SlabMarch``'s backward (S2)
+windows: collections.Counter = collections.Counter()
 
 
 class BrickState(NamedTuple):
@@ -228,16 +248,17 @@ def _window_fn(state: BrickState, slab, my, num, xs, bounds_m1, offset, bend, st
     plain loop, under ``checkpoint`` when ``remat`` (autograd keeps the
     window's start state and recomputes the steps in the backward).  The
     combine stays outside either."""
-    owned0 = _owned_mask(state.pos[..., 0], my, num, xs)
-    args = (my, num, xs, bounds_m1, offset, bend, step, k_steps)
-    if march_slab.use_kernels(slab.device, state.pos.shape[-1]):
-        end = march_slab.slab_window_cuda(slab, tuple(t.contiguous() for t in state), *args)
-    elif remat:
-        end = torch.utils.checkpoint.checkpoint(lambda *s: march_slab.slab_window_plain(slab, s, *args), *state,
-                                                use_reentrant=False)
-    else:
-        end = march_slab.slab_window_plain(slab, state, *args)
-    return _combine_window(owned0, BrickState(*end), group)
+    with annotate("vrt.driver.brick_window"):
+        owned0 = _owned_mask(state.pos[..., 0], my, num, xs)
+        args = (my, num, xs, bounds_m1, offset, bend, step, k_steps)
+        if march_slab.use_kernels(slab.device, state.pos.shape[-1]):
+            end = march_slab.slab_window_cuda(slab, tuple(t.contiguous() for t in state), *args)
+        elif remat:
+            end = torch.utils.checkpoint.checkpoint(lambda *s: march_slab.slab_window_plain(slab, s, *args), *state,
+                                                    use_reentrant=False)
+        else:
+            end = march_slab.slab_window_plain(slab, state, *args)
+        return _combine_window(owned0, BrickState(*end), group)
 
 
 class _SlabMarch(torch.autograd.Function):
@@ -285,18 +306,21 @@ class _SlabMarch(torch.autograd.Function):
         # each window's remaining at its start, then the march's end
         remaining = saved[2::3] + [end_remaining]
         for w in reversed(range(ctx.windows)):
-            pos, direction, rem0 = saved[3 * w:3 * w + 3]
-            buf = torch.cat([d_pos, d_dir], dim=1)
-            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.group)
-            owned0 = _owned_mask(pos[:, 0], my, num, xs)
-            # S1 moved only the rays this rank owned at the start: elsewhere
-            # the executed steps are none
-            rem1 = torch.where(owned0, remaining[w + 1], rem0)
-            owned0 = owned0[:, None]
-            d_pos = torch.where(owned0, buf[:, :dim], 0.0)
-            d_dir = torch.where(owned0, buf[:, dim:], 0.0)
-            d_pos, d_dir, _ = march_slab.slab_window_bwd_cuda(
-                slab, (pos.contiguous(), direction.contiguous(), rem0), rem1, *ctx.args, d_pos, d_dir, d_slab=d_slab)
+            with annotate("vrt.driver.brick_replay"):
+                pos, direction, rem0 = saved[3 * w:3 * w + 3]
+                buf = torch.cat([d_pos, d_dir], dim=1)
+                dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.group)
+                owned0 = _owned_mask(pos[:, 0], my, num, xs)
+                # S1 moved only the rays this rank owned at the start:
+                # elsewhere the executed steps are none
+                rem1 = torch.where(owned0, remaining[w + 1], rem0)
+                owned0 = owned0[:, None]
+                d_pos = torch.where(owned0, buf[:, :dim], 0.0)
+                d_dir = torch.where(owned0, buf[:, dim:], 0.0)
+                d_pos, d_dir, _ = march_slab.slab_window_bwd_cuda(
+                    slab, (pos.contiguous(), direction.contiguous(), rem0), rem1, *ctx.args, d_pos, d_dir,
+                    d_slab=d_slab)
+            windows["replay"] += 1
         return (d_pos, d_dir, None, d_slab) + (None,) * 7
 
 
@@ -326,11 +350,16 @@ def _check_budget(budget: int) -> None:
 def _run_windows(state: BrickState, window, max_windows: Optional[int] = None) -> BrickState:
     """Windows while any ray is alive (one host sync a window, read from the
     combined state, which is equal on every rank of the group), at most
-    ``max_windows``."""
+    ``max_windows``, each counted in ``windows["march"]``."""
     done = 0
-    while (max_windows is None or done < max_windows) and bool(state.alive.any()):
+    while max_windows is None or done < max_windows:
+        with annotate("vrt.sync.brick_alive"):
+            alive = bool(state.alive.any())
+        if not alive:
+            break
         state = window(state)
         done += 1
+        windows["march"] += 1
     return state
 
 
@@ -389,10 +418,11 @@ def trace_rays_bricked(
     ``remaining_light`` all 0xFFFFFFFF (no translucency)."""
     _check_budget(budget)
     group, num, my = _mesh_axis(mesh, axis)
-    n = start_position.shape[0]
-    remaining = torch.full((n,), budget - 1, dtype=torch.int64, device=start_position.device)
-    return _trace_bricked(group, num, my, packed, start_position, start_direction.to(start_position.device),
-                          remaining, budget, bend_scale, step_scale, k_steps)
+    with annotate("vrt.entry.trace_bricked"):
+        n = start_position.shape[0]
+        remaining = torch.full((n,), budget - 1, dtype=torch.int64, device=start_position.device)
+        return _trace_bricked(group, num, my, packed, start_position, start_direction.to(start_position.device),
+                              remaining, budget, bend_scale, step_scale, k_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +475,20 @@ def exchange_overlap_grads(g: torch.Tensor, group, num: int) -> torch.Tensor:
     return g
 
 
+def brick_start(ior_slab, my: int, num: int, xs: int, positions, directions, group):
+    """The |v| = n start of the rays (N, dim) from this rank's ior slab:
+    ``start_sample`` (N1 and N2 on a CUDA 3-D slab) at the positions in the
+    slab's frame, its directions kept where this rank owns the ray's start
+    cell and zero elsewhere, and summed over ``group``, so that every rank
+    holds each owner's directions bit for bit.  Returns the positions in
+    the global packed frame (one voxel down) and the scaled directions."""
+    pos_packed = positions - 1.0
+    owned0 = _owned_mask(pos_packed[..., 0], my, num, xs)
+    _, dirs = start_sample(ior_slab, positions - _slab_offset(my, xs, positions.shape[-1], positions.device),
+                           directions)
+    return pos_packed, _AllReduceSum.apply(torch.where(owned0[..., None], dirs, 0.0), group)
+
+
 def brick_endpoint_render(
     ior_slab,  # (W, Y, Z) local trainable slab
     my: int,
@@ -461,19 +505,12 @@ def brick_endpoint_render(
     """Differentiable endpoint render from a local ior slab.
 
     Mirrors ``parallel.shard.endpoint_render``: preprocess the slab, |v| = n
-    start (each ray's start index served by its owning brick, combined with
-    an all_reduce), march bricked, return endpoints in the uncropped frame."""
+    start (``brick_start``), march bricked, return endpoints in the
+    uncropped frame."""
     dim = positions.shape[-1]
     bend, step = march_scales([invscale] * dim)
     packed_slab = build_packed_field(ior_slab)  # (xs + 2, Y-2, Z-2, dim+1)
-
-    # |v| = n start: sample the local ior slab at pos − 0.5 for owned rays
-    pos_packed = positions - 1.0
-    owned0 = _owned_mask(pos_packed[..., 0], my, num, xs)
-    n_local = interp_linear(ior_slab, positions - 0.5 - _slab_offset(my, xs, dim, positions.device))
-    n0 = _AllReduceSum.apply(torch.where(owned0, n_local, 0.0), group)
-    dirs = directions * n0[..., None]
-
+    pos_packed, dirs = brick_start(ior_slab, my, num, xs, positions, directions, group)
     state = _march_bricked_diff(packed_slab, my, num, xs, bounds, pos_packed, dirs, budget, bend, step, k_steps,
                                 group)
     return state.pos + 1.0, state.direction
@@ -481,16 +518,19 @@ def brick_endpoint_render(
 
 def _slab_loss_and_grad(ior_slab, my, num, xs, x_packed, positions, directions, budget, invscale, k_steps, group,
                         loss_fn):
-    """(loss, gradient to the slab) of ``loss_fn(end positions)``."""
+    """(loss, gradient to the slab) of ``loss_fn(end positions)``, in the
+    spans ``vrt.entry.forward`` and ``vrt.entry.backward``."""
     _check_budget(budget)
     slab = ior_slab.detach().requires_grad_()
     # TRUE global packed bounds: rays die at the real grid edge, never
     # entering the zero-padded tail of the last brick
     bounds = (x_packed,) + tuple(s - 2 for s in slab.shape[1:])
-    end_pos, _ = brick_endpoint_render(slab, my, num, xs, bounds, positions, directions, budget, invscale, k_steps,
-                                       group)
-    loss = loss_fn(end_pos)
-    loss.backward()
+    with annotate("vrt.entry.forward"):
+        end_pos, _ = brick_endpoint_render(slab, my, num, xs, bounds, positions, directions, budget, invscale,
+                                           k_steps, group)
+        loss = loss_fn(end_pos)
+    with annotate("vrt.entry.backward"):
+        loss.backward()
     return loss.detach(), slab.grad
 
 
@@ -548,15 +588,18 @@ def make_brick_train_step(
     xs = slab_cells(x_packed, num)
 
     def train_step(ior_slab, positions, directions, targets):
-        loss, g = _slab_loss_and_grad(ior_slab, my, num, xs, x_packed, positions, directions, budget, invscale,
-                                      k_steps, group, lambda end: ((end - targets) ** 2).sum(-1).mean())
-        g = exchange_overlap_grads(g, group, num) / num
-        total = loss.clone()
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
-        ok = (total / num - loss).abs() <= 1e-5 * (loss.abs() + 1.0)
-        loss = torch.where(ok, loss, torch.full_like(loss, float("nan")))
-        with torch.no_grad():
-            return ior_slab.detach() - lr * g, loss
+        with annotate("vrt.entry.brick_train_step"):
+            loss, g = _slab_loss_and_grad(ior_slab, my, num, xs, x_packed, positions, directions, budget, invscale,
+                                          k_steps, group, lambda end: ((end - targets) ** 2).sum(-1).mean())
+            with annotate("vrt.entry.halo_exchange"):
+                g = exchange_overlap_grads(g, group, num) / num
+            with annotate("vrt.entry.all_reduce"):
+                total = loss.clone()
+                dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+                ok = (total / num - loss).abs() <= 1e-5 * (loss.abs() + 1.0)
+                loss = torch.where(ok, loss, torch.full_like(loss, float("nan")))
+            with annotate("vrt.entry.update"), torch.no_grad():
+                return ior_slab.detach() - lr * g, loss
 
     return train_step
 
@@ -670,14 +713,17 @@ def make_brick_train_step2d(
     def train_step(ior_slab, positions, directions, targets):
         if positions.shape[0] != n_rays_total:
             raise ValueError(f"batch of {positions.shape[0]} rays, the step was built for {n_rays_total}")
-        # this rank's part of the GLOBAL mean: its rays' sum over the total
-        loss, g = _slab_loss_and_grad(ior_slab, my, num_b, xs, x_packed, positions[rows], directions[rows], budget,
-                                      invscale, k_steps, bgroup,
-                                      lambda end: ((end - targets[rows]) ** 2).sum() / n_rays_total)
-        buf = torch.cat([g.reshape(-1), loss.reshape(1)])
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=rgroup)
-        g = exchange_overlap_grads(buf[:-1].view_as(g), bgroup, num_b) / num_b
-        with torch.no_grad():
-            return ior_slab.detach() - lr * g, buf[-1].clone()
+        with annotate("vrt.entry.brick_train_step"):
+            # this rank's part of the GLOBAL mean: its rays' sum over the total
+            loss, g = _slab_loss_and_grad(ior_slab, my, num_b, xs, x_packed, positions[rows], directions[rows],
+                                          budget, invscale, k_steps, bgroup,
+                                          lambda end: ((end - targets[rows]) ** 2).sum() / n_rays_total)
+            with annotate("vrt.entry.all_reduce"):
+                buf = torch.cat([g.reshape(-1), loss.reshape(1)])
+                dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=rgroup)
+            with annotate("vrt.entry.halo_exchange"):
+                g = exchange_overlap_grads(buf[:-1].view_as(g), bgroup, num_b) / num_b
+            with annotate("vrt.entry.update"), torch.no_grad():
+                return ior_slab.detach() - lr * g, buf[-1].clone()
 
     return train_step

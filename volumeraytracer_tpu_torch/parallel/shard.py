@@ -279,6 +279,7 @@ def make_train_step(
     lr: float = 1e-3,
     axis: str = "rays",
     accum_steps: int = 1,
+    layout: Optional[str] = None,
 ):
     """Build the sharded training step
 
@@ -289,7 +290,9 @@ def make_train_step(
     loss)``.  Every rank passes the global batch and takes its rows of
     ``mesh[axis]``'s share; the field is replicated.  Each rank marches its
     share in ``accum_steps`` micro-batches through ``endpoint_render``
-    (``kernel="auto"``: P1, K1-K4 and P2 on the card), each with its own
+    (``kernel="auto"``: P1, K1-K4 and P2 on the card; ``layout`` is its
+    table's, "lines" (``None``, the default) or "points", T1, K5, K6 and T2
+    in place of K1-K4), each with its own
     backward into one local gradient, then the gradient and the loss are
     summed over the axis's group in **one** ``all_reduce`` (≙ JAX's psum
     pair; with accumulation the one collective a step, BASELINE config
@@ -298,7 +301,9 @@ def make_train_step(
     a 0-d loss, equal on every rank.  Raises ``ValueError`` when the batch
     does not split evenly over the axis or a rank's share by
     ``accum_steps``, the inputs that JAX's ``shard_map`` and its assert
-    refuse."""
+    refuse; when built, for a ``layout`` other than those three."""
+    if layout not in (None, "lines", "points"):
+        raise ValueError(f"unknown layout {layout!r}")
     group, num, me = _mesh_axis(mesh, axis)
 
     def train_step(ior, positions, directions, targets):
@@ -316,7 +321,7 @@ def make_train_step(
                 rows = slice(me * per + k * m, me * per + (k + 1) * m)
                 with annotate("vrt.entry.forward"):
                     end_pos, _ = endpoint_render(field, positions[rows], directions[rows], budget, invscale,
-                                                 chunk_steps)
+                                                 chunk_steps, layout=layout)
                     micro = ((end_pos - targets[rows]) ** 2).sum() / n
                 with annotate("vrt.entry.backward"):
                     micro.backward()
