@@ -312,11 +312,18 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      the plain forward and the plain backward alone over 3, with theirs),
      N2 into the field alone as the train steps and the camera run it,
      and their bounds by bytes.
+ 24. C1 (kernels/camera_rays.py: camera_rays, a pinhole camera's rays made
+     on the card): through PinholeCamera.rays at 1024^2 and 362^2, the
+     fit camera and an oblique one (a forward that is not a unit vector,
+     an up not orthogonal to it), one launch equal to the numpy route bit
+     for bit (int32 views); times (CUDA events: C1 queued behind a spin of
+     the card, and one after another; the numpy route and its two copies
+     over 3), its bound (24 bytes written a pixel) and its share of it.
 
 ``python3 chip_smoke.py --phase20`` (``--phase21``, ``--phase22``,
-``--phase23``) runs phases 1, 2 and 20 (21, 22, 23) alone, a quick check of
-the brick path (P1 and P2; T1 and T2; N1 and N2) that prints no result
-line.
+``--phase23``, ``--phase24``) runs phases 1, 2 and 20 (21, 22, 23, 24) alone,
+a quick check of the brick path (P1 and P2; T1 and T2; N1 and N2; C1) that
+prints no result line.
 
 The line before the last is one JSON object with each kernel's launches on
 the main path of its slice (K1-K4 on the line training step, K5 and K6 on
@@ -326,7 +333,8 @@ march_lines_compact over the scattered rays, R1 on phase 17b's frame,
 R2 on phase 17c's image_loss gradient, S1 on phase 20a's trace and S2 on
 its first train step, P1 and P2 on the line training step, T1 and T2 on
 the point training step, N1 and N2 on the line training step and timed
-at phase 23's camera), error
+at phase 23's camera, C1 on phase 17c's image_loss gradient and timed at
+phase 24's 1024^2 camera), error
 against its plain
 version, times, its bound (the larger of its float32 operations over 67
 TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
@@ -352,6 +360,8 @@ INV = 2.0
 #: the |v| = n start sample's kernels, N1 and N2, once each in a window that
 #: differentiates a float march from its start
 SAMPLE = {"start_sample_fwd": 1, "start_sample_bwd": 1}
+#: C1, the camera's rays, once in a window that renders a camera's image
+CAMERA = {"camera_rays": 1}
 #: N2's field gradient against float64 autograd through the plain sample,
 #: as a share of its largest value: float32 sums in another order read
 #: 2-9e-6 on the H100 at a camera's 1024² rays, 8 voxels of ~1 M terms each;
@@ -431,6 +441,24 @@ def render_bwd_ops(sigma: bool, emission: bool) -> int:
     if emission:
         ops += 82
     return ops
+
+
+def device_timed(fn, reps=20):
+    """ms a call of ``fn`` on the card: the calls queued behind a spin of
+    the card (``torch.cuda._sleep``), so that the host's time to launch
+    them, longer than a short kernel's own, stays off the clock."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def kernel_bound(ops, nbytes):
@@ -581,6 +609,7 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         solve_harmonic,
     )
     from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import camera_rays as cr
     from volumeraytracer_tpu_torch.kernels import pack_field as pf
     from volumeraytracer_tpu_torch.kernels import render as rk
     from volumeraytracer_tpu_torch.kernels import start_sample as ss
@@ -675,9 +704,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         sync()
         render_first_s = time.perf_counter() - t0
         r["r1_launches"] = frame_launches = dict(_build.launches)
-        if frame_launches != {"start_sample_fwd": 1, "render_fwd": 1}:
-            raise AssertionError(f"render_image's launches {frame_launches}, expected N1 and R1 once (3 channels, one "
-                                 f"group)")
+        if frame_launches != {"start_sample_fwd": 1, "render_fwd": 1, **CAMERA}:
+            raise AssertionError(f"render_image's launches {frame_launches}, expected C1, N1 and R1 once (3 channels, "
+                                 f"one group)")
         img, trans = out["image"], out["transmittance"]
         image = img.cpu().numpy()
         if tuple(img.shape) != (width, width, 3) or not bool(torch.isfinite(img).all()):
@@ -690,9 +719,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
             raise AssertionError("channel 2 (no emission, no background) is not 0")
         _build.launches.clear()
         out0 = render_image(packed, ior, cam, budget=BUDGET, invscale=INV, sigma=sigma, emission=None, background=None)
-        if dict(_build.launches) != {"start_sample_fwd": 1, "render_fwd": 1}:
-            raise AssertionError(f"the emission-off render's launches {dict(_build.launches)}, expected N1 and R1 "
-                                 f"once")
+        if dict(_build.launches) != {"start_sample_fwd": 1, "render_fwd": 1, **CAMERA}:
+            raise AssertionError(f"the emission-off render's launches {dict(_build.launches)}, expected C1, N1 and "
+                                 f"R1 once")
         if not (torch.equal(out0["image"], out0["transmittance"]) and torch.equal(out0["transmittance"], trans)):
             raise AssertionError("the emission-off image is not the transmittance")
         cpos, cdirs = cam.rays(device=dev)
@@ -814,9 +843,10 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     grad_s = time.perf_counter() - t0
     grad_peak = torch.cuda.max_memory_allocated()
     r["r2_launches"] = grad_launches = dict(_build.launches)
-    if grad_launches != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1, **SAMPLE}:
-        raise AssertionError(f"image_loss's gradient launched {grad_launches}, expected R1, R2, P1, P2, N1 and N2 "
-                             f"once each")
+    if grad_launches != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1, **SAMPLE,
+                         **CAMERA}:
+        raise AssertionError(f"image_loss's gradient launched {grad_launches}, expected C1, R1, R2, P1, P2, N1 and "
+                             f"N2 once each")
     for name, leaf in zip(("ior", "sigma", "emission"), leaves):
         g = leaf.grad
         if not (bool(torch.isfinite(g).all()) and g.abs().max().item() > 0):
@@ -908,11 +938,12 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     grads = {}
     for route in ("kernels", "plain"):
         leaves = [x.clone().requires_grad_(True) for x in (ior, sigma, emission)]
-        saved = rk.use_kernels, pf.use_kernels, ss.use_kernels
+        saved = rk.use_kernels, pf.use_kernels, ss.use_kernels, cr.use_kernel
         if route == "plain":
             rk.use_kernels = lambda device, dim: False
             pf.use_kernels = lambda kernel, device, dim: False
             ss.use_kernels = lambda kernel, device, dim: False
+            cr.use_kernel = lambda device: False
         try:
             sync()
             _build.launches.clear()
@@ -924,9 +955,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
             grads[route] = (loss.item(), [leaf.grad for leaf in leaves], dict(_build.launches),
                             time.perf_counter() - t0)
         finally:
-            rk.use_kernels, pf.use_kernels, ss.use_kernels = saved
+            rk.use_kernels, pf.use_kernels, ss.use_kernels, cr.use_kernel = saved
     if grads["kernels"][2] != {"render_fwd": 1, "render_bwd": 1, "pack_field_fwd": 1, "pack_field_bwd": 1,
-                               **SAMPLE} or grads["plain"][2]:
+                               **SAMPLE, **CAMERA} or grads["plain"][2]:
         raise AssertionError(f"launches {grads['kernels'][2]} (kernels) and {grads['plain'][2]} (plain)")
     close(torch.tensor(grads["kernels"][0]), torch.tensor(grads["plain"][0]), rtol=1e-5, atol=0)
     notes = []
@@ -2819,21 +2850,6 @@ def phase23(dev, t, timed, card, ior256, ptxas, n_side=1024) -> dict:
     ior64 = ior256.double()
     r = {"n1_err": 0.0, "n2_err": 0.0, "times": {}}
 
-    def device_timed(fn, reps=20):
-        """ms a call of ``fn`` on the card: the calls queued behind a spin
-        of the card (``torch.cuda._sleep``), so that the host's time to
-        launch them, longer than N1's or N2's own, stays off the clock."""
-        fn()
-        sync()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        sync()
-        return start.elapsed_time(stop) / reps
-
     def base_voxel(pos):
         p = pos - 0.5
         hi = torch.tensor([s - 2 for s in ior256.shape], device=dev)
@@ -2958,10 +2974,67 @@ def phase23(dev, t, timed, card, ior256, ptxas, n_side=1024) -> dict:
     return r
 
 
+def phase24(dev, timed, card, ptxas) -> dict:
+    """C1, the camera's rays made on the card (see the module doc, phase
+    24); returns its error, times and bound at the 1024² camera for the
+    kernels line.  ``ptxas``: phase 2's report by kernel."""
+    import torch
+
+    from volumeraytracer_tpu_torch import PinholeCamera
+    from volumeraytracer_tpu_torch.kernels import _build
+
+    print("phase 24 ptxas camera_rays: " + ", ".join(f"{k} {v}" for k, v in ptxas["camera_rays"].items()))
+    r = {}
+    for side in (1024, 362):
+        cams = {"fit": PinholeCamera(origin=(1.5, 128.0, 128.0), forward=(1.0, 0.0, 0.0), up=(0.0, 0.0, 1.0),
+                                     width=side, height=side, fov=0.45, speed=0.5),
+                "oblique": PinholeCamera(origin=(-4.0, 13.0, 2.5), forward=(3.0, -1.5, 0.25), up=(0.3, -0.4, 2.0),
+                                         width=side, height=side - 7, fov=1.3, speed=7.0)}
+        for name, cam in cams.items():
+            torch.cuda.synchronize()
+            _build.launches.clear()
+            got = cam.rays(device=dev)
+            torch.cuda.synchronize()
+            if dict(_build.launches) != CAMERA:
+                raise AssertionError(f"PinholeCamera.rays on the card launched {dict(_build.launches)}")
+            ref = cam.rays(device="cpu")
+            for g, f, what in zip(got, ref, ("positions", "directions")):
+                if not torch.equal(g.cpu().view(torch.int32), f.view(torch.int32)):
+                    raise AssertionError(f"C1's {what} differ from the numpy route's at the {name} camera "
+                                         f"{cam.width}x{cam.height}: max {(g.cpu() - f).abs().max().item():.3g}")
+            del got, ref
+        print(f"phase 24 C1 {side}^2 (the fit camera) and {side}x{side - 7} (oblique, non-unit forward, tilted up): "
+              f"one launch each, positions and directions equal to the numpy route's bit for bit")
+        cam = cams["fit"]
+        n = side * side
+
+        def numpy_and_copy():
+            pos, dirs = cam.rays(device="cpu")
+            return pos.to(dev), dirs.to(dev)
+
+        # C1 behind a spin (its device time), launched one after another
+        # (with the host's time to launch it), and the CPU route with its
+        # two pageable copies, the path C1 replaces
+        times = {"c1": device_timed(lambda: cam.rays(device=dev)), "c1_host": timed(lambda: cam.rays(device=dev), 20),
+                 "c1_plain": timed(numpy_and_copy, 3)}
+        # bytes: 24 written a pixel (its origin and direction), none read;
+        # its ~40 double operations a pixel are not float32 work
+        bound = kernel_bound(0, 24 * n)
+        for key, label in (("c1", "C1 camera_rays"), ("c1_host", "C1 launched one after another"),
+                           ("c1_plain", "the CPU route (numpy) and its two copies")):
+            extra = f" (bound {bound[0]:.4f} ms by {bound[1]}, share {bound[0] / times[key]:.3f})"
+            print(f"phase 24 time {label} {side}^2: {times[key]:.4f} ms{extra} {card}")
+        if side == 1024:
+            r = {"times": times, "c1_bound": bound, "c1_err": 0.0}
+        torch.cuda.empty_cache()
+    return r
+
+
 def main(quick: str = "") -> None:
     """The phases in order; ``quick`` "20" (``--phase20``), "21"
-    (``--phase21``), "22" (``--phase22``) or "23" (``--phase23``) runs
-    phases 1, 2 and that phase alone and prints no result line."""
+    (``--phase21``), "22" (``--phase22``), "23" (``--phase23``) or "24"
+    (``--phase24``) runs phases 1, 2 and that phase alone and prints no
+    result line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3034,6 +3107,8 @@ def main(quick: str = "") -> None:
         phase20(dev, card)
     elif quick == "23":
         phase23(dev, t, timed, card, t(lens_field()), ptxas)
+    elif quick == "24":
+        phase24(dev, timed, card, ptxas)
     elif quick:
         (phase21 if quick == "21" else phase22)(dev, t, timed, card, t(lens_field()), grin(40), lens40_translucency(),
                                                  ptxas)
@@ -4059,6 +4134,11 @@ def main(quick: str = "") -> None:
     r23 = phase23(dev, t, timed, card, ior256, ptxas)
     times.update(r23["times"])
 
+    # 24. C1, the camera's rays, against the numpy route bit for bit at
+    # 1024² and 362²
+    r24 = phase24(dev, timed, card, ptxas)
+    times.update(r24["times"])
+
     # bounds from this run's shapes and executed steps: each input read once,
     # each output written once; a march reads its ray state (pos, dir, rem,
     # alive, br: 36 B a ray) and writes it, a replay reads 52 B a ray (end
@@ -4107,11 +4187,13 @@ def main(quick: str = "") -> None:
         # N1 and N2 at phase 23's 1024² camera through 256³
         "n1": r23["n1_bound"],
         "n2": r23["n2_bound"],
+        # C1 at the 1024² fit camera (phase 24)
+        "c1": r24["c1_bound"],
     }
     for key, label in (("k1", "K1"), ("k2", "K2"), ("k3", "K3"), ("k4", "K4"), ("k5", "K5"), ("k6", "K6"),
                        ("f1", "F1"), ("f1p", "recording F1"), ("k2p", "recording K2"), ("k2c", "capped K2"),
                        ("kc", "corner build"), ("r1", "R1"), ("r2", "R2"), ("s1", "S1"), ("s2", "S2"), ("p1", "P1"),
-                       ("p2", "P2"), ("t1", "T1"), ("t2", "T2"), ("n1", "N1"), ("n2", "N2")):
+                       ("p2", "P2"), ("t1", "T1"), ("t2", "T2"), ("n1", "N1"), ("n2", "N2"), ("c1", "C1")):
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
@@ -4144,6 +4226,7 @@ def main(quick: str = "") -> None:
         ("t2", "point_table_fold", "point_table_fold.cu", "kernels/march_bwd.py:577", point_launches, r22["t2_err"]),
         ("n1", "start_sample_fwd", "start_sample.cu", "parallel/shard.py:214", train_launches, r23["n1_err"]),
         ("n2", "start_sample_bwd", "start_sample.cu", "parallel/shard.py:214", train_launches, r23["n2_err"]),
+        ("c1", "camera_rays", "camera_rays.cu", "models/camera.py:44", r17["r2_launches"], r24["c1_err"]),
     )
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src + source,
@@ -4164,5 +4247,5 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--phase20-worker"]:
         phase20_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     else:
-        main(quick={"--phase20": "20", "--phase21": "21", "--phase22": "22", "--phase23": "23"}.get(
+        main(quick={"--phase20": "20", "--phase21": "21", "--phase22": "22", "--phase23": "23", "--phase24": "24"}.get(
             sys.argv[1] if sys.argv[1:] else "", ""))

@@ -40,7 +40,7 @@ SOURCES = tuple(
         "line_table_build.cu", "corner_table_build.cu", "march_lines_fwd.cu", "march_lines_bwd.cu", "line_table_fold.cu",
         "march_points_fwd.cu", "march_points_bwd.cu", "march_fixed.cu", "render_fwd.cu", "render_bwd.cu",
         "march_slab_fwd.cu", "march_slab_bwd.cu", "pack_field.cu", "point_table_build.cu", "point_table_fold.cu",
-        "start_sample.cu",
+        "start_sample.cu", "camera_rays.cu",
     )
 )
 #: the headers the sources include, hashed with them
@@ -52,6 +52,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U = ctypes.c_uint
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 _MARCH_FWD = (
     _P, _I, _I, _I, _I, _I, _I,  # table, nb, bounds
     _P, _P, _P, _P, _P,  # state in
@@ -133,6 +134,9 @@ _SIGNATURES = {
     # cotangents, d ior, d pos and d dir), n
     "vrt_start_sample_fwd": (_P, _I, _I, _I, _L, _L, _L, _P, _P, _P, _P, _L, _P),
     "vrt_start_sample_bwd": (_P, _I, _I, _I, _L, _L, _L, _P, _P, _P, _P, _P, _P, _P, _L, _P),
+    # C1: the camera's forward, right and up, fov, fov * aspect, speed (all
+    # float64), its float32 origin, width, height; the rays written
+    "vrt_camera_rays": (_D,) * 12 + (_F,) * 3 + (_I, _I, _P, _P, _P),
 }
 
 #: launches of each kernel by name since the last ``clear()``

@@ -3,9 +3,12 @@
 Counterpart of ``volumeraytracer_tpu/models/camera.py``
 (``PinholeCamera``, ``render_transmittance``, ``render_image``,
 ``render_rays_image``, ``_as_field``, ``_march_accumulate``; JAX's
-``_march_with_transmittance`` is ``_march_accumulate`` with no emission).  A camera seeds one ray per pixel; the
-plain float march carries an optical depth τ and a radiance beside its
-state, per segment (midpoint rule, media constant along it):
+``_march_with_transmittance`` is ``_march_accumulate`` with no emission).
+A camera seeds one ray per pixel (``PinholeCamera.rays``: on a CUDA device
+one kernel, C1, makes them there; on any other device float64 numpy does,
+as in the JAX package; the two give the same bits); the plain float march
+carries an optical depth τ and a radiance beside its state, per segment
+(midpoint rule, media constant along it):
 
     τ += σ(mid)·Δs
     I += T_prev · w · e(mid),   w = 1 − exp(−σ(mid)·Δs) with σ, Δs without
@@ -32,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import camera_rays as camera_rays_k
 from ..kernels import render as render_k
 from ..ops import march as march_ops
 from ..ops.interp import interp_linear, start_sample
@@ -59,8 +63,14 @@ class PinholeCamera:
     def rays(self, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
         """(positions, directions), (H·W, 3) float32 on ``device`` (the card
         unless the caller asks for the CPU), pixels row-major (v, u):
-        computed in float64 numpy, as in the JAX package, then cast."""
+        computed in float64, as in the JAX package, then cast.  A CUDA
+        device makes them there with C1 (``kernels/camera_rays.py``), in one
+        launch; any other device in numpy, then copies them over.  Both
+        give the same bits."""
         with annotate("vrt.entry.camera_rays"):
+            if camera_rays_k.use_kernel(device):
+                return camera_rays_k.camera_rays_cuda(self.origin, self.forward, self.up, self.width, self.height,
+                                                      self.fov, self.speed, device)
             fwd = np.asarray(self.forward, np.float64)
             fwd = fwd / np.linalg.norm(fwd)
             up = np.asarray(self.up, np.float64)

@@ -457,7 +457,7 @@ def child(root: Path, first: bool, width: int) -> dict:
     if not first:
         return out
 
-    ms["camera.rays (host numpy, copy)"] = host_timed(lambda: cam.rays(device=dev))
+    ms["camera.rays on the card (C1)"] = host_timed(lambda: cam.rays(device=dev))
     ms["R2's zeroing alone"] = timed(lambda: (torch.zeros_like(packed), torch.zeros((*emission.shape[:3], 4),
                                                                                     device=dev)))
 
