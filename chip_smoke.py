@@ -57,9 +57,7 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      the last point bricks (where the clamps bite), per-ray outputs equal to
      the plain replay's bit for bit (K2, K3, K5 and K6 all keep a cell's
      corners in registers now, so what holds them is the plain march and
-     the plain replay, each pair's equality, and the parent-versus-change
-     digests of the probes, volumeraytracer_tpu_torch/probes/probe_k4k6.py
-     for K4-K6);
+     the plain replay, and each pair's equality);
  14. the point train step at full size: endpoint_render(layout="points")
      + backward + SGD, with K5, K6, P1, P2, T1 and T2 (the point table's
      build and fold, phase 22) launched once each and K1-K4 not at all,
@@ -225,9 +223,9 @@ It builds the CUDA kernels from ``volumeraytracer_tpu_torch/kernels/csrc``
      processes run;
  20. the brick-sharded field (parallel/bricks.py; its windows through S1
      and S2, kernels/march_slab.py) at BASELINE config 5's 512^3 lens with
-     bench.py's 131,072 scattered rays
-     (workloads.build_scattered_rays(grid=512)) at |d| = 1, the trace at
-     budget 512 and k_steps 64, the train step at budget 256, k_steps 32
+     bench.py's 131,072 scattered rays (probes/toolkit.py's
+     build_scattered_rays(grid=512)) at |d| = 1, the trace at budget 512
+     and k_steps 64, the train step at budget 256, k_steps 32
      and lr = 1e-2 / max|gradient|, each checked against the whole field's
      plain march_float (iterations exact, positions and directions within
      rtol 1e-5 / atol 1e-4) and endpoint_render(kernel="plain") + SGD (each
@@ -338,7 +336,8 @@ phase 24's 1024^2 camera), error
 against its plain
 version, times, its bound (the larger of its float32 operations over 67
 TFLOP/s and its bytes over 3.35 TB/s, counted from this run's shapes and
-executed steps; the recording K2's bytes include its path) and its library
+executed steps, by grinbench/rooflines for K1-K6, P1, P2, R1, R2, S1 and
+S2; the recording K2's bytes include its path) and its library
 yardstick's time where there is one; the last line is
 ``{"ok": true, "device": {...}}``.  It exits nonzero, printing no result,
 when there is no CUDA device or any phase fails.
@@ -347,16 +346,27 @@ when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
-import re
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-BUDGET = 512
-INV = 2.0
+from grinbench import peaks
+from grinbench.rooflines import line_table as table_roof
+from grinbench.rooflines import march_lines as lines_roof
+from grinbench.rooflines import march_points as points_roof
+from grinbench.rooflines import march_slab as slab_roof
+from grinbench.rooflines import pack_field as pack_roof
+from grinbench.rooflines import render as render_roof
+from probes import toolkit
+from probes.toolkit import (
+    BEND, BUDGET, INV, KERNELS, P20_GRID, P20_RAYS, P20_TRACE, P20_TRAIN, STEP, bench_rays, blob_field,
+    build_scattered_rays, capped_digests, device_timed, free_port, lens_field,
+)
+
 #: the |v| = n start sample's kernels, N1 and N2, once each in a window that
 #: differentiates a float march from its start
 SAMPLE = {"start_sample_fwd": 1, "start_sample_bwd": 1}
@@ -367,122 +377,23 @@ CAMERA = {"camera_rays": 1}
 #: 2-9e-6 on the H100 at a camera's 1024² rays, 8 voxels of ~1 M terms each;
 #: one group of a warp's rays more or fewer moves it by ~2e-3 (phase 23)
 N2_TOL = 1e-4
-BEND = INV / 65536.0
-STEP = INV * (float(0x42000000) / 65536.0 / 65536.0)
 
-#: the card's peaks for the kernels' bounds (NVIDIA's H100 SXM data sheet, at
-#: 700 W): float32 operations per second outside the tensor cores, HBM bytes
-#: per second
-F32_PEAK, HBM_PEAK = 67e12, 3.35e12
-#: float32 operations of one march step (K2, K5) and of one replayed step
-#: (K3, K6), counted from the .cu sources: each add, sub, mul, div, floor,
-#: compare and max once; integer index math, and the 24 hi + lo adds made
-#: once per cell entered, left out (PERF.md)
-MARCH_OPS, REPLAY_OPS = 120, 281
 #: float32 operations of one step of the fixed march (F1), counted from
-#: csrc/march_fixed.cu the same way (its header lists them)
+#: csrc/march_fixed.cu as grinbench/rooflines/march_lines.py counts K2's
+#: (its header lists them); the kernels that grinbench/rooflines counts
+#: (K1-K6, P1, P2, R1, R2, S1, S2) take their bounds from there
 MARCH_FIXED_OPS = 104
-#: float32 operations of one executed step of S1 (csrc/march_slab_fwd.cu)
-#: and of S2 (csrc/march_slab_bwd.cu), counted from the sources as
-#: MARCH_OPS is: S1 the owner test (a floor, 2 compares), the bounds test
-#: (2 floors, 6 compares), the slab frame and its floors (6), the weights
-#: (22), the four channels' corner sums (60), the opacity compare and the
-#: move (21: the bend 6, |u|² 5, the division, the step 9); S2 the
-#: recomputed step (109: S1's without its tests and compare) and its
-#: adjoint (275: the slab frame, floors and fractions 9, the weights 22,
-#: channels 0-2's sums 45, the weights' derivatives 15, u and 1/|u|² 12,
-#: t and ilen² 9, ub 21, h 3, the 8 corners' G and gradients 136, x̄ 3)
-SLAB_OPS, SLAB_BWD_OPS = 121, 384
-#: float32 operations of P1 an output voxel (27 taps' subtract, multiply and
-#: add, 3 divisions; the logf and the multiply of each ior voxel counted as
-#: 2 an input voxel) and of P2 an ior voxel (27 taps' 3, the multiply and the
-#: division; each cotangent record's 3 divisions counted as 3 an output
-#: voxel), from csrc/pack_field.cu
-PACK_OPS, PACK_BWD_OPS = 84, 83
 #: the ramp anchor of tests/test_scaling.py: traversal steps, and the |v|
 #: ratio's tolerance for float and for int16 8.8 directions
 ANCHOR_STEPS, ANCHOR_TOL, ANCHOR_TOL_DIR16 = 46718, 3e-5, 1e-5 + 1.0 / 256
 
 
-def render_ops(sigma: bool, channels: int) -> int:
-    """float32 operations of one step of R1 (csrc/render_fwd.cu), counted as
-    MARCH_OPS is: the bounds test (3 floors, 6 compares), the march step
-    (22 for the weights, 60 for the corner sums, the opacity compare, 6 for
-    the bend, 6 for 1/|u|², 9 for the step), the segment (10 for d, |d|²
-    and its square root, 6 for the midpoint, 3 floors); with a field the
-    midpoint's weights (22); with sigma its corner sum and dτ (16) and τ's
-    update; with an emission exp, expm1, T·w (3) and 17 a channel (the
-    corner sum, the product and the radiance's update)."""
-    ops = 132
-    if sigma or channels:
-        ops += 22
-    if sigma:
-        ops += 17
-    if channels:
-        ops += 3 + 17 * channels
-    return ops
-
-
-def render_bwd_ops(sigma: bool, emission: bool) -> int:
-    """float32 operations of one replayed step of R2 (csrc/render_bwd.cu),
-    counted the same way: the reconstruction and the segment (37), x's
-    weights and their derivatives (34), g (45), v (6), the step's adjoint
-    (6 for xb', 33 for t, ub and h, 136 for the 8 corners' G and gradients,
-    9 for xb); with a field the midpoint's weights and derivatives (34),
-    τ before, exp, expm1 and T·w (4), q·T (1), the segment's adjoint (7)
-    and 0.5·midb (3); with sigma its corner sum and dτ (16) and its adjoint
-    (72: dτ̄, τ̄, s̄, the midpoint's gradient, the 8 corners' sums); with an
-    emission q (15) and its adjoint (67)."""
-    ops = 306
-    if sigma or emission:
-        ops += 49
-    if sigma:
-        ops += 88
-    if emission:
-        ops += 82
-    return ops
-
-
-def device_timed(fn, reps=20):
-    """ms a call of ``fn`` on the card: the calls queued behind a spin of
-    the card (``torch.cuda._sleep``), so that the host's time to launch
-    them, longer than a short kernel's own, stays off the clock."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def kernel_bound(ops, nbytes):
     """A kernel's bound: (ms, "operations" or "bytes"), the larger of its
-    float32 operations over F32_PEAK and its bytes over HBM_PEAK."""
-    t_ops, t_bytes = ops / F32_PEAK * 1e3, nbytes / HBM_PEAK * 1e3
+    float32 operations over the card's float32 peak and its bytes over its
+    HBM peak (grinbench/peaks.py)."""
+    t_ops, t_bytes = ops / peaks.F32_PEAK * 1e3, nbytes / peaks.HBM_PEAK * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def lens_field(n=256):
-    """bench.py's smooth lens bump, 1 + 0.5·exp(−4r²) on [−1, 1]³."""
-    ax = np.linspace(-1.0, 1.0, n, dtype=np.float32)
-    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
-    return 1.0 + 0.5 * np.exp(-4.0 * (x * x + y * y + z * z), dtype=np.float32)
-
-
-def bench_rays(n_rays=131072, grid=256):
-    """bench.py's coherent bundle: 362² rays entering at x = 2, dir (16, 0, 0)."""
-    side = int(np.sqrt(n_rays))
-    ys = np.linspace(8.0, grid - 8.0, side, dtype=np.float32)
-    yy, zz = np.meshgrid(ys, ys, indexing="ij")
-    pos = np.stack([np.full(side * side, 2.0, np.float32), yy.ravel(), zz.ravel()], axis=-1)
-    dirs = np.tile(np.array([[16.0, 0.0, 0.0]], np.float32), (side * side, 1))
-    return pos, dirs
 
 
 def lens40_translucency(n=40):
@@ -580,15 +491,6 @@ def ior_at(ior, pos_fix):
         w = np.prod([frac[:, a] if b else 1.0 - frac[:, a] for a, b in enumerate(bits)], axis=0)
         out += w * ior[tuple(base[:, a] + bits[a] for a in range(3))].astype(np.float64)
     return out
-
-
-def blob_field(n, depth=22.0):
-    """tests/test_render_image.py:21-32's blob, exp(−8(x² + (y − 0.3)² +
-    z²)) on the packed grid of n³ voxels, scaled by depth / n so that its
-    optical depths are those of the test's 22³ grid."""
-    ax = np.linspace(-1.0, 1.0, n, dtype=np.float32)
-    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
-    return (np.exp(-8.0 * (x * x + (y - 0.3) ** 2 + z * z)) * np.float32(depth / n)).astype(np.float32)
 
 
 def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.ndarray:
@@ -786,11 +688,9 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         r["times"]["r1"] = timed(lambda: rk.render_cuda(*r1_args, **r1_kw), 5)
         render_ms = timed(lambda: render_image(packed, ior, cam, **rkw), 5)
         r["steps"] = cam_steps
-        # R1's bound: its operations a step, and each ray's state read and
-        # written (24 B in; 36 B and 4 a channel out) with the fields read
-        # once, counted whole
-        field_bytes = (packed.numel() + sigma.numel() + emission.numel()) * 4
-        r["r1_bound"] = kernel_bound(render_ops(True, 3) * cam_steps, (60 + 12) * width * width + field_bytes)
+        # R1's bound, as grinbench/rooflines/render.py counts it
+        work = {"rays": width * width, "steps": cam_steps, "channels": 3, "packed_shape": packed.shape}
+        r["r1_bound"] = kernel_bound(*render_roof.r1(work))
         print(f"phase 17b time R1 render_fwd alone {width}x{width}: {r['times']['r1']:.4f} ms, "
               f"{cam_steps / r['times']['r1'] / 1e6:.4f} Gsteps/s; plain march (one run) "
               f"{r['times']['r1_plain']:.1f} ms; the ray order (render_order) {r['times']['order']:.4f} ms, the "
@@ -921,10 +821,8 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
         r["r2_err"] = r2_err
         replayed = int(nexec.sum())
         r["times"]["r2"] = timed(lambda: rk.render_bwd_cuda(*r2_args, **r1_kw), 3)
-        # R2's bound: its operations a replayed step; each ray's start, end
-        # state, steps and cotangents read (96 B and 4 a channel) and its
-        # gradients written, the fields read and their gradients written once
-        r["r2_bound"] = kernel_bound(render_bwd_ops(True, True) * replayed, (96 + 12) * n_px + 2 * field_bytes)
+        # R2's bound, as grinbench/rooflines/render.py counts it
+        r["r2_bound"] = kernel_bound(*render_roof.r2({**work, "steps": replayed}))
         print(f"phase 17c R2 vs the plain replay {width}x{width} (seeded cotangents): " + "; ".join(notes)
               + "; opacity channel 0")
         print(f"phase 17c R2's other instantiations vs the plain replay {width}x{width}: " + "; ".join(other))
@@ -1151,62 +1049,6 @@ def phase17(dev, t, timed, card, lens, scene, pos, dirs, res, width=1024) -> np.
     return image, r
 
 
-def capped_digests(dev, packed256, table, k_args, k_kw, capped, plain_capped) -> dict:
-    """Phase 18a's repeat: the corner table of the 256^3 lens (``table``),
-    the capped K2 over it and the capped plain march over the scattered
-    rays (``k_args``, sorted),
-    each run a second time in this process, every side's outputs digested
-    (sha256 of their bytes, as probes/probe_k4k6.py digests K2's).  The
-    digests are printed with those of the inputs, so that two runs can be
-    compared too (probes/probe_capped.py runs this in several processes),
-    and so is the largest end-direction difference between the capped K2
-    and the capped plain march, over all components and over those outside
-    a per-component rtol 1e-6 + atol 1e-6 (the only ones that
-    ``torch.testing.assert_close`` names when it fails).  Fails if the
-    corner table or the capped K2 differ between the two runs; a plain
-    march that differs is printed.  Returns the digests and the
-    differences."""
-    import torch
-
-    from volumeraytracer_tpu_torch.kernels import line_table_cuda
-    from volumeraytracer_tpu_torch.kernels import march_lines as ml
-    from volumeraytracer_tpu_torch.ops.march import march_float_state
-    from volumeraytracer_tpu_torch.probes.probe_k4k6 import _digest
-
-    kw = dict(bend_scale=BEND, step_scale=STEP)
-    table2, _ = line_table_cuda.build_corner_table_cuda(packed256)
-    capped2 = ml.march_lines_cuda(*k_args, max_steps=BUDGET, **k_kw)
-    plain2, _ = march_float_state(packed256, None, k_args[3], k_args[4], BUDGET, max_steps=BUDGET, **kw)
-    torch.cuda.synchronize()
-    state = ("pos", "direction", "remaining", "brightness", "alive")
-    digests = {
-        "packed field": [_digest(packed256)],
-        "sorted scattered rays": [_digest(*k_args[3:5])],
-        "corner table": [_digest(table.points), _digest(table2.points)],
-        "capped K2": [_digest(*capped), _digest(*capped2)],
-        "capped plain march": [_digest(*(getattr(plain_capped, f) for f in state)),
-                               _digest(*(getattr(plain2, f) for f in state))],
-    }
-    print(f"phase 18a repeat in one process (sha256[:16] of each side's outputs, run 1 and run 2): "
-          f"{json.dumps(digests)}")
-    varied = [k for k, v in digests.items() if len(set(v)) > 1]
-    if "corner table" in varied or "capped K2" in varied:
-        raise AssertionError(f"{varied} differ between two runs on the same inputs in one process")
-    if varied:
-        moved = {f: (getattr(plain_capped, f).double() - getattr(plain2, f).double()).abs().max().item()
-                 for f in state}
-        print(f"phase 18a the capped plain march differs between two runs: max |run 1 - run 2| {moved}")
-    diff = (capped[1] - plain_capped.direction).abs()
-    outside = diff > 1e-6 + 1e-6 * plain_capped.direction.abs()
-    stats = {"dir_max_err": diff.max().item(), "dir_outside_rtol_atol_1e-6": int(outside.sum()),
-            "dir_max_err_outside": diff[outside].max().item() if bool(outside.any()) else 0.0}
-    print(f"phase 18a capped K2 end directions vs the capped plain march: largest difference {stats['dir_max_err']!r}; "
-          f"{stats['dir_outside_rtol_atol_1e-6']} of {diff.numel()} components outside a per-component rtol 1e-6 + "
-          f"atol 1e-6, the largest difference among them {stats['dir_max_err_outside']!r}")
-    del table2, capped2, plain2
-    return {"digests": digests, **stats}
-
-
 def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40, pos40, dirs40, times) -> dict:
     """The scattered rays and capture-and-replay on the card (see the module
     doc, phase 18).  Adds the capped K2's times to ``times`` and returns its
@@ -1227,7 +1069,6 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     )
     from volumeraytracer_tpu_torch.ops.interp import interp_linear
     from volumeraytracer_tpu_torch.ops.march import _finish, march_float, march_float_state
-    from volumeraytracer_tpu_torch.workloads import build_scattered_rays
 
     sync = torch.cuda.synchronize
     fields = ("end_position", "end_direction", "end_iteration", "remaining_light")
@@ -1468,7 +1309,7 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     torch.testing.assert_close(capped[1], plain_capped.direction, rtol=0, atol=1e-6 * 16.0)
     scat_err = (capped[0] - plain_capped.pos).abs().max().item()
     scat_dir_err = (capped[1] - plain_capped.direction).abs().max().item()
-    capped_digests(dev, packed256, corners, k_args, k_kw, capped, plain_capped)
+    capped_digests(packed256, corners, k_args, k_kw, capped, plain_capped)
     k2c_err = max(k2c_err, scat_err)
     # its bound: the steps it executed, its ray state (36 B read and written
     # a ray) and the corner records of the cells its rays pass through (65
@@ -1484,7 +1325,7 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
     pts = (cells[:, None, :] + corner).reshape(-1, 3)
     n_records = int(torch.unique((pts[:, 0] * lattice[1] + pts[:, 1]) * lattice[2] + pts[:, 2]).numel())
     k2c_bytes = 72 * n_rays + 16 * n_records
-    k2c_bound = kernel_bound(MARCH_OPS * capped_steps, k2c_bytes)
+    k2c_bound = kernel_bound(lines_roof.MARCH_OPS * capped_steps, k2c_bytes)
     print(f"phase 18a capped K2 over the whole scattered march vs the capped plain march ({times['k2c_plain']:.4f} "
           f"ms, one run): remaining and alive exact, pos max err {scat_err:.3g}, dir max err {scat_dir_err:.3g}; "
           f"{capped_steps} steps, {k2c_bytes} B of ray state and corner records ({n_records} of "
@@ -1593,14 +1434,6 @@ def phase18(dev, t, timed, turns, card, lens, ior256, packed256, packed40, trc40
           f"{res.end_iteration.double().mean().item():.1f}): launches {launched}; {line} "
           f"{torch.cuda.get_device_name(0)} {card}")
     return {"launches": compact_launches, "err": k2c_err, "bound": k2c_bound, "kc_err": kc_err, "kc_bound": kc_bound}
-
-
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def phase19_worker(rank: int, world: int, coordinator: str, inputs: str, out: str) -> None:
@@ -1784,7 +1617,7 @@ def phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, line_s
     world = 2
     with tempfile.TemporaryDirectory() as tmp:
         torch.save({"targets": targets.cpu(), "p": p.cpu(), "d": d.cpu(), "lr": lr}, os.path.join(tmp, "in.pt"))
-        coordinator = f"127.0.0.1:{_free_port()}"
+        coordinator = f"127.0.0.1:{free_port()}"
         logs = [open(os.path.join(tmp, f"log{r}.txt"), "w+") for r in range(world)]
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase19c-worker", str(r), str(world),
                                    coordinator, os.path.join(tmp, "in.pt"), os.path.join(tmp, f"out{r}.pt")],
@@ -1881,12 +1714,6 @@ def phase19(dev, timed, turns, card, ior256, packed256, scene, pos, dirs, line_s
     dist.destroy_process_group()
 
 
-#: phase 20's volume (BASELINE config 5's 512³), its scattered rays' count,
-#: and the trace's and the train step's budgets and windows
-P20_GRID, P20_RAYS = 512, 131072
-P20_TRACE, P20_TRAIN = dict(budget=512, k_steps=64), dict(budget=256, k_steps=32)
-
-
 def _p20_windows(bricks):
     """Count the brick marches' windows from here on: a list whose one
     element each ``_combine_window`` call increments."""
@@ -1899,21 +1726,6 @@ def _p20_windows(bricks):
 
     bricks._combine_window = counted
     return count
-
-
-def _p20_events(fn, reps=3):
-    """Mean ms of ``fn`` over ``reps`` calls after one warm-up, CUDA events."""
-    import torch
-
-    fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def _p20_cells(ms, slab, state, args, k_steps) -> dict:
@@ -1996,8 +1808,8 @@ def _p20_kernels(group, num, my, packed, ior_slab, pos, dirs) -> dict:
                                      f"{int((a != b).reshape(n, -1).any(-1).sum())} rays")
         out[f"s1_{name}_steps"] = int((st[2] - got[2]).sum())
         if name == "start":
-            out["s1_ms"] = _p20_events(lambda: ms.slab_window_cuda(slab, st, *args, k))
-            out["s1_plain_ms"] = _p20_events(lambda: ms.slab_window_plain(slab, st, *args, k), reps=1)
+            out["s1_ms"] = device_timed(lambda: ms.slab_window_cuda(slab, st, *args, k), 3, spin=False)
+            out["s1_plain_ms"] = device_timed(lambda: ms.slab_window_plain(slab, st, *args, k), 1, spin=False)
             out["s1_read"] = _p20_cells(ms, slab, st, args, k)
     del mid, got, ref
 
@@ -2057,9 +1869,9 @@ def _p20_kernels(group, num, my, packed, ior_slab, pos, dirs) -> dict:
     out.update(s2_seg_rel=seg_rel, s2_seg_steps=seg_steps)
     del end_k, got_k, ref_k
     d_slab = got[2]
-    out["s2_ms"] = _p20_events(lambda: ms.slab_window_bwd_cuda(tslab, st, end[2], *args, kt, d_pos, d_dir,
-                                                               d_slab=d_slab))
-    out["zero_ms"] = _p20_events(lambda: torch.zeros_like(tslab))
+    out["s2_ms"] = device_timed(lambda: ms.slab_window_bwd_cuda(tslab, st, end[2], *args, kt, d_pos, d_dir,
+                                                               d_slab=d_slab), 3, spin=False)
+    out["zero_ms"] = device_timed(lambda: torch.zeros_like(tslab), 3, spin=False)
     return out
 
 
@@ -2210,7 +2022,7 @@ def _p20_group(tmp: str, world: int, mode: str, timeout: float = 240.0) -> list:
 
     import torch
 
-    coordinator = f"127.0.0.1:{_free_port()}"
+    coordinator = f"127.0.0.1:{free_port()}"
     logs = [open(os.path.join(tmp, f"log_{mode}_{world}_{r}.txt"), "w+") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase20-worker", str(r), str(world),
                                coordinator, tmp, mode], stdout=logs[r], stderr=subprocess.STDOUT)
@@ -2252,7 +2064,6 @@ def phase20(dev, card) -> dict:
     from volumeraytracer_tpu_torch.ops.march import march_float
     from volumeraytracer_tpu_torch.parallel import endpoint_render, make_mesh
     from volumeraytracer_tpu_torch.parallel.bricks import IOR_OVERLAP, slab_cells
-    from volumeraytracer_tpu_torch.workloads import build_scattered_rays
 
     sync = torch.cuda.synchronize
     t_phase = time.perf_counter()
@@ -2393,29 +2204,22 @@ def phase20(dev, card) -> dict:
     report("20a world size 1", [o])
     dist.destroy_process_group()
     n_rays = pos.shape[0]
-    # the bounds of S1's and S2's timed windows: operations over executed
-    # steps; bytes the ray state in and out (S1 33 B each way a ray; S2 64 B
-    # in, 24 out) and the distinct corner voxels read (16 B each), and for
-    # S2 the d slab records its atomics touch, those same voxels, each read
-    # and written once (the d slab is zeroed once a train step, outside
-    # S2).  The bounds counted distinct cells (16 B each) and S2 the whole
-    # d slab written before S2 took a d slab: printed beside them once.
+    # the bounds of S1's and S2's timed windows (one window each), as
+    # grinbench/rooflines/march_slab.py counts them: the distinct corner
+    # voxels the window's executed steps read
     s1v, s2v = o["s1_read"]["voxels"], o["s2_read"]["voxels"]
     r20 = {
         "s1_launches": o["trace_launches"], "s2_launches": o["train_launches"],
         "s1_err": 0.0, "s2_err": o["s2_err"], "s1": o["s1_ms"], "s1_plain": o["s1_plain_ms"], "s2": o["s2_ms"],
         "s2_plain": o["s2_plain_ms"],
-        "s1_bound": kernel_bound(SLAB_OPS * o["s1_start_steps"], 66 * n_rays + 16 * s1v),
-        "s2_bound": kernel_bound(SLAB_BWD_OPS * o["s2_steps"], 88 * n_rays + 48 * s2v),
+        "s1_bound": kernel_bound(*slab_roof.s1({"rays": n_rays, "steps": o["s1_start_steps"],
+                                                "k_steps": P20_TRACE["k_steps"], "slab_voxels": s1v})),
+        "s2_bound": kernel_bound(*slab_roof.s2({"rays": n_rays, "steps": o["s2_steps"],
+                                                "k_steps": P20_TRAIN["k_steps"], "slab_voxels": s2v})),
     }
-    before = (kernel_bound(SLAB_OPS * o["s1_start_steps"], 66 * n_rays + 16 * o["s1_read"]["cells"]),
-              kernel_bound(SLAB_BWD_OPS * o["s2_steps"],
-                           88 * n_rays + 16 * o["s2_read"]["cells"] + o["slab_bytes_packed"]))
-    print(f"phase 20a bounds: S1 {r20['s1_bound'][0]:.4f} ms ({r20['s1_bound'][1]}: {s1v} corner voxels; counted "
-          f"by distinct cells before, {o['s1_read']['cells']}: {before[0][0]:.4f} ms), S2 {r20['s2_bound'][0]:.4f} ms "
-          f"({r20['s2_bound'][1]}: {s2v} corner voxels read and their d slab records read and written; before, "
-          f"{o['s2_read']['cells']} cells and the whole {o['slab_bytes_packed']} B d slab written: "
-          f"{before[1][0]:.4f} ms)")
+    print(f"phase 20a bounds: S1 {r20['s1_bound'][0]:.4f} ms ({r20['s1_bound'][1]}: {s1v} corner voxels of "
+          f"{o['s1_read']['cells']} cells), S2 {r20['s2_bound'][0]:.4f} ms ({r20['s2_bound'][1]}: {s2v} corner voxels "
+          f"of {o['s2_read']['cells']} cells read and their d slab records read and written)")
     del o
     # the workers allocate on the same card: hand back what this process's
     # caching allocator keeps from the earlier phases
@@ -2475,13 +2279,10 @@ def phase21(dev, t, timed, card, ior256, ior40, tr40, ptxas) -> dict:
 
     sync = torch.cuda.synchronize
     r = {"p1_err": 0.0, "p2_err": 0.0}
-    # ptxas' report, and each kernel's stack frame (a helper not inlined
+    # ptxas' report, with each kernel's stack frame (a helper not inlined
     # into it would need one)
-    frames = dict(re.findall(r"Function properties for \S*?(pack_field_(?:fwd|bwd))_kernel\S*\s+(\d+) bytes stack frame",
-                             _build.build_log))
     for name in ("pack_field_fwd", "pack_field_bwd"):
-        print(f"phase 21 ptxas {name}: " + ", ".join(f"{k} {v}" for k, v in ptxas[name].items())
-              + f", stack frame {frames.get(name, '?')} bytes")
+        print(f"phase 21 ptxas {name}: " + ", ".join(f"{k} {v}" for k, v in ptxas[name].items()))
 
     sync()
     _build.launches.clear()
@@ -2491,26 +2292,21 @@ def phase21(dev, t, timed, card, ior256, ior40, tr40, ptxas) -> dict:
         raise AssertionError(f"a scene's construction on the card launched {dict(_build.launches)}, expected P1 once")
     print("phase 21 RaytraceScene(256^3 lens) on the card: P1 launched once")
 
-    def nbytes(shape):
-        """The bytes of P1's and P2's bounds at an ior of ``shape``: P1 reads
-        the ior once and writes the 16 B records, P2 reads the records and
-        the ior and writes the gradient."""
-        n_in = shape[0] * shape[1] * shape[2]
-        n_out = (shape[0] - 2) * (shape[1] - 2) * (shape[2] - 2)
-        return n_in, n_out, 4 * n_in + 16 * n_out, 16 * n_out + 8 * n_in
+    def counts(shape):
+        """P1's and P2's (operations, bytes) at an ior of ``shape``, as
+        grinbench/rooflines/pack_field.py counts them."""
+        work = {"packed_shape": [n - 2 for n in shape[:3]]}
+        return pack_roof.p1(work), pack_roof.p2(work)
 
     def bounds(shape):
-        """P1's and P2's bounds at an ior of ``shape``: the bytes of
-        ``nbytes``, their operations as PACK_OPS and PACK_BWD_OPS count
-        them."""
-        n_in, n_out, b1, b2 = nbytes(shape)
-        return (kernel_bound(PACK_OPS * n_out + 2 * n_in, b1), kernel_bound(PACK_BWD_OPS * n_in + 3 * n_out, b2))
+        """P1's and P2's bounds at an ior of ``shape``."""
+        return tuple(kernel_bound(*c) for c in counts(shape))
 
     def rates(where, shape, ms1, ms2):
         """A line of P1's and P2's times, bounds, shares and achieved TB/s
         (the bound's bytes over the time)."""
         (p1b, _), (p2b, _) = bounds(shape)
-        _, _, b1, b2 = nbytes(shape)
+        (_, b1), (_, b2) = counts(shape)
         print(f"phase 21 {where}: P1 {ms1:.4f} ms (bound {p1b:.4f}, share {p1b / ms1:.3f}, {b1 / ms1 / 1e9:.3f} TB/s), "
               f"P2 {ms2:.4f} ms (bound {p2b:.4f}, share {p2b / ms2:.3f}, {b2 / ms2 / 1e9:.3f} TB/s) {card}")
 
@@ -3051,7 +2847,6 @@ def main(quick: str = "") -> None:
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field, cropped_translucency
     from volumeraytracer_tpu_torch.ops.interp import interp_fixed, interp_linear
     from volumeraytracer_tpu_torch.ops.march import march_fixed, march_float, path_steps
-    from volumeraytracer_tpu_torch.probes.probe_k4k6 import KERNELS, ptxas_by_kernel
 
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
@@ -3060,31 +2855,13 @@ def main(quick: str = "") -> None:
         """numpy data (converted on the host) → tensor on the card."""
         return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(dtype))).to(dev)
 
-    def timed(fn, reps, warm=1):
-        for _ in range(warm):
-            fn()
-        sync()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        sync()
-        return start.elapsed_time(stop) / reps
-
-    def turns(old, new, reps):
-        """Times of ``old`` and ``new`` in turns (old, new, new, old):
-        ([old, old], [new, new])."""
-        t_old, t_new = [timed(old, reps)], [timed(new, reps)]
-        t_new.append(timed(new, reps))
-        t_old.append(timed(old, reps))
-        return t_old, t_new
+    # the calls launched one after another, the host's time to launch them
+    # on the clock: (ms) and, in turns, ([old, old], [new, new])
+    timed = functools.partial(device_timed, spin=False)
+    turns = functools.partial(toolkit.turns, spin=False)
 
     # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = toolkit.card()
     card = f"[{smi}]"
     print(smi)
     print(f"phase 1 card: {torch.cuda.get_device_name(0)} | torch {torch.__version__} "
@@ -3094,7 +2871,7 @@ def main(quick: str = "") -> None:
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    ptxas = ptxas_by_kernel(_build.build_log)
+    ptxas = toolkit.ptxas(_build.build_log)
     print(f"phase 2 build: {build_s:.2f} s ({_build.library_path().name})")
     for name, info in ptxas.items():
         print(f"phase 2 ptxas {name}: " + ", ".join(f"{k} {v}" for k, v in info.items()))
@@ -3278,13 +3055,12 @@ def main(quick: str = "") -> None:
             extra = f", {n_rays / ms / 1e3:.4f} Mrays/s, {steps / ms / 1e6:.4f} Gsteps/s"
         print(f"phase 7 time {label}: {times[key]:.4f} ms{extra} {card}")
 
-    # the line and point bricks that the rays pass through (sampled along the
-    # straight segments from start to end): the table bytes K2, K3, K5 and K6 need
+    # the line and point bricks that hold a ray's start or end cell, as
+    # grinbench/rooflines counts the table bricks that K2, K3, K5 and K6 read
     k2_end = ml.march_lines(packed256, p, d, BUDGET, bend_scale=BEND, step_scale=STEP, table=table, nb=nb).end_position
-    frac = torch.linspace(0.0, 1.0, 33, device=dev)
-    path = (p[:, None, :] + frac[None, :, None] * (k2_end - p)[:, None, :]).reshape(-1, 3)
-    line_bytes = int(torch.unique(ml._brick_and_cell(path, nb, (LBX, LBY, LBZ))[0]).numel()) * table[0].numel() * 4
-    table_bytes = table.numel() * 4
+    line_bricks = table_roof.bricks_holding([p, k2_end], packed256.shape)
+    point_bricks = points_roof.bricks_holding([p, k2_end], packed256.shape)
+    line_bytes = line_bricks * table_roof.BRICK_BYTES
     del table, k2_end
 
     def err_scale(got, ref):
@@ -4140,24 +3916,18 @@ def main(quick: str = "") -> None:
     times.update(r24["times"])
 
     # bounds from this run's shapes and executed steps: each input read once,
-    # each output written once; a march reads its ray state (pos, dir, rem,
-    # alive, br: 36 B a ray) and writes it, a replay reads 52 B a ray (end
-    # pos and dir, nexec, d_pos, d_dir) and writes 40 (d_pos0, d_dir0, recon,
-    # residual) and the whole gradient table; both read the bricks the rays
-    # pass through
-    point_bytes = int(torch.unique(ml._brick_and_cell(path, pnb, (mp.BX, mp.BY, mp.BZ))[0]).numel()) \
-        * ptable[0].numel() * 4
-    replayed6 = int(k6["256^3 bench"]["args"][4].sum())
-    field_bytes = packed256.numel() * 4
+    # each output written once; grinbench/rooflines counts K1-K6
+    work = {"rays": n_rays, "steps": steps, "packed_shape": tuple(packed256.shape), "line_bricks": line_bricks,
+            "point_bricks": point_bricks}
     bounds = {
-        "k1": kernel_bound(0, field_bytes + table_bytes),
-        "k2": kernel_bound(MARCH_OPS * steps, 72 * n_rays + line_bytes),
-        "k3": kernel_bound(REPLAY_OPS * replayed, 92 * n_rays + line_bytes + table_bytes),
-        # K4 reads the hi rows of channels 0-3 of the 121 live lanes
-        "k4": kernel_bound(0, nb256[0] * nb256[1] * nb256[2] * (LBZ + 1) * 4 * (LBX + 1) * (LBY + 1) * 4
-                           + field_bytes),
-        "k5": kernel_bound(MARCH_OPS * steps, 72 * n_rays + point_bytes),
-        "k6": kernel_bound(REPLAY_OPS * replayed6, 92 * n_rays + point_bytes + ptable.numel() * 4),
+        "k1": kernel_bound(*table_roof.k1(work)),
+        "k2": kernel_bound(*lines_roof.k2(work)),
+        "k3": kernel_bound(*lines_roof.k3({**work, "steps": replayed})),
+        # K4 reads the hi rows of channels 0-3 at the entries whose point
+        # lies in the field
+        "k4": kernel_bound(*table_roof.k4(work)),
+        "k5": kernel_bound(*points_roof.k5(work)),
+        "k6": kernel_bound(*points_roof.k6({**work, "steps": int(k6["256^3 bench"]["args"][4].sum())})),
         # F1 reads 36 B a ray (int64 pos, f32 dir) and writes 52 (pos, dir,
         # int64 iterations, int64 brightness), and the voxels of the packed
         # field its rays read, 16 B each
@@ -4167,7 +3937,7 @@ def main(quick: str = "") -> None:
         "f1p": kernel_bound(MARCH_FIXED_OPS * fixed_steps, 88 * n_rays + f1_field_bytes + n_rays * fpath_len * 24),
         # the recording K2: K2's, plus each ray's int64 path row read and
         # its (budget + 1) × 3 float32 path written
-        "k2p": kernel_bound(MARCH_OPS * steps, 80 * n_rays + line_bytes + n_rays * (BUDGET + 1) * 12),
+        "k2p": kernel_bound(lines_roof.MARCH_OPS * steps, 80 * n_rays + line_bytes + n_rays * (BUDGET + 1) * 12),
         # the capped K2: one phase over the scattered bundle, and the corner
         # build (phase 18)
         "k2c": k2c["bound"],
@@ -4197,9 +3967,10 @@ def main(quick: str = "") -> None:
         ms, by = bounds[key]
         print(f"bound {label}: {ms:.4f} ms ({by}); time {times[key]:.4f} ms, share of bound {ms / times[key]:.4f} "
               f"{card}")
+    f1_bytes_ms = (88 * n_rays + f1_field_bytes) / peaks.HBM_PEAK * 1e3
     print(f"bound F1 counted: {MARCH_FIXED_OPS} × {fixed_steps} float32 operations, {88 * n_rays} B of ray state "
-          f"and {f1_field_bytes} B of packed-field voxels ({(88 * n_rays + f1_field_bytes) / HBM_PEAK * 1e3:.4f} ms "
-          f"at {HBM_PEAK / 1e12:.2f} TB/s); the recording F1 also {n_rays * fpath_len * 24} B of path")
+          f"and {f1_field_bytes} B of packed-field voxels ({f1_bytes_ms:.4f} ms at {peaks.HBM_PEAK / 1e12:.2f} TB/s); "
+          f"the recording F1 also {n_rays * fpath_len * 24} B of path")
     src = "volumeraytracer_tpu_torch/kernels/csrc/"
     rows = (
         ("k1", "line_table_build", "line_table_build.cu", "kernels/line_table_pallas.py:108", train_launches, k1_err),

@@ -5,14 +5,14 @@ scattered rays at |d| = 1; the trace at budget 512 and k_steps 64, the
 train step at budget 256 and k_steps 32), for this checkout and, with
 ``--parent``, another one in turns.
 
-    python3 -m volumeraytracer_tpu_torch.probes.probe_bricks [--parent DIR] [--grid 512] [--rays 131072] [--out FILE.json]
+    python3 -m probes.probe_bricks [--parent DIR] [--grid 512] [--rays 131072] [--out FILE.json]
 
 ``DIR`` holds another checkout of the repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
 lists).  The fields and rays are written once, as phase 20 writes them.
 With ``--parent``, one child process per version runs in the order
-parent, this checkout, this checkout, parent; without it, one child of
-this checkout.  Each child imports ``volumeraytracer_tpu_torch`` from its
+parent, this checkout, this checkout, parent (``toolkit.in_turns``);
+without it, one child of this checkout.  Each child imports ``volumeraytracer_tpu_torch`` from its
 own root and records, on the host clock around calls that end in a sync,
 one warm-up call and two timed ones:
 
@@ -25,7 +25,7 @@ one warm-up call and two timed ones:
   each rank's times.
 
 Every child also times S1 and S2 alone at 20a's size on one brick (CUDA
-events, the mean of 5 calls after a warm-up): S1 over one trace window
+events behind a spin, the mean of 5 calls after a warm-up): S1 over one trace window
 (k_steps 64) and S2 over one train window (k_steps 32) from the start
 state, over phase 20's scattered rays and over a coherent set (362² rays
 from x = 2 along +x, bench.py's layout scaled to the grid), S2 both as
@@ -35,7 +35,7 @@ slab and the add of one into another alone; the executed steps and S2's
 stash bytes (24 B written and read back an executed step).  The first
 child of each version also builds its S1 and S2 sources alone for
 ptxas' registers, stack frame and spills, and profiles 20a's trace and
-train step (``torch.profiler``, ``probe_fixed._profile``: device time by
+train step (``torch.profiler``, ``toolkit.profile``: device time by
 operation, busy share, idle gaps, host time by operation).  With
 ``--parent``, the first child of this checkout also builds the parent's
 S1 and S2 sources alone and times them against its own in ``PAIRS``
@@ -53,47 +53,26 @@ measurement with the card's name and power limit, and writes them all to
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import inspect
 import json
-import os
-import re
-import socket
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parents[2]
-#: chip_smoke.py's float scales at invscale 2, and phase 20's budgets
-INV = 2.0
-BEND = INV / 65536.0
-STEP = INV * (float(0x42000000) / 65536.0 / 65536.0)
-TRACE, TRAIN = dict(budget=512, k_steps=64), dict(budget=256, k_steps=32)
+from probes import toolkit
+
+INV, BEND, STEP = toolkit.INV, toolkit.BEND, toolkit.STEP
+TRACE, TRAIN = toolkit.P20_TRACE, toolkit.P20_TRAIN
 #: the process groups of 20b and 20c: (world size, mode)
 GROUPS = ((2, "1d"), (4, "1d"), (4, "2d"))
 #: alternating parent/change pairs of S1 and S2 alone with ``--parent``
 PAIRS = 12
-
-
-def _card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def _digest(*tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+#: S1's and S2's sources, each built alone beside its header
+SLAB_SOURCES = ("march_slab_fwd.cu", "march_slab_bwd.cu")
+#: a child's results of 20a and of each group
+RUN_KEYS = ("20a", *(f"{mode}_{world}" for world, mode in GROUPS))
 
 
 def _rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool, profile: bool = False) -> dict:
@@ -145,60 +124,15 @@ def _rank_run(mesh, packed, ior, pos, dirs, targets, lr, two_d: bool, profile: b
                 out[f"{name}_windows"] = count[0]
                 out[f"{name}_mem_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
                 if name == "trace":
-                    out["trace_digest"] = _digest(res.end_position, res.end_direction, res.end_iteration)
+                    out["trace_digest"] = toolkit.digest(res.end_position, res.end_direction, res.end_iteration)
                 else:
                     out["loss"] = float(res[1])
             del res
         out[f"{name}_ms"] = times
     if profile:
-        from volumeraytracer_tpu_torch.probes.probe_fixed import _profile
-
-        out["profile"] = {"trace": _profile(torch, trace, reps=2), "train": _profile(torch, train, reps=2)}
+        out["profile"] = {"trace": toolkit.profile(trace, reps=2), "train": toolkit.profile(train, reps=2)}
     bricks._combine_window = combine
     return out
-
-
-def _ptxas(log: str) -> dict:
-    """ptxas -v output of one slab kernel's build: registers, stack frame
-    and spill bytes."""
-    out = {}
-    for key, pat in (("registers", r"Used (\d+) registers"), ("stack_frame", r"(\d+) bytes stack frame"),
-                     ("spill_stores", r"(\d+) bytes spill stores"), ("spill_loads", r"(\d+) bytes spill loads")):
-        m = re.findall(pat, log)
-        out[key] = int(m[-1]) if m else None
-    return out
-
-
-def _build_alone(_build, tmp: Path, tag: str, csrc: Path, src: str):
-    """``src`` (march_slab_fwd.cu or march_slab_bwd.cu) of the checkout whose
-    kernel sources are ``csrc``, with its header, built alone with this
-    version's nvcc flags: (its C function, ptxas' report)."""
-    d = tmp / tag
-    d.mkdir(parents=True)
-    for name in ("march_slab.cuh", src):
-        (d / name).write_text((csrc / name).read_text())
-    so = d / "lib.so"
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(d / src)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {tag}:\n{proc.stdout}{proc.stderr}")
-    name = "vrt_" + src[:-3]
-    fn = getattr(ctypes.CDLL(str(so)), name)
-    fn.argtypes, fn.restype = _build._SIGNATURES[name], ctypes.c_int
-    return fn, _ptxas(proc.stdout + proc.stderr)
-
-
-def _events(torch, fn, reps=5) -> float:
-    """Mean ms of ``fn`` over ``reps`` calls after one warm-up, CUDA events."""
-    fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def _kernels(packed, ior, pos, dirs, coh_pos, coh_dirs, first: bool, against: Path = None) -> dict:
@@ -213,6 +147,7 @@ def _kernels(packed, ior, pos, dirs, coh_pos, coh_dirs, first: bool, against: Pa
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field
     from volumeraytracer_tpu_torch.parallel import bricks
 
+    timed = toolkit.device_timed
     dev = pos.device
     xs = int(packed.shape[0])
     slab = bricks._packed_slab(packed, 0, xs, dev)
@@ -230,63 +165,54 @@ def _kernels(packed, ior, pos, dirs, coh_pos, coh_dirs, first: bool, against: Pa
         gen = torch.Generator(device=dev).manual_seed(18)
         d_pos, d_dir = (torch.randn((n, 3), generator=gen, device=dev) for _ in range(2))
         bwd = ms.slab_window_bwd_cuda(tslab, st, tend[2], *args, TRAIN["k_steps"], d_pos, d_dir)
-        digests[rays] = {"s1": _digest(*end), "s2": _digest(bwd[0], bwd[1])}
+        digests[rays] = {"s1": toolkit.digest(*end), "s2": toolkit.digest(bwd[0], bwd[1])}
         steps = int((st[2] - tend[2]).sum())
         s1 = lambda st=st: ms.slab_window_cuda(slab, st, *args, TRACE["k_steps"])  # noqa: E731
         r = {"s1_steps": int((st[2] - end[2]).sum()), "s2_steps": steps, "s2_stash_bytes": 48 * steps,
-             "s1_ms": _events(torch, s1),
-             "s2_zeroing_ms": _events(torch, lambda: ms.slab_window_bwd_cuda(tslab, st, tend[2], *args,
-                                                                             TRAIN["k_steps"], d_pos, d_dir))}
+             "s1_ms": timed(s1, 5),
+             "s2_zeroing_ms": timed(lambda: ms.slab_window_bwd_cuda(tslab, st, tend[2], *args, TRAIN["k_steps"],
+                                                                    d_pos, d_dir), 5)}
         if given:
             s2 = lambda st=st, e=tend[2], a=d_pos, b=d_dir, g=bwd[2]: ms.slab_window_bwd_cuda(  # noqa: E731
                 tslab, st, e, *args, TRAIN["k_steps"], a, b, d_slab=g)
-            r["s2_ms"] = _events(torch, s2)
-            calls[rays] = {"march_slab_fwd.cu": (s1, lambda got: _digest(*got), "s1"),
-                           "march_slab_bwd.cu": (s2, lambda got: _digest(got[0], got[1]), "s2")}
+            r["s2_ms"] = timed(s2, 5)
+            calls[rays] = {"march_slab_fwd.cu": (s1, lambda got: toolkit.digest(*got), "s1"),
+                           "march_slab_bwd.cu": (s2, lambda got: toolkit.digest(got[0], got[1]), "s2")}
         out[rays] = r
         del end, tend
     if first:
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
-        csrc = Path(_build.__file__).parent / "csrc"
-        out["ptxas"] = {src: _build_alone(_build, tmp, src[:-3], csrc, src)[1]
-                        for src in ("march_slab_fwd.cu", "march_slab_bwd.cu")}
+        out["ptxas"] = {src: toolkit.build_variant(src).ptxas.get(src[:-3]) for src in SLAB_SOURCES}
     if against is not None:
-        out["pairs"] = _pairs(torch, _build, tmp, against, calls, digests)
-    out["zero_ms"] = _events(torch, lambda: torch.zeros_like(tslab))
+        out["pairs"] = _pairs(against, calls, digests)
+    out["zero_ms"] = timed(lambda: torch.zeros_like(tslab), 5)
     acc, one = torch.zeros_like(tslab), torch.ones_like(tslab)
-    out["add_ms"] = _events(torch, lambda: acc.add_(one))
+    out["add_ms"] = timed(lambda: acc.add_(one), 5)
     out["stash"] = stash
     out["digests"] = digests
     return out
 
 
-def _pairs(torch, _build, tmp: Path, against: Path, calls: dict, digests: dict) -> dict:
+def _pairs(against: Path, calls: dict, digests: dict) -> dict:
     """S1 and S2 of the checkout ``against``, built alone, timed in PAIRS
     alternating pairs with this version's (the pair's order swapped every
-    pair), each reading ``_events``' mean of 5 calls, over both ray sets;
-    each call of either version must give this version's S1 end state, or
-    S2's d pos0 and d dir0, bit for bit.  Returns each side's readings."""
-    from volumeraytracer_tpu_torch.probes.probe_fwd import _Swap
-
-    base = _build.load()
+    pair), each reading ``device_timed``'s mean of 5 calls, over both ray
+    sets; each call of either version must give this version's S1 end
+    state, or S2's d pos0 and d dir0, bit for bit.  Returns each side's
+    readings."""
     csrc = against / "volumeraytracer_tpu_torch" / "kernels" / "csrc"
     out = {}
-    for src in ("march_slab_fwd.cu", "march_slab_bwd.cu"):
-        fn, report = _build_alone(_build, tmp, "parent_" + src[:-3], csrc, src)
-        libs = {"parent": _Swap(base, {"vrt_" + src[:-3]: fn}), "change": base}
-        res = out[src] = {"parent_ptxas": report}
+    for src in SLAB_SOURCES:
+        parent = toolkit.build_variant(csrc / src)
+        swaps = {"parent": {"vrt_" + src[:-3]: parent.fn("vrt_" + src[:-3])}, "change": {}}
+        res = out[src] = {"parent_ptxas": parent.ptxas.get(src[:-3])}
         for rays, by_src in calls.items():
             call, digest, key = by_src[src]
             times = res[rays] = {"parent": [], "change": []}
             for k in range(PAIRS):
                 for side in (("parent", "change") if k % 2 == 0 else ("change", "parent")):
-                    _build._lib = libs[side]
-                    try:
-                        times[side].append(_events(torch, call))
+                    with toolkit.swapped(swaps[side]):
+                        times[side].append(toolkit.device_timed(call, 5))
                         same = digest(call())
-                    finally:
-                        _build._lib = base
                     if same != digests[rays][key]:
                         raise SystemExit(f"probe_bricks: the {side}'s {key} differs on the {rays} rays")
     return out
@@ -304,26 +230,19 @@ def _inputs(tmp: Path, grid: int, n_rays: int) -> None:
     ranks map) and rays, with the train step's targets (2 voxels past each
     ray's end through the whole field, plain) and lr (1e-2 / max|g| of the
     whole field's gradient), from this checkout."""
-    sys.path.insert(0, str(REPO))
     import numpy as np
+
+    toolkit.program(toolkit.REPO)
     import torch
 
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field
     from volumeraytracer_tpu_torch.parallel import endpoint_render
-    from volumeraytracer_tpu_torch.workloads import build_scattered_rays
 
     dev = torch.device("cuda", 0)
-    side = 362
-    ys = np.linspace(8.0, grid - 8.0, side, dtype=np.float32)
-    yy, zz = np.meshgrid(ys, ys, indexing="ij")
-    coh_pos = np.stack([np.full(side * side, 2.0, np.float32), yy.ravel(), zz.ravel()], axis=-1)
-    coh_dirs = np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (side * side, 1))
-    ax = np.linspace(-1.0, 1.0, grid, dtype=np.float32)
-    x, y, z = np.meshgrid(ax, ax, ax, indexing="ij")
-    ior_np = 1.0 + 0.5 * np.exp(-4.0 * (x * x + y * y + z * z), dtype=np.float32)
-    del x, y, z
+    coh_pos, coh_dirs = toolkit.bench_rays(grid=grid)
+    ior_np = toolkit.lens_field(grid)
     ior = torch.from_numpy(ior_np).to(dev)
-    pos_np, dirs_np = build_scattered_rays(n_rays, grid=grid, seed=0)
+    pos_np, dirs_np = toolkit.build_scattered_rays(n_rays, grid=grid, seed=0)
     pos, dirs = torch.from_numpy(pos_np).to(dev), torch.from_numpy(dirs_np / 16.0).to(dev)
     with torch.no_grad():
         ends, _ = endpoint_render(ior, pos, dirs, TRAIN["budget"], INV, TRAIN["k_steps"], kernel="plain")
@@ -335,7 +254,7 @@ def _inputs(tmp: Path, grid: int, n_rays: int) -> None:
     np.save(tmp / "ior.npy", ior_np)
     np.save(tmp / "packed.npy", build_packed_field(ior).cpu().numpy())
     torch.save({"pos": pos.cpu(), "dirs": dirs.cpu(), "targets": targets.cpu(), "lr": lr,
-                "coh_pos": torch.from_numpy(coh_pos), "coh_dirs": torch.from_numpy(coh_dirs)}, tmp / "in.pt")
+                "coh_pos": torch.from_numpy(coh_pos), "coh_dirs": torch.from_numpy(coh_dirs / 16.0)}, tmp / "in.pt")
 
 
 def _load(tmp: Path, dev, packed_on_card: bool):
@@ -350,9 +269,9 @@ def _load(tmp: Path, dev, packed_on_card: bool):
 
 
 def worker(rank: int, world: int, coordinator: str, root: Path, tmp: Path, mode: str) -> None:
-    """One rank of a 20b or 20c group, importing the package from ``root``;
+    """One rank of a 20b or 20c group, importing the program from ``root``;
     its results go to ``tmp/out_MODE_WORLD_RANK.json``."""
-    sys.path.insert(0, str(root))
+    toolkit.program(root)
     import torch
     import torch.distributed as dist
 
@@ -368,9 +287,9 @@ def worker(rank: int, world: int, coordinator: str, root: Path, tmp: Path, mode:
 
 
 def _group(root: Path, tmp: Path, world: int, mode: str, timeout: float = 900.0) -> list:
-    coordinator = f"127.0.0.1:{_free_port()}"
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--worker", str(r), str(world),
-                               coordinator, str(root), str(tmp), mode], stdout=subprocess.PIPE,
+    coordinator = f"127.0.0.1:{toolkit.free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-m", __spec__.name, "--worker", str(r), str(world), coordinator,
+                               str(root), str(tmp), mode], cwd=str(toolkit.REPO), stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(world)]
     deadline = time.monotonic() + timeout
     try:
@@ -390,7 +309,6 @@ def _group(root: Path, tmp: Path, world: int, mode: str, timeout: float = 900.0)
 
 
 def child(root: Path, tmp: Path, first: bool, against: Path = None) -> dict:
-    sys.path.insert(0, str(root))
     import torch
     import torch.distributed as dist
 
@@ -403,19 +321,21 @@ def child(root: Path, tmp: Path, first: bool, against: Path = None) -> dict:
     dist.destroy_process_group()
     torch.cuda.empty_cache()
     data = torch.load(tmp / "in.pt")
-    res["kernels"] = _kernels(*loaded[:4], data["coh_pos"].to(dev), data["coh_dirs"].to(dev), first,
-                              against)
+    res["kernels"] = _kernels(*loaded[:4], data["coh_pos"].to(dev), data["coh_dirs"].to(dev), first, against)
     del loaded
     torch.cuda.empty_cache()
     for world, mode in GROUPS:
         res[f"{mode}_{world}"] = _group(root, tmp, world, mode)
+    groups = {k: res[k] if isinstance(res[k], list) else [res[k]] for k in RUN_KEYS}
+    res["trace_digests"] = {k: [o["trace_digest"] for o in outs] for k, outs in groups.items()}
+    res["losses"] = [o["loss"] for _, outs in sorted(groups.items()) for o in outs]
+    res["kernel_digests"] = res["kernels"]["digests"]
     return res
 
 
 def _print(label: str, res: dict, card: str) -> None:
-    for key, outs in res.items():
-        if key in ("label", "kernels"):
-            continue
+    for key in RUN_KEYS:
+        outs = res[key]
         for r, o in enumerate(outs if isinstance(outs, list) else [outs]):
             print(f"probe_bricks {label} {key} rank {r}: trace {[round(x, 2) for x in o['trace_ms']]} ms "
                   f"({o['trace_windows']} windows, {o['trace_mem_gib']:.3f} GiB), train step "
@@ -442,80 +362,40 @@ def _print(label: str, res: dict, card: str) -> None:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap = toolkit.parser(__doc__)
     ap.add_argument("--grid", type=int, default=512)
     ap.add_argument("--rays", type=int, default=131072)
-    ap.add_argument("--parent", type=Path, help="another checkout of the repository, timed in turns with this one")
-    ap.add_argument("--out", type=Path)
-    ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--tmp", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--first", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--against", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--inputs", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--worker", nargs=6, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker is not None:
         rank, world, coordinator, root, tmp, mode = args.worker
         worker(int(rank), int(world), coordinator, Path(root), Path(tmp), mode)
         return
+    if args.inputs is not None:
+        _inputs(args.inputs, args.grid, args.rays)
+        return
     if args.child is not None:
+        toolkit.program(args.child)
         print(json.dumps(child(args.child, args.tmp, args.first, args.against)))
         return
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("probe_bricks: no CUDA device")
-    if args.parent is not None and not (args.parent / "volumeraytracer_tpu_torch").is_dir():
-        raise SystemExit("--parent must name a checkout that holds volumeraytracer_tpu_torch/")
-    card = _card()
-    print(card)
-    with tempfile.TemporaryDirectory() as tmpdir:
-        tmp = Path(tmpdir)
-        subprocess.run([sys.executable, "-c", f"import sys; sys.path.insert(0, {str(REPO)!r}); "
-                        f"from volumeraytracer_tpu_torch.probes.probe_bricks import _inputs; "
-                        f"from pathlib import Path; _inputs(Path({tmpdir!r}), {args.grid}, {args.rays})"],
-                       check=True, cwd=str(REPO))
-
-        def run_child(label, root, *flags):
-            cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root.resolve()), "--tmp", tmpdir,
-                   *flags]
-            proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(REPO), timeout=1800,
-                                  env={**os.environ, "PYTHONDONTWRITEBYTECODE": "1"})
-            if proc.returncode != 0:
-                sys.stderr.write(proc.stdout[-5000:] + proc.stderr[-20000:])
-                raise SystemExit(f"probe_bricks: the {label} child failed ({proc.returncode})")
-            res = json.loads(proc.stdout.strip().splitlines()[-1])
-            res["label"] = label
-            _print(label, res, card)
-            return res
-
-        if args.parent is None:
-            runs = [run_child("change", REPO, "--first")]
-        else:
-            runs = [run_child("parent", args.parent, "--first"),
-                    run_child("change", REPO, "--first", "--against", str(args.parent.resolve())),
-                    run_child("change", REPO), run_child("parent", args.parent)]
-
-    def traces(r):
-        return {k: [o["trace_digest"] for o in (v if isinstance(v, list) else [v])] for k, v in r.items()
-                if k not in ("label", "kernels")}
-
-    def losses(r):
-        return [o["loss"] for k, v in sorted(r.items()) if k not in ("label", "kernels")
-                for o in (v if isinstance(v, list) else [v])]
-
-    if any(traces(r) != traces(runs[0]) for r in runs):
-        raise SystemExit(f"probe_bricks: the traces differ between versions or runs: {[traces(r) for r in runs]}")
-    if any(r["kernels"]["digests"] != runs[0]["kernels"]["digests"] for r in runs):
-        raise SystemExit("probe_bricks: S1's end states or S2's d pos0, d dir0 differ between versions or runs: "
-                         f"{[r['kernels']['digests'] for r in runs]}")
-    ref = losses(runs[0])
-    if any(abs(a - b) > 1e-5 * abs(b) for r in runs for a, b in zip(losses(r), ref)):
-        raise SystemExit(f"probe_bricks: first losses differ beyond rtol 1e-5: {[losses(r) for r in runs]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        # the inputs, from this checkout, in a process of their own that
+        # hands the card back before the children start
+        subprocess.run([sys.executable, "-m", __spec__.name, "--inputs", tmp, "--grid", str(args.grid), "--rays",
+                        str(args.rays)], check=True, cwd=str(toolkit.REPO))
+        against = () if args.parent is None else ("--against", str(args.parent.resolve()))
+        line, runs = toolkit.in_turns(__spec__.name, args.parent, flags=("--tmp", tmp), first=("--first", *against),
+                                      parent_first=("--first",), digests=("trace_digests", "kernel_digests"),
+                                      show=_print, out=args.out)
+    ref = runs[0]["losses"]
+    if any(abs(a - b) > 1e-5 * abs(b) for r in runs for a, b in zip(r["losses"], ref)):
+        raise SystemExit(f"probe_bricks: first losses differ beyond rtol 1e-5: {[r['losses'] for r in runs]}")
     print(f"probe_bricks traces, S1's end states and S2's d pos0, d dir0 equal and first losses within rtol 1e-5 "
-          f"across {len(runs)} runs [{card}]")
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
+          f"across {len(runs)} runs [{line}]")
 
 
 if __name__ == "__main__":

@@ -3,17 +3,17 @@
 is built by P1 and differentiated by P2, for this checkout and, with
 ``--parent``, another one in turns.
 
-    python3 -m volumeraytracer_tpu_torch.probes.probe_fields [--parent DIR] [--kernels-only] [--out FILE.json]
+    python3 -m probes.probe_fields [--parent DIR] [--kernels-only] [--out FILE.json]
 
 ``DIR`` holds another checkout of the repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
 lists).  With ``--parent``, one child process per version runs in the
-order parent, this checkout, this checkout, parent; without it, one child
-of this checkout.  Each child imports ``volumeraytracer_tpu_torch`` from
+order parent, this checkout, this checkout, parent (``toolkit.in_turns``);
+without it, one child of this checkout.  Each child imports ``volumeraytracer_tpu_torch`` from
 its own root and times five calls, each ending in a sync:
 
 - ``line``: the line train step at the bench (``chip_smoke.py``'s
-  ``train_step``: ``endpoint_render`` of the 256³ lens, 362² rays, budget
+  ``train_step``, on ``toolkit``'s inputs: ``endpoint_render`` of the 256³ lens, 362² rays, budget
   512, the loss Σ end y, backward, SGD);
 - ``points``: the same with ``layout="points"``;
 - ``camera``: ``image_loss``'s value and gradient to the index, σ and the
@@ -27,11 +27,11 @@ its own root and times five calls, each ending in a sync:
 For each: the host clock of ``REPS`` calls after a warm-up, the peak of
 ``max_memory_allocated`` above the call's start, the first call's loss,
 and ``torch.profiler``'s device time by operation, busy share and host
-time (``probe_fixed._profile``).  Fails unless each call's first loss is
+time (``toolkit.profile``).  Fails unless each call's first loss is
 within rtol 1e-5 of the first child's.
 
-Then P1 and P2 alone (``_kernel_times``, CUDA events over ``KERNEL_REPS``
-launches after a warm-up) at the bench's 256³ lens and at phase 20a's
+Then P1 and P2 alone (``_kernel_times``, CUDA events behind a spin over
+``KERNEL_REPS`` launches after a warm-up) at the bench's 256³ lens and at phase 20a's
 512³ slab: P1, and P2 under a seeded normal cotangent (dense), the same
 with nine voxels in ten zeroed (sparse), zeros, the cotangent that the
 line step (at 256³) or the brick step (at the slab) handed P2, and that
@@ -65,15 +65,11 @@ everything to ``--out`` as JSON.  Needs one CUDA device.
 
 from __future__ import annotations
 
-import argparse
 import json
-import os
-import subprocess
-import sys
 import time
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parents[2]
+from probes import toolkit
+
 #: timed calls of each after the warm-up
 REPS = 5
 CALLS = ("line", "points", "camera", "bricks", "fit")
@@ -86,27 +82,22 @@ SAMPLE_RAYS = ("camera", "coherent", "scattered")
 SAMPLE_SIDE = 1024
 
 
-def _card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def _calls(sm, torch, dev) -> dict:
+def _calls(torch, dev) -> dict:
     """The five calls, each a function that returns its loss."""
     import numpy as np
 
     from volumeraytracer_tpu_torch import PinholeCamera, endpoint_render, fit_field_image, image_loss, render_image
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field
     from volumeraytracer_tpu_torch.parallel import bricks, make_mesh
-    from volumeraytracer_tpu_torch.workloads import build_scattered_rays
 
-    lens = sm.lens_field()
+
+    lens = toolkit.lens_field()
     ior = torch.from_numpy(lens).to(dev)
-    pos, dirs = (torch.from_numpy(a).to(dev) for a in sm.bench_rays())
+    pos, dirs = (torch.from_numpy(a).to(dev) for a in toolkit.bench_rays())
 
     def train_step(leaf, layout):
         leaf.grad = None
-        end_pos, _ = endpoint_render(leaf, pos, dirs, sm.BUDGET, sm.INV, 64, kernel="auto", layout=layout)
+        end_pos, _ = endpoint_render(leaf, pos, dirs, toolkit.BUDGET, toolkit.INV, 64, kernel="auto", layout=layout)
         loss = end_pos[:, 1].sum()
         loss.backward()
         with torch.no_grad():
@@ -117,12 +108,12 @@ def _calls(sm, torch, dev) -> dict:
     point_leaf = ior.clone().requires_grad_(True)
 
     n = lens.shape[0]
-    blob = torch.from_numpy(sm.blob_field(n - 2)).to(dev)
+    blob = torch.from_numpy(toolkit.blob_field(n - 2)).to(dev)
     sigma, e = 0.3 * blob, 2.0 * blob
     emission = torch.stack([e, 0.5 * e, 0.0 * e], dim=-1)
     cam = PinholeCamera(origin=(1.5, n / 2, n / 2), forward=(1.0, 0.0, 0.0), up=(0.0, 0.0, 1.0), width=1024,
                         height=1024, fov=0.45, speed=0.5)
-    rkw = dict(budget=sm.BUDGET, invscale=sm.INV, sigma=sigma, emission=emission, background=(0.1, 0.05, 0.0))
+    rkw = dict(budget=toolkit.BUDGET, invscale=toolkit.INV, sigma=sigma, emission=emission, background=(0.1, 0.05, 0.0))
     ax = np.linspace(-1.0, 1.0, n, dtype=np.float32)
     xx, yy, zz = np.meshgrid(ax, ax, ax, indexing="ij")
     true_ior = torch.from_numpy(1.0 + 0.55 * np.exp(-4.0 * (xx * xx + yy * yy + zz * zz))).to(dev)
@@ -135,7 +126,7 @@ def _calls(sm, torch, dev) -> dict:
     def camera():
         for leaf in leaves:
             leaf.grad = None
-        loss = image_loss(leaves[0], cam, target, budget=sm.BUDGET, invscale=sm.INV, sigma=leaves[1],
+        loss = image_loss(leaves[0], cam, target, budget=toolkit.BUDGET, invscale=toolkit.INV, sigma=leaves[1],
                           emission=leaves[2], background=rkw["background"])
         loss.backward()
         return loss
@@ -143,16 +134,16 @@ def _calls(sm, torch, dev) -> dict:
     def fit():
         return fit_field_image(ior, cam, target, steps=1, learning_rate=1e-3, device=dev, **rkw).losses[0]
 
-    grid = sm.P20_GRID
-    big = torch.from_numpy(sm.lens_field(grid)).to(dev)
-    bpos, bdirs = build_scattered_rays(sm.P20_RAYS, grid=grid, seed=0)
+    grid = toolkit.P20_GRID
+    big = torch.from_numpy(toolkit.lens_field(grid)).to(dev)
+    bpos, bdirs = toolkit.build_scattered_rays(toolkit.P20_RAYS, grid=grid, seed=0)
     bpos, bdirs = torch.from_numpy(bpos).to(dev), torch.from_numpy(bdirs / 16.0).to(dev)
     targets = bpos + torch.tensor([2.0, 0.0, 0.0], device=dev)
     mesh = make_mesh(axis="bricks")
     slab = bricks.shard_slabs(mesh, bricks.build_ior_slabs(big, 1)[0])
     del big
-    step = bricks.make_brick_train_step(mesh, grid - 2, budget=sm.P20_TRAIN["budget"], invscale=sm.INV,
-                                        k_steps=sm.P20_TRAIN["k_steps"], lr=1e-6)
+    step = bricks.make_brick_train_step(mesh, grid - 2, budget=toolkit.P20_TRAIN["budget"], invscale=toolkit.INV,
+                                        k_steps=toolkit.P20_TRAIN["k_steps"], lr=1e-6)
     return {
         "line": lambda: train_step(line_leaf, None),
         "points": lambda: train_step(point_leaf, "points"),
@@ -162,7 +153,7 @@ def _calls(sm, torch, dev) -> dict:
     }
 
 
-def _kernel_times(sm, torch, dev, step_cot: dict) -> dict:
+def _kernel_times(torch, dev, step_cot: dict) -> dict:
     """P1's and P2's times in ms (module doc) at the 256³ lens ("256") and
     the 512³ slab ("slab"); ``step_cot`` maps those names to the cotangent
     a train step handed P2."""
@@ -171,15 +162,16 @@ def _kernel_times(sm, torch, dev, step_cot: dict) -> dict:
     from volumeraytracer_tpu_torch.ops.fields import TRANSPARENT, build_packed_field
     from volumeraytracer_tpu_torch.parallel import bricks
 
+
     def timed(fn):
-        return _timed(torch, fn)
+        return toolkit.device_timed(fn, KERNEL_REPS)
 
     out = {}
     for name in ("256", "slab"):
         if name == "256":
-            ior = torch.from_numpy(sm.lens_field()).to(dev)
+            ior = torch.from_numpy(toolkit.lens_field()).to(dev)
         else:
-            ior = bricks.build_ior_slabs(torch.from_numpy(sm.lens_field(sm.P20_GRID)).to(dev), 1)[0][0]
+            ior = bricks.build_ior_slabs(torch.from_numpy(toolkit.lens_field(toolkit.P20_GRID)).to(dev), 1)[0][0]
         shape = tuple(int(n) - 2 for n in ior.shape) + (4,)
         gen = torch.Generator(device=dev).manual_seed(20)
         dense = torch.randn(shape, generator=gen, device=dev)
@@ -210,19 +202,6 @@ def _kernel_times(sm, torch, dev, step_cot: dict) -> dict:
     return out
 
 
-def _timed(torch, fn, reps=KERNEL_REPS) -> float:
-    """ms a call of ``fn`` by CUDA events over ``reps`` calls after one."""
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def _sample_rays(torch, dev, kind: str, grid: int):
     """(positions, directions) of a ray set of ``SAMPLE_SIDE``² rays (module doc)."""
     from volumeraytracer_tpu_torch import PinholeCamera
@@ -250,46 +229,7 @@ def _sample_rays(torch, dev, kind: str, grid: int):
 N2_WARP_SUM = "if (__match_any_sync(FULL, valid ? c.base : -1) == FULL && valid) {"
 
 
-def _n2_build(_build, name: str, defines=(), ungrouped: bool = False):
-    """N2 built alone with ``defines`` (and, where ``ungrouped``, with no
-    warp's sums, so that each ray sends its own 8 atomics): its
-    ``vrt_start_sample_bwd`` and the library."""
-    import ctypes
-    import tempfile
-
-    from volumeraytracer_tpu_torch.probes.probe_render import build_source
-
-    text = (Path(_build.__file__).parent / "csrc" / "start_sample.cu").read_text()
-    if ungrouped:
-        if N2_WARP_SUM not in text:
-            raise SystemExit("probe_fields: N2's source no longer holds the line that sums a warp's rays")
-        text = text.replace(N2_WARP_SUM, "if (false) {")
-    lib, _ = build_source(_build, text, Path(tempfile.mkdtemp(dir=_build.BUILD_DIR)) / f"{name}.so", defines)
-    fn = lib.vrt_start_sample_bwd
-    fn.argtypes, fn.restype = _build._SIGNATURES["vrt_start_sample_bwd"], ctypes.c_int
-    return fn, lib
-
-
-def _counting_n2(_build):
-    """N2 built with ``VRT_COUNT_ATOMICS``: (its ``vrt_start_sample_bwd``, a
-    function that returns the atomics of its launches since the last call)."""
-    import ctypes
-
-    from volumeraytracer_tpu_torch.probes.probe_render import COUNTING
-
-    fn, lib = _n2_build(_build, "counting", (COUNTING,))
-    lib.vrt_start_sample_atomics.argtypes, lib.vrt_start_sample_atomics.restype = (ctypes.c_void_p,), ctypes.c_int
-
-    def read() -> int:
-        v = ctypes.c_ulonglong(0)
-        _build.check(lib.vrt_start_sample_atomics(ctypes.byref(v)), "start_sample_atomics")
-        return int(v.value)
-
-    read()
-    return fn, read
-
-
-def _sample_times(sm, torch, dev) -> dict:
+def _sample_times(torch, dev) -> dict:
     """The start sample's times, checks and atomics share by ray set
     (module doc)."""
     from volumeraytracer_tpu_torch.kernels import _build
@@ -300,14 +240,15 @@ def _sample_times(sm, torch, dev) -> dict:
         from volumeraytracer_tpu_torch.kernels import start_sample as ss
 
         sample, plain = interp.start_sample, interp.start_sample_plain
-        count_fn, count_read = _counting_n2(_build)
-        ungrouped_fn, _ = _n2_build(_build, "ungrouped", ungrouped=True)
+        count_fn, count_read = toolkit.counting("start_sample.cu", "vrt_start_sample_bwd", "vrt_start_sample_atomics")
+        ungrouped_fn = toolkit.build_variant("start_sample.cu", [(N2_WARP_SUM, "if (false) {")]).fn(
+            "vrt_start_sample_bwd")
     else:
         def sample(ior, positions, directions):
             p = positions - 0.5
             return p - 0.5, directions * interp.interp_linear(ior, p)[..., None]
 
-    lens = sm.lens_field()
+    lens = toolkit.lens_field()
     ior = torch.from_numpy(lens).to(dev)
     leaf = ior.clone().requires_grad_(True)
     out = {}
@@ -322,11 +263,11 @@ def _sample_times(sm, torch, dev) -> dict:
         def fwd_bwd():
             torch.autograd.grad(sample(leaf, pos, dirs)[1], leaf, g)
 
-        res = {"fwd": _timed(torch, fwd), "fwd_bwd": _timed(torch, fwd_bwd)}
+        res = {"fwd": toolkit.device_timed(fwd), "fwd_bwd": toolkit.device_timed(fwd_bwd)}
         if has_kernels:
             n = pos.shape[0]
-            res["n1"] = _timed(torch, lambda: ss.start_sample_cuda(ior, pos, dirs))
-            res["n2"] = _timed(torch, lambda: ss.start_sample_bwd_cuda(ior, pos, dirs, None, g, False, False))
+            res["n1"] = toolkit.device_timed(lambda: ss.start_sample_cuda(ior, pos, dirs))
+            res["n2"] = toolkit.device_timed(lambda: ss.start_sample_bwd_cuda(ior, pos, dirs, None, g, False, False))
             got, ref = ss.start_sample_cuda(ior, pos, dirs), plain(ior, pos, dirs)
             res["n1_equal"] = bool(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
             d_kernel = torch.autograd.grad(sample(leaf, pos, dirs)[1], leaf, g)[0]
@@ -351,7 +292,7 @@ def _sample_times(sm, torch, dev) -> dict:
             n2_build(count_fn)
             torch.cuda.synchronize()
             res["atomics_share"] = count_read() / (8.0 * n)
-            res["n2_ungrouped"] = _timed(torch, lambda: n2_build(ungrouped_fn))
+            res["n2_ungrouped"] = toolkit.device_timed(lambda: n2_build(ungrouped_fn))
             res["n2_ungrouped_gap_f64"] = float((n2_build(ungrouped_fn).double() - d64).abs().max()) / top
             del d_kernel, d_plain, d64, leaf64
             if not res["n1_equal"] or res["n2_gap_f64"] > 1e-3:
@@ -361,24 +302,18 @@ def _sample_times(sm, torch, dev) -> dict:
     return out
 
 
-def child(root: Path, kernels_only: bool) -> dict:
-    sys.path.insert(0, str(root))
+def child(kernels_only: bool) -> dict:
     import torch
     import torch.distributed as dist
 
     from volumeraytracer_tpu_torch.kernels import _build
     from volumeraytracer_tpu_torch.kernels import pack_field as pf
-    from volumeraytracer_tpu_torch.probes.probe_fixed import _profile
-    from volumeraytracer_tpu_torch.probes.probe_k4k6 import _smoke
 
-    if not Path(_build.__file__).resolve().is_relative_to(root.resolve()):
-        raise SystemExit(f"probe_fields: imported {_build.__file__}, not from {root}")
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
     t0 = time.perf_counter()
     _build.load()
     out = {"build_s": time.perf_counter() - t0}
-    sm = _smoke()
     bwd, step_cot = pf.pack_field_bwd_cuda, {}
 
     def keep_cotangent(name):
@@ -388,7 +323,7 @@ def child(root: Path, kernels_only: bool) -> dict:
             return bwd(ior, d_packed)
         return wrapper
 
-    for name, fn in ({} if kernels_only else _calls(sm, torch, dev)).items():
+    for name, fn in ({} if kernels_only else _calls(torch, dev)).items():
         sync()
         _build.launches.clear()
         base = torch.cuda.memory_allocated()
@@ -405,7 +340,7 @@ def child(root: Path, kernels_only: bool) -> dict:
             sync()
             times.append((time.perf_counter() - t0) * 1e3)
         res["ms"] = times
-        res["profile"] = _profile(torch, fn, reps=3)
+        res["profile"] = toolkit.profile(fn, reps=3)
         out[name] = res
         if name in STEP_COTANGENTS:  # one more call, to keep its cotangent into P2
             pf.pack_field_bwd_cuda = keep_cotangent(name)
@@ -415,12 +350,10 @@ def child(root: Path, kernels_only: bool) -> dict:
                 pf.pack_field_bwd_cuda = bwd
     if dist.is_initialized():
         dist.destroy_process_group()
-    out["kernels"] = _kernel_times(sm, torch, dev, step_cot)
-    out["sample"] = _sample_times(sm, torch, dev)
+    out["kernels"] = _kernel_times(torch, dev, step_cot)
+    out["sample"] = _sample_times(torch, dev)
     if _build.build_log:
-        from volumeraytracer_tpu_torch.probes.probe_k4k6 import ptxas_by_kernel
-
-        out["ptxas"] = {k: v for k, v in ptxas_by_kernel(_build.build_log).items() if k.startswith("start_sample")}
+        out["ptxas"] = {k: v for k, v in toolkit.ptxas(_build.build_log).items() if k.startswith("start_sample")}
     return out
 
 
@@ -438,51 +371,24 @@ def _print(label: str, res: dict, card: str) -> None:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", type=Path, help="another checkout of the repository, timed in turns with this one")
+    ap = toolkit.parser(__doc__)
     ap.add_argument("--kernels-only", action="store_true",
                     help="time P1, P2 and the start sample alone, not the five calls")
-    ap.add_argument("--out", type=Path)
-    ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        print(json.dumps(child(args.child, args.kernels_only)))
+        toolkit.program(args.child)
+        print(json.dumps(child(args.kernels_only)))
         return
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("probe_fields: no CUDA device")
-    if args.parent is not None and not (args.parent / "volumeraytracer_tpu_torch").is_dir():
-        raise SystemExit("--parent must name a checkout that holds volumeraytracer_tpu_torch/")
-    card = _card()
-    print(card)
-
-    def run_child(label, root):
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root.resolve()),
-               *(["--kernels-only"] if args.kernels_only else [])]
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(REPO), timeout=1200,
-                              env={**os.environ, "PYTHONDONTWRITEBYTECODE": "1"})
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stdout[-5000:] + proc.stderr[-20000:])
-            raise SystemExit(f"probe_fields: the {label} child failed ({proc.returncode})")
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        res["label"] = label
-        _print(label, res, card)
-        return res
-
-    if args.parent is None:
-        runs = [run_child("change", REPO)]
-    else:
-        runs = [run_child("parent", args.parent), run_child("change", REPO), run_child("change", REPO),
-                run_child("parent", args.parent)]
+    line, runs = toolkit.in_turns(__spec__.name, args.parent, flags=("--kernels-only",) if args.kernels_only else (),
+                                  show=_print, out=args.out)
     for field in ("256", "slab"):
         for key in runs[0]["kernels"][field]:
             row = " ".join(f"{r['label']} {r['kernels'][field].get(key, float('nan')):.4f}" for r in runs)
-            print(f"probe_fields kernels {field} {key}: {row} [{card}]")
+            print(f"probe_fields kernels {field} {key}: {row} [{line}]")
     for kind in SAMPLE_RAYS:
         for key in sorted({k for r in runs for k in r["sample"][kind]}):
             row = " ".join(f"{r['label']} {r['sample'][kind].get(key, float('nan')):.6g}" for r in runs)
-            print(f"probe_fields sample {kind} {key}: {row} [{card}]")
+            print(f"probe_fields sample {kind} {key}: {row} [{line}]")
     for r in runs:
         if r.get("ptxas"):
             print(f"probe_fields ptxas ({r['label']}): {r['ptxas']}")
@@ -492,10 +398,7 @@ def main() -> None:
         if any(abs(x - ref) > 1e-5 * abs(ref) for x in losses):
             raise SystemExit(f"probe_fields: {name}'s first losses differ beyond rtol 1e-5: {losses}")
     if not args.kernels_only:
-        print(f"probe_fields first losses within rtol 1e-5 across {len(runs)} runs [{card}]")
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
+        print(f"probe_fields first losses within rtol 1e-5 across {len(runs)} runs [{line}]")
 
 
 if __name__ == "__main__":

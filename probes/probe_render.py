@@ -4,15 +4,15 @@ them, at phase 17's size of ``chip_smoke.py`` (one 1024² camera of BASELINE
 config 3 through the 256³ lens, σ and a 3-channel emission, budget 512),
 for this checkout and, with ``--parent``, another one in turns.
 
-    python3 -m volumeraytracer_tpu_torch.probes.probe_render [--parent DIR] [--width 1024] [--out FILE.json]
+    python3 -m probes.probe_render [--parent DIR] [--width 1024] [--out FILE.json]
 
 ``DIR`` holds another checkout of the repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that .gitignore
 lists).  With it, one child process per version runs in the order parent,
-this checkout, this checkout, parent; without it, one child of this
-checkout.  Each child imports ``volumeraytracer_tpu_torch`` from its own
-root, builds that version's kernels and records, with CUDA events after a
-warm-up (a host clock where the call ends on the host):
+this checkout, this checkout, parent (``toolkit.in_turns``); without it,
+one child of this checkout.  Each child imports ``volumeraytracer_tpu_torch`` from its own
+root, builds that version's kernels and records, with CUDA events behind
+a spin after a warm-up (a host clock where the call ends on the host):
 
 - R1 alone (``render_cuda``) and R2 alone (``render_bwd_cuda``, seeded
   cotangents, the zeroing of its gradient fields included) with each set
@@ -33,7 +33,7 @@ warm-up (a host clock where the call ends on the host):
 - the registers, shared memory and spills that ptxas reports for each
   instantiation of R1 and R2 (the child that builds a version's library),
   and the SASS loops of R1's σ-and-3-channel instantiation
-  (``probe_fixed.loop_steps``: the step and the reload block).
+  (``toolkit.loop_steps``: the step and the reload block).
 
 The first child of this checkout also records:
 
@@ -44,12 +44,12 @@ The first child of this checkout also records:
   lanes flushing one cell at one step (R2's design); a block that holds a
   box of lattice points over windows of K steps (a model: R2 has no box);
   and R2's own count at 256² and at the full width, from a build of
-  ``render_bwd.cu`` that defines ``VRT_COUNT_ATOMICS`` (``COUNTING``),
+  ``render_bwd.cu`` that defines ``VRT_COUNT_ATOMICS`` (``toolkit.counting``),
   swapped in for the call;
 - ``PinholeCamera.rays``, the zeroing alone, ``build_packed_field``
   forward and backward, the peak memory of a gradient, and
   ``torch.profiler`` over three frames and three gradients
-  (``probe_fixed._profile``);
+  (``toolkit.profile``);
 - variants of the sources (``VARIANTS``), each built alone, swapped in
   for its function and timed in turns with the source's own with σ and
   the emission at both speeds: R2 without the packed field's or the
@@ -68,25 +68,17 @@ Needs one CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import hashlib
-import importlib.util
 import inspect
 import json
-import os
 import re
-import subprocess
-import sys
-import tempfile
 import time
-from pathlib import Path
 
-REPO = Path(__file__).resolve().parents[2]
+from probes import toolkit
+
 #: the box scheme's window, in forward steps, and its capacity in lattice
 #: points a field (``atomic_counts``' model: a block's box in 48 KB)
 BOX_STEPS, BOX_CAP = 8, 240
-#: the define of the build that counts R2's global atomic instructions
-COUNTING = "VRT_COUNT_ATOMICS"
 #: R2's runs held against one plain replay
 SUM_RUNS = 5
 
@@ -131,104 +123,27 @@ VARIANTS = (
 )
 
 
-def variant_source(text: str, edits) -> str:
-    """``text`` with ``edits`` [(old, new)] made, each exactly once; an old
-    of None replaces R1's march loop (from its comment to the stores)."""
-    for old, new in edits:
-        if old is None:
-            a, b = text.index("  // the march: load what the step needs"), text.index("  pos_out[3 * i] = px;")
-            old = text[a:b]
-        if text.count(old) != 1:
-            raise ValueError(f"variant text found {text.count(old)} times: {old[:60]!r}")
-        text = text.replace(old, new)
-    return text
+def variant_edits(text: str, edits) -> list:
+    """``edits`` [(old, new)] of ``text`` for ``toolkit.edit``, an old of
+    None standing for R1's march loop (from its comment to the stores)."""
+    if all(old is not None for old, _ in edits):
+        return list(edits)
+    a, b = text.index("  // the march: load what the step needs"), text.index("  pos_out[3 * i] = px;")
+    return [(text[a:b] if old is None else old, new) for old, new in edits]
 
 
-def build_source(_build, text: str, path: Path, defines=()):
-    """``text`` (a version of one source) built alone with the version's
-    nvcc flags and ``defines`` into a library at ``path`` (.so): the
-    library and ptxas' report."""
-    cu = path.with_suffix(".cu")
-    cu.write_text(text)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-shared", "-o",
-                           str(path), str(cu)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {path.name}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(path)), ptxas_instances(proc.stdout + proc.stderr)
+def host_timed(fn, reps=3) -> float:
+    """ms a call of ``fn`` on the host's clock, each call ending in a sync,
+    over ``reps`` calls after one."""
+    import torch
 
-
-def counting_r2(_build):
-    """R2 built with ``COUNTING``: (its ``vrt_render_bwd``, a function
-    that returns the global atomic instructions of its launches since the
-    last call)."""
-    lib, _ = build_source(_build, (Path(_build.__file__).parent / "csrc" / "render_bwd.cu").read_text(),
-                          Path(tempfile.mkdtemp(dir=_build.BUILD_DIR)) / "counting.so", (COUNTING,))
-    fn = lib.vrt_render_bwd
-    fn.argtypes, fn.restype = _build._SIGNATURES["vrt_render_bwd"], ctypes.c_int
-    lib.vrt_render_bwd_atomics.argtypes, lib.vrt_render_bwd_atomics.restype = (ctypes.c_void_p,), ctypes.c_int
-
-    def read() -> int:
-        v = ctypes.c_ulonglong(0)
-        _build.check(lib.vrt_render_bwd_atomics(ctypes.byref(v)), "render_bwd_atomics")
-        return int(v.value)
-
-    read()
-    return fn, read
-
-
-def _digest(*tensors) -> str:
-    h = hashlib.sha256()
-    for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
-def _card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def ptxas_instances(log: str) -> dict:
-    """ptxas -v output → {R1's or R2's instantiation (its template
-    arguments as mangled): {"registers", "smem_bytes", "spill_stores",
-    "spill_loads"}}."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)", line)
-        if m:
-            k = re.search(r"(render_(?:fwd|bwd))_kernelI(\w+?)EEv", m.group(1))
-            name = f"{k.group(1)}<{k.group(2)}>" if k else None
-            if name is not None:
-                out.setdefault(name, {})
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[name]["registers"] = int(m.group(1))
-            smem = re.search(r"(\d+) bytes smem", line)
-            out[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
-    return out
-
-
-def sass_of(sass: str, pattern: str) -> list:
-    """The [(address, instruction)] of the first function in ``cuobjdump
-    -sass`` output whose mangled name matches ``pattern``."""
-    out, on = [], False
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            if on:
-                break
-            on = re.search(pattern, m.group(1)) is not None
-            continue
-        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if m and on:
-            out.append((int(m.group(1), 16), m.group(2)))
-    return out
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def path_cells(torch, rk, packed, grid, p0, d0, budget, bend, step):
@@ -309,8 +224,7 @@ def atomic_counts(torch, cells, grid, steps, order, k=BOX_STEPS, cap=BOX_CAP) ->
             "box_windows_over_cap": over, "flushes": int(s_ev.numel())}
 
 
-def child(root: Path, first: bool, width: int) -> dict:
-    sys.path.insert(0, str(root))
+def child(first: bool, width: int) -> dict:
     import torch
 
     from volumeraytracer_tpu_torch import PinholeCamera, image_loss, render_image
@@ -318,59 +232,35 @@ def child(root: Path, first: bool, width: int) -> dict:
     from volumeraytracer_tpu_torch.kernels import render as rk
     from volumeraytracer_tpu_torch.models import camera as camera_mod
     from volumeraytracer_tpu_torch.ops.fields import build_packed_field
-    from volumeraytracer_tpu_torch.probes.probe_fixed import _profile, loop_steps
-    from volumeraytracer_tpu_torch.probes.probe_fwd import _Swap
 
-    assert Path(rk.__file__).resolve().is_relative_to(root.resolve()), rk.__file__
-    spec = importlib.util.spec_from_file_location("chip_smoke_helpers", root / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
-    out = {"root": str(root)}
+    budget, inv = toolkit.BUDGET, toolkit.INV
 
     def timed(fn, reps=5):
-        fn()
-        sync()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        sync()
-        return start.elapsed_time(stop) / reps
-
-    def host_timed(fn, reps=3):
-        fn()
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        sync()
-        return (time.perf_counter() - t0) / reps * 1e3
+        return toolkit.device_timed(fn, reps)
 
     t0 = time.perf_counter()
     _build.load()
-    out["build_s"] = time.perf_counter() - t0
-    out["ptxas"] = ptxas_instances(_build.build_log)
-    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())], capture_output=True, text=True,
-                          check=True).stdout
+    out = {"build_s": time.perf_counter() - t0, "ptxas": toolkit.ptxas(_build.build_log, instances=True)}
+    out["ptxas"] = {k: v for k, v in out["ptxas"].items() if k.startswith("render_")}
+    funcs = toolkit.sass_functions(toolkit.library_sass(), mangled=True)
     # R1 with σ and 3 channels: the record's instantiation where there is one
-    r1 = sass_of(sass, r"render_fwd_kernelILi3ELb1ELb1E") or sass_of(sass, r"render_fwd_kernelILi3ELb1E")
-    out["r1_sass"] = {"total": len(r1), "loops": loop_steps(r1)}
+    r1 = next((ins for pattern in (r"render_fwd_kernelILi3ELb1ELb1E", r"render_fwd_kernelILi3ELb1E")
+               for name, ins in funcs.items() if re.search(pattern, name)), [])
+    out["r1_sass"] = {"total": len(r1), "loops": toolkit.loop_steps(r1)}
 
-    lens = cs.lens_field()
+    lens = toolkit.lens_field()
     n = lens.shape[0]
     ior = torch.from_numpy(lens).to(dev)
     packed = build_packed_field(ior)
-    blob = torch.from_numpy(cs.blob_field(n - 2)).to(dev)
+    blob = torch.from_numpy(toolkit.blob_field(n - 2)).to(dev)
     sigma, e = 0.3 * blob, 2.0 * blob
     emission = torch.stack([e, 0.5 * e, 0.0 * e], dim=-1)
     bg = (0.1, 0.05, 0.0)
     cam = PinholeCamera(origin=(1.5, n / 2, n / 2), forward=(1.0, 0.0, 0.0), up=(0.0, 0.0, 1.0), width=width,
                         height=width, fov=0.45, speed=0.5)
-    rkw = dict(budget=cs.BUDGET, invscale=cs.INV, sigma=sigma, emission=emission, background=bg)
+    rkw = dict(budget=budget, invscale=inv, sigma=sigma, emission=emission, background=bg)
     ms = out["ms"] = {}
     tiles = "order" in inspect.signature(rk.render_cuda).parameters
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -378,24 +268,21 @@ def child(root: Path, first: bool, width: int) -> dict:
     cot = [torch.randn(sh, generator=gen, device=dev) for sh in ((n_px, 3), (n_px, 3), (n_px,), (n_px, 3))]
     rates = out["gsteps_per_s"] = {}
     digests = []
-    counting = counting_r2(_build) if first and tiles else None
+    counter = toolkit.counting("render_bwd.cu", "vrt_render_bwd", "vrt_render_bwd_atomics") if first and tiles else None
 
     def count_r2(call):
         """R2's global atomic instructions in ``call``, through the
         counting build."""
-        base = _build.load()
-        _build._lib = _Swap(base, {"vrt_render_bwd": counting[0]})
-        try:
+        with toolkit.swapped({"vrt_render_bwd": counter[0]}):
             call()
             sync()
-        finally:
-            _build._lib = base
-        return counting[1]()
+        return counter[1]()
+
     with torch.no_grad():
         for speed in (0.5, 4.0):
             cam_v = PinholeCamera(origin=cam.origin, forward=cam.forward, up=cam.up, width=width, height=width,
                                   fov=cam.fov, speed=speed)
-            q0, e0, bend, step = camera_mod._start(ior, *cam_v.rays(device=dev), cs.INV)
+            q0, e0, bend, step = camera_mod._start(ior, *cam_v.rays(device=dev), inv)
             q0, e0 = q0.contiguous(), e0.contiguous()
             kw = dict(bend=bend, step=step)
             order = None
@@ -411,17 +298,17 @@ def child(root: Path, first: bool, width: int) -> dict:
                     extra = dict(order=order, record=rk.field_record(s_, em_))
                     if extra["record"] is not None and speed == 0.5:
                         ms["field_record"] = timed(lambda: rk.field_record(s_, em_))
-                f = (packed, s_, em_, q0, e0, cs.BUDGET)
+                f = (packed, s_, em_, q0, e0, budget)
                 r1_ms = timed(lambda: rk.render_cuda(*f, **kw, **extra), 3)
                 r1_whole_ms = timed(lambda: rk.render_cuda(*f, **kw), 3)
                 ep, ed, it, ta, rad = rk.render_cuda(*f, **kw, **extra)
-                digests.append(_digest(ep, ed, it, ta, rad))
+                digests.append(toolkit.digest(ep, ed, it, ta, rad))
                 steps = int((it - 1).clamp(min=0).sum())
                 b = (packed, s_, em_, q0, ep, ed, (it - 1).clamp(min=0).to(torch.int32), ta, *cot[:3],
                      None if em_ is None else cot[3])
                 r2_ms = timed(lambda: rk.render_bwd_cuda(*b, **kw, **extra), 3)
                 got = rk.render_bwd_cuda(*b, **kw, **extra)
-                digests.append(_digest(got[3], got[4]))
+                digests.append(toolkit.digest(got[3], got[4]))
                 rates[f"speed {speed} {label}"] = {"steps": steps, "r1_ms": r1_ms, "r1_whole_ms": r1_whole_ms,
                                                    "r2_ms": r2_ms, "r1": steps / r1_ms / 1e6,
                                                    "r2": steps / r2_ms / 1e6}
@@ -440,7 +327,7 @@ def child(root: Path, first: bool, width: int) -> dict:
                                 row["cell"] = [int(v) for v in torch.nonzero(err == worst)[0]]
                             row["rel"].append(worst / scale)
                     del ref
-                if counting is not None:
+                if counter is not None:
                     out[f"r2_counters speed {speed} {label} {width}^2"] = {
                         "atomics": count_r2(lambda: rk.render_bwd_cuda(*b, **kw, **extra)), "steps": steps}
                 del ep, ed, it, ta, rad, got
@@ -471,8 +358,8 @@ def child(root: Path, first: bool, width: int) -> dict:
     sync()
     out["gradient_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     with torch.no_grad():
-        out["profile_frame"] = _profile(torch, lambda: render_image(packed, ior, cam, **rkw))
-    out["profile_gradient"] = _profile(torch, value_and_grad)
+        out["profile_frame"] = toolkit.profile(lambda: render_image(packed, ior, cam, **rkw))
+    out["profile_gradient"] = toolkit.profile(value_and_grad)
 
     # the three flush schemes' atomics at a 256² camera, from the plain
     # march's cells, and R2's own
@@ -480,17 +367,17 @@ def child(root: Path, first: bool, width: int) -> dict:
     cam_s = PinholeCamera(origin=cam.origin, forward=cam.forward, up=cam.up, width=small, height=small,
                           fov=cam.fov, speed=0.5)
     with torch.no_grad():
-        p0, d0, bend, step = camera_mod._start(ior, *cam_s.rays(device=dev), cs.INV)
+        p0, d0, bend, step = camera_mod._start(ior, *cam_s.rays(device=dev), inv)
         p0, d0 = p0.contiguous(), d0.contiguous()
         t0 = time.perf_counter()
-        starts, mids, steps = path_cells(torch, rk, packed, tuple(sigma.shape), p0, d0, cs.BUDGET, bend, step)
+        starts, mids, steps = path_cells(torch, rk, packed, tuple(sigma.shape), p0, d0, budget, bend, step)
         order = rk.render_order(p0, d0, packed.shape).long()
         counts = {"replayed_steps": int(steps.sum())}
         for key, cells, grid in (("packed", starts, tuple(packed.shape[:3])), ("record", mids, tuple(sigma.shape))):
             counts[key] = atomic_counts(torch, cells, grid, steps, order)
         counts["seconds"] = time.perf_counter() - t0
         del starts, mids
-        ep, ed, it, ta, _ = rk.render_cuda(packed, sigma, emission, p0, d0, cs.BUDGET, bend=bend, step=step)
+        ep, ed, it, ta, _ = rk.render_cuda(packed, sigma, emission, p0, d0, budget, bend=bend, step=step)
         n_s = p0.shape[0]
         c_s = [c[:n_s] for c in cot]
         atomics = count_r2(lambda: rk.render_bwd_cuda(
@@ -498,56 +385,52 @@ def child(root: Path, first: bool, width: int) -> dict:
             step=step, order=order.to(torch.int32), record=rk.field_record(sigma, emission)))
         counts["r2"] = {"atomics": atomics, "steps": int((it - 1).clamp(min=0).sum())}
     out["atomic_counts_256"] = counts
-    out["variants"] = run_variants(torch, rk, _build, packed, sigma, emission, ior, cam, cs, width, cot, timed)
+    out["variants"] = run_variants(packed, sigma, emission, ior, cam, width, cot)
     return out
 
 
-def run_variants(torch, rk, _build, packed, sigma, emission, ior, cam, cs, width, cot, timed) -> dict:
+def run_variants(packed, sigma, emission, ior, cam, width, cot) -> dict:
     """Each of ``VARIANTS`` built alone, swapped in for its function and
     timed in turns with the source's own (σ and the emission, speeds 0.5
     and 4), with its ptxas report."""
-    from volumeraytracer_tpu_torch import PinholeCamera
-    from volumeraytracer_tpu_torch.models import camera as camera_mod
-    from volumeraytracer_tpu_torch.probes.probe_fwd import _Swap
+    import torch
 
-    base = _build.load()
-    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    from volumeraytracer_tpu_torch import PinholeCamera
+    from volumeraytracer_tpu_torch.kernels import _build
+    from volumeraytracer_tpu_torch.kernels import render as rk
+    from volumeraytracer_tpu_torch.models import camera as camera_mod
+
     built = {}
     for name, src, fn_name, edits, _ in VARIANTS:
-        text = variant_source((Path(_build.__file__).parent / "csrc" / src).read_text(), edits)
-        lib, report = build_source(_build, text, Path(tmp) / f"v{len(built)}.so")
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = _build._SIGNATURES[fn_name], ctypes.c_int
-        built[name] = (fn_name, fn, report)
+        v = toolkit.build_variant(src, variant_edits((_build._HERE / "csrc" / src).read_text(), edits))
+        built[name] = (fn_name, v.fn(fn_name), v.ptxas)
     res = {name: {"ptxas": p} for name, (_, _, p) in built.items()}
     n_px = width * width
     with torch.no_grad():
         for speed in (0.5, 4.0):
             cam_v = PinholeCamera(origin=cam.origin, forward=cam.forward, up=cam.up, width=width, height=width,
                                   fov=cam.fov, speed=speed)
-            q0, e0, bend, step = camera_mod._start(ior, *cam_v.rays(device=packed.device), cs.INV)
+            q0, e0, bend, step = camera_mod._start(ior, *cam_v.rays(device=packed.device), toolkit.INV)
             q0, e0 = q0.contiguous(), e0.contiguous()
             kw = dict(bend=bend, step=step, order=rk.render_order(q0, e0, packed.shape),
                       record=rk.field_record(sigma, emission))
-            f = (packed, sigma, emission, q0, e0, cs.BUDGET)
+            f = (packed, sigma, emission, q0, e0, toolkit.BUDGET)
             ref = rk.render_cuda(*f, **kw)
             b = (packed, sigma, emission, q0, ref[0], ref[1], (ref[2] - 1).clamp(min=0).to(torch.int32), ref[3],
                  *(c[:n_px] for c in cot))
             ref_bwd = rk.render_bwd_cuda(*b, **kw)
             for name, (fn_name, fn, _) in built.items():
-                call = (lambda: rk.render_cuda(*f, **kw)) if fn_name == "vrt_render_fwd" else (
-                    lambda: rk.render_bwd_cuda(*b, **kw))
+                def call():
+                    return rk.render_cuda(*f, **kw) if fn_name == "vrt_render_fwd" else rk.render_bwd_cuda(*b, **kw)
+
                 times = {"source": [], "variant": []}
                 for turn in ("source", "variant", "variant", "source"):
-                    _build._lib = base if turn == "source" else _Swap(base, {fn_name: fn})
-                    try:
-                        times[turn].append(timed(call, 3))
+                    with toolkit.swapped({fn_name: fn} if turn == "variant" else {}):
+                        times[turn].append(toolkit.device_timed(call, 3))
                         if turn == "variant" and len(times[turn]) == 1:
                             got = call()
                             same = (all(torch.equal(a, r) for a, r in zip(got, ref)) if fn_name == "vrt_render_fwd"
                                     else torch.equal(got[3], ref_bwd[3]) and torch.equal(got[4], ref_bwd[4]))
-                    finally:
-                        _build._lib = base
                 if not same:
                     raise SystemExit(f"probe_render: variant {name} changed the per-ray outputs")
                 res[name][f"speed {speed}"] = times
@@ -611,51 +494,18 @@ def _print(label: str, res: dict, card: str) -> None:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap = toolkit.parser(__doc__)
     ap.add_argument("--width", type=int, default=1024)
-    ap.add_argument("--parent", type=Path, help="another checkout of the repository, timed in turns with this one")
-    ap.add_argument("--out", type=Path)
-    ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--first", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        print(json.dumps(child(args.child, args.first, args.width)))
+        toolkit.program(args.child)
+        print(json.dumps(child(args.first, args.width)))
         return
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("probe_render: no CUDA device")
-    if args.parent is not None and not (args.parent / "volumeraytracer_tpu_torch").is_dir():
-        raise SystemExit("--parent must name a checkout that holds volumeraytracer_tpu_torch/")
-    card = _card()
-    print(card)
-
-    def run_child(label, root, *flags):
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--child", str(root.resolve()), "--width",
-               str(args.width), *flags]
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(REPO), timeout=1200,
-                              env={**os.environ, "PYTHONDONTWRITEBYTECODE": "1"})
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stdout[-5000:] + proc.stderr[-20000:])
-            raise SystemExit(f"probe_render: the {label} child failed ({proc.returncode})")
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        res["label"] = label
-        _print(label, res, card)
-        return res
-
-    if args.parent is None:
-        runs = [run_child("change", REPO, "--first")]
-    else:
-        runs = [run_child("parent", args.parent), run_child("change", REPO, "--first"), run_child("change", REPO),
-                run_child("parent", args.parent)]
-    seen = {r["digest"] for r in runs}
-    if len(seen) != 1:
-        raise SystemExit(f"probe_render: R1's outputs or R2's d pos0, d dir0 differ between versions or runs: {seen}")
+    line, runs = toolkit.in_turns(__spec__.name, args.parent, flags=("--width", str(args.width)), first=("--first",),
+                                  digests=("digest",), show=_print, out=args.out)
     print(f"probe_render R1's end state, τ and radiance and R2's d pos0 and d dir0 equal across "
-          f"{len(runs)} runs [{card}]")
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
+          f"{len(runs)} runs [{line}]")
 
 
 if __name__ == "__main__":

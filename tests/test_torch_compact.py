@@ -18,10 +18,10 @@ from volumeraytracer_tpu.kernels.line_table import build_line_table as jax_build
 from volumeraytracer_tpu.kernels.march_lines import march_lines_compact as jax_march_lines_compact
 from volumeraytracer_tpu.ops import march as jax_march
 from volumeraytracer_tpu.ops.fields import build_packed_field as jax_build_packed_field
+from probes.toolkit import build_scattered_rays
 from volumeraytracer_tpu_torch.kernels import _build
 from volumeraytracer_tpu_torch.kernels.march_lines import march_lines, march_lines_compact
 from volumeraytracer_tpu_torch.ops.fields import build_packed_field, cropped_translucency
-from volumeraytracer_tpu_torch.workloads import build_scattered_rays
 
 INV = 2.0
 BEND = INV / 65536.0
@@ -203,7 +203,7 @@ def test_compact_rejects_bad_phase_steps():
 
 
 def test_scattered_rays_match_bench():
-    """The port's copy of bench.py's scattered workload draws the same
+    """The toolkit's copy of bench.py's scattered workload draws the same
     numbers (bench.py is loaded by path, not run)."""
     spec = importlib.util.spec_from_file_location("jax_bench", REPO / "bench.py")
     bench = importlib.util.module_from_spec(spec)

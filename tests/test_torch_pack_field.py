@@ -12,8 +12,7 @@ through the wrappers, the ``autograd.Function`` and ``endpoint_render``:
 P1 against the plain body, P2 against ``pack_field_vjp_plain``.  That build
 sets a block's x chunk to ``HOST_CX`` planes, so that small fields span
 several chunks as the card's large ones do; a second build keeps the
-card's chunk (``CX``), and the variants of ``probes/sweep_pack.py`` that
-change the tile, the rows a thread or the ring are built and held alike.
+card's chunk (``CX``) and is held alike.
 """
 
 import contextlib
@@ -41,7 +40,6 @@ from volumeraytracer_tpu_torch.kernels import _build
 from volumeraytracer_tpu_torch.kernels import pack_field as pf
 from volumeraytracer_tpu_torch.ops.march import march_float
 from volumeraytracer_tpu_torch.ops.fields import TRANSPARENT, build_packed_field, pack_field_vjp_plain
-from volumeraytracer_tpu_torch.probes import sweep_pack
 
 SHAPES = [(12, 12, 12), (9, 13, 7), (20, 6, 11)]
 #: the x planes a block of the host build marches (VRT_PACK_CX); the
@@ -175,13 +173,13 @@ def test_wrappers_raise_off_the_card_and_on_bad_inputs(monkeypatch):
         pf.pack_field_bwd_cuda(io, torch.zeros((4, 5, 6, 3)))
 
 
-def _host_library(tmp, cx=HOST_CX, source=None):
-    """P1's and P2's CUDA source (or ``source``, a variant of it) compiled
-    for the host by g++ (no contraction) through HOST_SHIM, one thread a
-    block, a block's x chunk ``cx`` planes (None: the card's, CX)."""
+def _host_library(tmp, cx=HOST_CX):
+    """P1's and P2's CUDA source compiled for the host by g++ (no
+    contraction) through HOST_SHIM, one thread a block, a block's x chunk
+    ``cx`` planes (None: the card's, CX)."""
     (tmp / "cuda_runtime.h").write_text(HOST_SHIM)
     text, k = re.subn(r"(\w+)<<<(\w+),[^;]*?>>>\(", r"HOST_LAUNCH(\2, \1)(",
-                      source or (_build._HERE / "csrc" / "pack_field.cu").read_text())
+                      (_build._HERE / "csrc" / "pack_field.cu").read_text())
     assert k == 2
     (tmp / "pack_field.cpp").write_text(text)
     lib_path = tmp / "libpack_host.so"
@@ -396,64 +394,3 @@ def test_endpoint_render_passes_its_kernel_to_the_build(host_kernels, monkeypatc
     auto = grads("auto")
     assert dict(_build.launches) == {"pack_field_fwd": 1, "pack_field_bwd": 1}
     _assert_vjp_close(auto.numpy(), plain.numpy(), "endpoint_render through P1 and P2")
-
-
-def test_sweep_variant_sources():
-    """``probes.sweep_pack``'s first variant is the source as it is; each
-    other one changes the constants it names and nothing else, and every
-    variant exports its blocks an SM; a source without a constant raises."""
-    src = (_build._HERE / "csrc" / "pack_field.cu").read_text()
-    head, tail = src.rsplit("}  // namespace", 1)
-    assert sweep_pack.VARIANTS[0] == (0,) * 6
-    assert sweep_pack.variant_source(src, 0, 0, 0, 0, 0) == \
-        head + sweep_pack.PROBES + "}  // namespace" + tail + sweep_pack.EXPORTS
-    v = sweep_pack.variant_source(src, 8, 64, 4, 3, 2)
-    for text in ("constexpr int TY = 8, TZ = 64;", "constexpr int RY = 4;", "constexpr int NS = 3;"):
-        assert text in v and text not in src
-    assert v.count("__launch_bounds__(THREADS, 2)") == 2
-    with pytest.raises(ValueError, match="RY"):
-        sweep_pack.variant_source(src.replace("constexpr int RY", "constexpr int ROWS"), 0, 0, 2, 0, 0)
-
-
-def test_sweep_sass_counts():
-    """``probes.sweep_pack.sass_counts`` on a short listing: P1's and P2's
-    instructions by family, all and in each loop, other kernels left out."""
-    sass = """
-        Function : _ZN12_GLOBAL__N_121pack_field_fwd_kernelEPKfS1_P6float4iiiiiif
-        /*0000*/                   MOV R1, c[0x0][0x28] ;
-        /*0010*/                   LDGSTS.E [R2], desc[UR4][R4.64] ;
-        /*0020*/                   LDS R3, [R2] ;
-        /*0030*/                   FADD R3, R3, R3 ;
-        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
-        /*0050*/               @P0 BRA 0x10 ;
-        /*0060*/                   EXIT ;
-        Function : _ZN12_GLOBAL__N_121pack_field_bwd_kernelEPKfPK6float4Pfiiiii
-        /*0000*/                   FMUL R2, R2, R3 ;
-        /*0010*/                   STG.E desc[UR4][R4.64], R2 ;
-        /*0020*/                   EXIT ;
-        Function : _ZN12_GLOBAL__N_122line_table_fold_kernelEPKfP6float4iiiiii
-        /*0000*/                   EXIT ;
-"""
-    assert sweep_pack.sass_counts(sass) == {
-        "pack_field_fwd": {"all": {"total": 7, "LDS": 1, "LDGSTS": 1, "BAR": 1, "MOV": 1, "FADD": 1, "BRA": 1},
-                           "loops": [{"total": 5, "LDS": 1, "LDGSTS": 1, "BAR": 1, "FADD": 1, "BRA": 1}]},
-        "pack_field_bwd": {"all": {"total": 3, "STG": 1, "FMUL": 1}, "loops": []},
-    }
-
-
-@pytest.mark.parametrize("variant", [v for v in sweep_pack.VARIANTS if any(v[:4])], ids=str)
-def test_host_sweep_variants(variant, tmp_path, monkeypatch):
-    """Each sweep variant that changes the tile, the rows a thread or the
-    ring, built for the host in ``HOST_CX`` chunks: P1 and P2 as
-    ``_check_host_p1`` and ``_check_host_p2`` (a sparse cotangent) hold
-    them on WIDE and on a field one output plane thick."""
-    if shutil.which("g++") is None:
-        pytest.skip("no g++ on this host")
-    src = sweep_pack.variant_source((_build._HERE / "csrc" / "pack_field.cu").read_text(), *variant[:4], 0)
-    lib = _host_library(tmp_path, source=src.replace(sweep_pack.PROBES, "").replace(sweep_pack.EXPORTS, ""))
-    _open_host(monkeypatch, lib)
-    for shape in (WIDE, (3, 20, 37)):
-        _build.launches.clear()
-        _check_host_p1(shape, "float")
-        _build.launches.clear()
-        _check_host_p2(shape, "contiguous", sparse=True)

@@ -1,18 +1,26 @@
-"""The probes' host-side parts on the CPU: the point table's two ray orders
-against numpy lexsorts, the readers of cuobjdump's SASS listing and of
-ptxas' report on small listings of the same form, the K4 sweep's
-variants of the fold's source, and the render probe's count of R2's
-atomics under its three flush schemes."""
+"""The card toolkit (``probes/toolkit.py``) and the probes' host-side parts
+on the CPU: the bench's inputs against bench.py, the digest, the readers of
+cuobjdump's SASS listing and of ptxas' report on small listings of the same
+form, the source edits, the runner that times two checkouts in turns (over
+fake children and fake checkouts), the probes' variants of the sources and
+the render probe's count of R2's atomics under its three flush schemes."""
 
+import importlib.util
+import json
+import os
 import re
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from volumeraytracer_tpu_torch.kernels import march_pallas as mp
-from volumeraytracer_tpu_torch.probes import probe_k4k6 as probe
+from probes import probe_fixed, probe_fwd, probe_render, toolkit
+from volumeraytracer_tpu_torch.kernels import _build
+
+REPO = Path(__file__).resolve().parents[1]
 
 SASS = """
         Function : _ZN12_GLOBAL__N_122line_table_fold_kernelEPKfP6float4iiiiii
@@ -40,6 +48,24 @@ SASS = """
         /*0000*/                   EXIT ;                 /* 0x0 */
 """
 
+#: P1's and P2's listing, and another kernel's
+PACK_SASS = """
+        Function : _ZN12_GLOBAL__N_121pack_field_fwd_kernelEPKfS1_P6float4iiiiiif
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDGSTS.E [R2], desc[UR4][R4.64] ;
+        /*0020*/                   LDS R3, [R2] ;
+        /*0030*/                   FADD R3, R3, R3 ;
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0050*/               @P0 BRA 0x10 ;
+        /*0060*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_121pack_field_bwd_kernelEPKfPK6float4Pfiiiii
+        /*0000*/                   FMUL R2, R2, R3 ;
+        /*0010*/                   STG.E desc[UR4][R4.64], R2 ;
+        /*0020*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_122line_table_fold_kernelEPKfP6float4iiiiii
+        /*0000*/                   EXIT ;
+"""
+
 PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122line_table_fold_kernelEPKfP6float4iiiiii' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_122line_table_fold_kernelEPKfP6float4iiiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -51,106 +77,101 @@ ptxas info    : Used 96 registers, 1024 bytes smem, 480 bytes cmem[0]
 """
 
 
-def test_point_orders_against_numpy():
-    """The brick-only order is sort_point_rays'; the cell order sorts by
-    point brick, then by cell in (x, y, z) order; invalid rays go last in
-    input order, ties keep their input order."""
-    shape = (31, 21, 17, 4)
-    nb = mp.brick_grid(shape)
-    rng = np.random.default_rng(0)
-    pos = rng.uniform(-1.5, np.array(shape[:3]) + 0.5, (300, 3)).astype(np.float32)
-    pos[-30:] = pos[:30]
-    valid = rng.random(len(pos)) < 0.8
-    brick_order, cell_order = probe.point_orders(torch.from_numpy(pos), nb, torch.from_numpy(valid))
-    assert torch.equal(brick_order, mp.sort_point_rays(torch.from_numpy(pos), nb, torch.from_numpy(valid))[0])
-    size = np.array([mp.BX, mp.BY, mp.BZ])
-    cell = np.minimum(np.maximum(np.floor(pos).astype(np.int64), 0), np.array(nb) * size - 1)
-    b, local = cell // size, cell % size
-    brick = (b[:, 0] * nb[1] + b[:, 1]) * nb[2] + b[:, 2]
-    keys = np.stack([~valid, np.where(valid, brick, 0), *(np.where(valid, local[:, k], 0) for k in range(3))])
-    np.testing.assert_array_equal(cell_order.numpy(), np.lexsort(keys[::-1]))
+def _ptxas_log(entries) -> str:
+    """ptxas' report of kernels [(mangled name, registers, spill stores,
+    line after the registers)]."""
+    return "".join(
+        f"ptxas info    : Compiling entry function '{k}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {k}\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers{tail}, 600 bytes cmem[0]\n"
+        for k, regs, spill, tail in entries)
 
 
-def test_sass_readers():
-    """Functions by kernel, opcode families, loops and the replay's
-    cell-change block (its loads and Hopper's REDG atomics)."""
-    funcs = probe.sass_functions(SASS)
-    assert set(funcs) == {"line_table_fold", "march_points_bwd"}
-    fold = funcs["line_table_fold"]
-    assert probe.opcode_counts(fold) == {"total": 9, "LDGSTS": 1, "STG": 1, "LDS": 1, "BAR": 1, "LDGDEPBAR": 1,
-                                         "DEPBAR": 1}
-    assert probe.sass_loops(fold) == [{"head": "0x10", "total": 7, "LDGSTS": 1, "STG": 1, "LDS": 1, "BAR": 1,
-                                       "LDGDEPBAR": 1, "DEPBAR": 1}]
-    assert probe.cell_change_block(funcs["march_points_bwd"]) == {
-        "loop": 8, "cell_change_block": 3, "same_cell_step": 5, "block_loads": 2, "block_atomics": 1}
+def _entry(registers, spill_stores=0, smem_bytes=0, stack_frame=0):
+    return {"stack_frame": stack_frame, "spill_stores": spill_stores, "spill_loads": 0, "registers": registers,
+            "smem_bytes": smem_bytes}
 
 
-def test_ptxas_reader():
-    assert probe.ptxas_by_kernel(PTXAS) == {
-        "line_table_fold": {"spill_stores": 0, "spill_loads": 0, "registers": 48, "smem_bytes": 0},
-        "march_points_bwd": {"spill_stores": 4, "spill_loads": 4, "registers": 96, "smem_bytes": 1024},
-    }
+PTXAS_CASES = {
+    # two kernels, spills and shared memory
+    "kernels": (PTXAS, False, {"line_table_fold": _entry(48),
+                               "march_points_bwd": {"stack_frame": 8, "spill_stores": 4, "spill_loads": 4,
+                                                    "registers": 96, "smem_bytes": 1024}}),
+    # the recording K2's name also holds K2's, and takes its own
+    "recording_k2": (_ptxas_log((f"_ZN12_GLOBAL__N_1{len(k)}{k}EPKfiiifff", r, 0, "")
+                                for k, r in (("march_lines_fwd_kernel", 80), ("march_lines_fwd_path_kernel", 88))),
+                     False, {"march_lines_fwd": _entry(80), "march_lines_fwd_path": _entry(88)}),
+    # F1's four instantiations (recording or not, 32- or 64-bit cell
+    # indices), each under its own name
+    "f1_instantiations": (_ptxas_log(
+        (f"_ZN12_GLOBAL__N_1{len(k)}{k}EPK6float4iii", 40 + r, 0, "") for r, k in enumerate(
+            ("march_fixed_kernel", "march_fixed_path_kernel", "march_fixed_wide_kernel", "march_fixed_path_wide_kernel"))),
+        False, {"march_fixed": _entry(40), "march_fixed_path": _entry(41), "march_fixed_wide": _entry(42),
+                "march_fixed_path_wide": _entry(43)}),
+    # R1's instantiations read as one kernel with the most registers and
+    # spills among them, so that phase 2 of chip_smoke.py sees a spill in
+    # any of them
+    "largest_of_an_instantiation_set": (_ptxas_log(
+        (f"_ZN12_GLOBAL__N_117render_fwd_kernelILi{nc}ELb1EEEvPK6float4", 60 + 4 * nc, 8 if nc == 2 else 0, "")
+        for nc in range(5)), False, {"render_fwd": _entry(76, spill_stores=8)}),
+    # with instances, each instantiation of R1 and R2 is its own entry
+    "instances": (_ptxas_log(
+        (f"_ZN12_GLOBAL__N_117render_{k}_kernelI{args}EEvPKf", regs, spill, ", used 1 barriers, 176 bytes smem")
+        for k, args, regs, spill in (("fwd", "Li3ELb1ELb1E", 108, 0), ("bwd", "Lb1ELb1ELb1E", 165, 0),
+                                     ("bwd", "Lb0ELb0ELb0E", 96, 8))),
+        True, {"render_fwd<Li3ELb1ELb1E>": _entry(108, smem_bytes=176),
+               "render_bwd<Lb1ELb1ELb1E>": _entry(165, smem_bytes=176),
+               "render_bwd<Lb0ELb0ELb0E>": _entry(96, spill_stores=8, smem_bytes=176)}),
+}
 
 
-def test_ptxas_reader_tells_the_recording_k2_from_k2():
-    """K2's two instantiations are two entries of ptxas' report: the
-    recording K2's name also holds K2's, and takes its own."""
-    log = "".join(
-        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(k)}{k}EPKfiiifff' for 'sm_90a'\n"
-        f"ptxas info    : Function properties for _ZN12_GLOBAL__N_1{len(k)}{k}EPKfiiifff\n"
-        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        f"ptxas info    : Used {regs} registers, 600 bytes cmem[0]\n"
-        for k, regs in (("march_lines_fwd_kernel", 80), ("march_lines_fwd_path_kernel", 88))
-    )
-    assert probe.ptxas_by_kernel(log) == {
-        "march_lines_fwd": {"spill_stores": 0, "spill_loads": 0, "registers": 80, "smem_bytes": 0},
-        "march_lines_fwd_path": {"spill_stores": 0, "spill_loads": 0, "registers": 88, "smem_bytes": 0},
-    }
-    assert {"march_lines_fwd", "march_lines_fwd_path"} <= set(probe.KERNELS)
+@pytest.mark.parametrize("case", list(PTXAS_CASES))
+def test_ptxas_reader(case):
+    log, instances, want = PTXAS_CASES[case]
+    got = toolkit.ptxas(log, instances=instances)
+    assert got == want
+    assert {k.split("<")[0] for k in got} <= set(toolkit.KERNELS)
 
 
-def test_k4_sweep_variant_source():
-    """The K4 sweep's variants change the fold's ring depth and blocks an SM
-    and nothing else, and export its occupancy; the first variant is the
-    source's own."""
-    from pathlib import Path
+SASS_CASES = {
+    # functions by kernel, opcode families, loops and the replay's
+    # cell-change block (its loads and Hopper's REDG atomics); a kernel not
+    # in KERNELS left out
+    "kernels": (SASS, {
+        "line_table_fold": {
+            "all": {"total": 9, "MOV": 1, "LDGSTS": 1, "LDGDEPBAR": 1, "DEPBAR": 1, "BAR": 1, "LDS": 1, "STG": 1,
+                    "BRA": 1, "EXIT": 1},
+            "loops": [{"head": "0x10", "total": 7, "LDGSTS": 1, "LDGDEPBAR": 1, "DEPBAR": 1, "BAR": 1, "LDS": 1,
+                       "STG": 1, "BRA": 1}],
+            "cell_change": {"loop": 7, "cell_change_block": 0, "same_cell_step": 7, "block_loads": 0,
+                            "block_atomics": 0}},
+        "march_points_bwd": {
+            "all": {"total": 10, "MOV": 1, "FADD": 1, "ISETP": 1, "BRA": 2, "REDG": 1, "LDG": 2, "FMUL": 1,
+                    "EXIT": 1},
+            "loops": [{"head": "0x10", "total": 8, "FADD": 1, "ISETP": 1, "BRA": 2, "REDG": 1, "LDG": 2, "FMUL": 1}],
+            "cell_change": {"loop": 8, "cell_change_block": 3, "same_cell_step": 5, "block_loads": 2,
+                            "block_atomics": 1}}}),
+    # P1's and P2's instructions by family, all and in each loop
+    "pack_field": (PACK_SASS, {
+        "pack_field_fwd": {
+            "all": {"total": 7, "MOV": 1, "LDGSTS": 1, "LDS": 1, "FADD": 1, "BAR": 1, "BRA": 1, "EXIT": 1},
+            "loops": [{"head": "0x10", "total": 5, "LDGSTS": 1, "LDS": 1, "FADD": 1, "BAR": 1, "BRA": 1}],
+            "cell_change": {"loop": 5, "cell_change_block": 0, "same_cell_step": 5, "block_loads": 0,
+                            "block_atomics": 0}},
+        "pack_field_bwd": {"all": {"total": 3, "FMUL": 1, "STG": 1, "EXIT": 1}, "loops": [], "cell_change": {}},
+        "line_table_fold": {"all": {"total": 1, "EXIT": 1}, "loops": [], "cell_change": {}}}),
+}
 
-    from volumeraytracer_tpu_torch.kernels import _build
-    from volumeraytracer_tpu_torch.probes import sweep_k4
 
-    src = (Path(_build.__file__).parent / "csrc" / "line_table_fold.cu").read_text()
-    own = tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) for name in ("NSTAGE", "MIN_BLOCKS"))
-    assert sweep_k4.VARIANTS[0] == own
-    v = sweep_k4.variant_source(src, 4, 1)
-    assert "constexpr int NSTAGE = 4;" in v and "constexpr int MIN_BLOCKS = 1;" in v
-    assert v.endswith(sweep_k4.EXPORT) and sweep_k4.OCCUPANCY + "}  // namespace" in v
-    assert sweep_k4.variant_source(src, *own) == src.rsplit("}  // namespace", 1)[0] + sweep_k4.OCCUPANCY \
-        + "}  // namespace" + src.rsplit("}  // namespace", 1)[1] + sweep_k4.EXPORT
-    with pytest.raises(ValueError, match="NSTAGE"):
-        sweep_k4.variant_source(src.replace("constexpr int NSTAGE", "constexpr int RING"), 2, 2)
-
-
-def test_fwd_probe_variant_sources():
-    """probe_fwd's variants of march_lines_fwd.cu: the pinned reload changes
-    the capped K2's corner-table address and nothing else, the staging
-    sweep sets PK and NBUF, and a source without them raises."""
-    from pathlib import Path
-
-    from volumeraytracer_tpu_torch.kernels import _build
-    from volumeraytracer_tpu_torch.probes import probe_fwd
-
-    src = (Path(_build.__file__).parent / "csrc" / "march_lines_fwd.cu").read_text()
-    pinned = probe_fwd.pinned_source(src)
-    changed = [(a, b) for a, b in zip(src.splitlines(), pinned.splitlines()) if a != b]
-    assert len(changed) == 1 and changed[0][0].strip() == probe_fwd.PINS[0][0]
-    line_only = src.replace(probe_fwd.PINS[0][0], "")
-    assert probe_fwd.pinned_source(line_only) == line_only.replace(*probe_fwd.PINS[1])
-    v = probe_fwd.pk_source(src, 24, 2)
-    assert "constexpr int PK = 24;" in v and "constexpr int NBUF = 2;" in v
-    with pytest.raises(ValueError, match="NBUF"):
-        probe_fwd.pk_source(src.replace("constexpr int NBUF", "constexpr int NBUFS"), 8, 1)
-    with pytest.raises(ValueError, match="reload"):
-        probe_fwd.pinned_source(line_only.replace(probe_fwd.PINS[1][0], ""))
+@pytest.mark.parametrize("case", list(SASS_CASES))
+def test_sass_readers(case):
+    sass, want = SASS_CASES[case]
+    got = {k: {"all": toolkit.opcode_counts(ins), "loops": toolkit.sass_loops(ins),
+               "cell_change": toolkit.cell_change_block(ins)} for k, ins in toolkit.sass_functions(sass).items()}
+    assert got == want
+    # by mangled name, every function
+    assert list(toolkit.sass_functions(sass, mangled=True)) == re.findall(r"Function : (\S+)", sass)
 
 
 F1_SASS = """
@@ -179,15 +200,13 @@ F1_SASS = """
 
 
 def test_fixed_probe_loop_reader():
-    """probe_fixed's SASS reader on F1's step loop: the loop from the
+    """The toolkit's loop reader on F1's step loop: the loop from the
     backward branch's target, the reload block that the forward branch over
     the most loads skips, the rest as the same-cell step with its opcode
     families; a loop whose loads are predicated keeps them in its step."""
-    from volumeraytracer_tpu_torch.probes import probe_fixed
-
-    funcs = probe.sass_functions(F1_SASS)
+    funcs = toolkit.sass_functions(F1_SASS)
     assert set(funcs) == {"march_fixed"}
-    loops = probe_fixed.loop_steps(funcs["march_fixed"])
+    loops = toolkit.loop_steps(funcs["march_fixed"])
     assert loops == [
         {"head": "0x100", "loop": 3, "reload_block": 0, "step": 3, "block_loads": 0,
          "step_ops": {"LDG": 1, "FMUL": 1, "BRA": 1}},
@@ -197,20 +216,45 @@ def test_fixed_probe_loop_reader():
     ]
 
 
+def test_edits_of_a_source():
+    """``toolkit.edit`` makes each edit where its text or pattern matches
+    once and raises otherwise; ``toolkit.constants`` sets ``constexpr int``
+    values, backslashes in a replacement kept as they are."""
+    src = "constexpr int PK = 16;\nconstexpr int NBUF = 2;\nx = a;\n"
+    got = toolkit.edit(src, [*toolkit.constants(PK=24, NBUF=1), ("x = a;", r"x = '\n';")])
+    assert got == "constexpr int PK = 24;\nconstexpr int NBUF = 1;\nx = '\\n';\n"
+    with pytest.raises(ValueError, match="found 0 times"):
+        toolkit.edit(src, toolkit.constants(RING=2))
+    with pytest.raises(ValueError, match="found 2 times"):
+        toolkit.edit(src + "x = a;\n", [("x = a;", "")])
+
+
+def test_fwd_probe_variant_sources():
+    """probe_fwd's variants of march_lines_fwd.cu: the pinned reload changes
+    the capped K2's corner-table address and nothing else, the staging
+    sweep sets PK and NBUF, and a source without them raises."""
+    src = (_build._HERE / "csrc" / "march_lines_fwd.cu").read_text()
+    pinned = toolkit.edit(src, [probe_fwd.pin(src)])
+    changed = [(a, b) for a, b in zip(src.splitlines(), pinned.splitlines()) if a != b]
+    assert len(changed) == 1 and changed[0][0].strip() == probe_fwd.PINS[0][0]
+    line_only = src.replace(probe_fwd.PINS[0][0], "")
+    assert probe_fwd.pin(line_only) == probe_fwd.PINS[1]
+    v = toolkit.edit(src, toolkit.constants(PK=24, NBUF=2))
+    assert "constexpr int PK = 24;" in v and "constexpr int NBUF = 2;" in v
+    with pytest.raises(ValueError, match="NBUF"):
+        toolkit.edit(src.replace("constexpr int NBUF", "constexpr int NBUFS"), toolkit.constants(PK=8, NBUF=1))
+    with pytest.raises(ValueError, match="reload"):
+        probe_fwd.pin(line_only.replace(probe_fwd.PINS[1][0], ""))
+
+
 def test_fixed_probe_variant_sources():
     """probe_fixed's variants of march_fixed.cu: the staging sweep sets PK
-    and NBUF (probe_fwd's pk_source on F1's source) and the contracted build
-    swaps -fmad=false for -fmad=true and nothing else; every PK it sweeps
-    is even, so that each run is whole 16-byte units."""
-    from pathlib import Path
-
-    from volumeraytracer_tpu_torch.kernels import _build
-    from volumeraytracer_tpu_torch.kernels import march_fixed as kf
-    from volumeraytracer_tpu_torch.probes import probe_fixed, probe_fwd
-
-    src = (Path(_build.__file__).parent / "csrc" / "march_fixed.cu").read_text()
+    and NBUF and the contracted build swaps -fmad=false for -fmad=true and
+    nothing else; every PK it sweeps is even, so that each run is whole
+    16-byte units."""
+    src = (_build._HERE / "csrc" / "march_fixed.cu").read_text()
     for pk, nbuf in probe_fixed.PK_SWEEP:
-        v = probe_fwd.pk_source(src, pk, nbuf)
+        v = toolkit.edit(src, toolkit.constants(PK=pk, NBUF=nbuf))
         assert f"constexpr int PK = {pk};" in v and f"constexpr int NBUF = {nbuf};" in v
         assert pk % 2 == 0
     flags = probe_fixed.fmad_flags(_build.NVCC_FLAGS)
@@ -220,23 +264,6 @@ def test_fixed_probe_variant_sources():
         probe_fixed.fmad_flags(flags)
 
 
-def test_ptxas_reader_tells_the_f1_instantiations_apart():
-    """F1's four instantiations (recording or not, 32- or 64-bit cell
-    indices) are four entries of ptxas' report, each under its own name."""
-    names = ("march_fixed_kernel", "march_fixed_path_kernel", "march_fixed_wide_kernel", "march_fixed_path_wide_kernel")
-    log = "".join(
-        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(k)}{k}EPK6float4iii' for 'sm_90a'\n"
-        f"ptxas info    : Function properties for _ZN12_GLOBAL__N_1{len(k)}{k}EPK6float4iii\n"
-        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        f"ptxas info    : Used {40 + r} registers, 600 bytes cmem[0]\n"
-        for r, k in enumerate(names)
-    )
-    got = probe.ptxas_by_kernel(log)
-    assert {k: v["registers"] for k, v in got.items()} == {
-        "march_fixed": 40, "march_fixed_path": 41, "march_fixed_wide": 42, "march_fixed_path_wide": 43}
-    assert set(got) <= set(probe.KERNELS)
-
-
 def test_render_probe_atomic_counts():
     """probe_render's count of R2's global atomics under the three flush
     schemes, on 128 rays that step together through the cells (s, 0, 0) of
@@ -244,8 +271,6 @@ def test_render_probe_atomic_counts():
     8 atomics each; a warp groups its 32 rays' flushes of one cell at one
     step; the block's box of one window holds the 5 × 2 × 2 points of the
     4 cells' corners.  A shuffled order leaves the box's count as it is."""
-    from volumeraytracer_tpu_torch.probes import probe_render
-
     steps = torch.full((128,), 4, dtype=torch.int64)
     cells = (torch.arange(4)[:, None] * 16).expand(4, 128).clone()
     for order in (torch.arange(128), torch.randperm(128, generator=torch.Generator().manual_seed(1))):
@@ -257,36 +282,185 @@ def test_render_probe_atomic_counts():
     assert probe_render.atomic_counts(torch, cells, (8, 4, 4), steps, torch.arange(128))["thread"] == 8 * (4 * 127 + 2)
 
 
-def test_render_probe_ptxas_reader():
-    """probe_render's ptxas reader keeps each instantiation of R1 and R2
-    apart."""
-    from volumeraytracer_tpu_torch.probes import probe_render
-
-    log = "".join(
-        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117render_{k}_kernelI{args}EEvPKf' for 'sm_90a'\n"
-        f"ptxas info    : Function properties for _ZN12_GLOBAL__N_117render_{k}_kernelI{args}EEvPKf\n"
-        f"    0 bytes stack frame, {spill} bytes spill stores, 0 bytes spill loads\n"
-        f"ptxas info    : Used {regs} registers, used 1 barriers, 176 bytes smem, 600 bytes cmem[0]\n"
-        for k, args, regs, spill in (("fwd", "Li3ELb1ELb1E", 108, 0), ("bwd", "Lb1ELb1ELb1E", 165, 0),
-                                     ("bwd", "Lb0ELb0ELb0E", 96, 8)))
-    assert probe_render.ptxas_instances(log) == {
-        "render_fwd<Li3ELb1ELb1E>": {"spill_stores": 0, "spill_loads": 0, "registers": 108, "smem_bytes": 176},
-        "render_bwd<Lb1ELb1ELb1E>": {"spill_stores": 0, "spill_loads": 0, "registers": 165, "smem_bytes": 176},
-        "render_bwd<Lb0ELb0ELb0E>": {"spill_stores": 8, "spill_loads": 0, "registers": 96, "smem_bytes": 176}}
-
-
 def test_render_probe_variant_sources():
     """Each of probe_render's variants finds its text in today's R1 or R2
     source once and changes it; R1's nested-loop variant holds F1's form."""
-    from volumeraytracer_tpu_torch.kernels import _build
-    from volumeraytracer_tpu_torch.probes import probe_render
-
     for name, src, fn_name, edits, _ in probe_render.VARIANTS:
         text = (_build._HERE / "csrc" / src).read_text()
-        new = probe_render.variant_source(text, edits)
+        new = toolkit.edit(text, probe_render.variant_edits(text, edits))
         assert new != text and fn_name in text, name
     r1 = (_build._HERE / "csrc" / "render_fwd.cu").read_text()
-    nested = probe_render.variant_source(r1, [(None, probe_render.NESTED_R1_LOOP)])
+    nested = toolkit.edit(r1, probe_render.variant_edits(r1, [(None, probe_render.NESTED_R1_LOOP)]))
     assert "stopped = true" in nested and "stopped = true" not in r1
     with pytest.raises(ValueError, match="variant text"):
-        probe_render.variant_source(r1, [("no such text", "")])
+        toolkit.edit(r1, probe_render.variant_edits(r1, [("no such text", "")]))
+
+
+# --- the digest and the bench's inputs ---------------------------------------
+
+_BITS = torch.arange(16, dtype=torch.float32).reshape(4, 4)
+
+
+def _flipped(t):
+    out = t.clone()
+    out.view(torch.int32)[1, 2] ^= 1
+    return out
+
+
+@pytest.mark.parametrize("other, equal", [
+    (_BITS.clone(), True),                  # the same bits in another tensor
+    (_flipped(_BITS), False),               # one bit flipped
+    (_BITS.view(torch.int32), False),       # the same bytes at another dtype
+    (_BITS.reshape(16), False),             # ... and at another shape
+    (_BITS.t().contiguous().t(), True),     # the same values in another layout
+], ids=["equal", "bit", "dtype", "shape", "layout"])
+def test_digest(other, equal):
+    assert (toolkit.digest(_BITS) == toolkit.digest(other)) is equal
+    assert len(toolkit.digest(_BITS)) == 16
+
+
+def _bench():
+    """bench.py, loaded by path (not run)."""
+    spec = importlib.util.spec_from_file_location("jax_bench", REPO / "bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    return bench
+
+
+def test_lens_field_is_bench_field():
+    np.testing.assert_array_equal(toolkit.lens_field(40), np.asarray(_bench().build_field(40)))
+    assert toolkit.lens_field(8).dtype == np.float32
+
+
+def test_bench_rays_are_bench_bundle():
+    bench = _bench()
+    for n_rays, grid in ((131072, 256), (1024, 64)):
+        pos, dirs = toolkit.bench_rays(n_rays, grid)
+        ref_pos, ref_dirs = bench.build_rays(n_rays, grid)
+        np.testing.assert_array_equal(pos, np.asarray(ref_pos))
+        np.testing.assert_array_equal(dirs, np.asarray(ref_dirs))
+
+
+def test_scales_are_the_jax_packages():
+    """The toolkit's float scales at invscale 2, as bench.py makes them from
+    the JAX package's fixed-point constants."""
+    from volumeraytracer_tpu.types import FIX_ONE, STEP_CONST
+
+    assert toolkit.BEND == toolkit.INV / float(FIX_ONE)
+    assert toolkit.STEP == toolkit.INV * (STEP_CONST / float(FIX_ONE) / float(FIX_ONE))
+
+
+# --- two checkouts in turns ------------------------------------------------
+
+#: a probe's child: the toolkit of this checkout, then the program of its
+#: root; appends what it was given to the log and prints what it imported
+FAKE_PROBE = """
+import json
+import os
+import sys
+
+from probes import toolkit
+
+args = sys.argv[1:]
+root = args[args.index("--child") + 1]
+with open(os.environ["FAKE_PROBE_LOG"], "a") as log:
+    log.write(json.dumps([root, args]) + "\\n")
+program = toolkit.program(root)
+if getattr(program, "FAIL", False):
+    print("the fake program fails")
+    sys.exit(3)
+import probes.toolkit
+print("a line before the results")
+print(json.dumps({"digest": program.DIGEST, "program": program.__file__, "toolkit": probes.toolkit.__file__}))
+"""
+
+
+def _checkout(path: Path, body: str) -> Path:
+    """A fake checkout: a stub program, and a toolkit that must not be
+    imported."""
+    (path / "volumeraytracer_tpu_torch").mkdir(parents=True)
+    (path / "volumeraytracer_tpu_torch" / "__init__.py").write_text(body)
+    (path / "probes").mkdir()
+    (path / "probes" / "__init__.py").write_text("")
+    (path / "probes" / "toolkit.py").write_text("raise ImportError('the toolkit of a checkout under test')\n")
+    return path
+
+
+@pytest.fixture
+def fakes(tmp_path, monkeypatch):
+    """The fake probe on PYTHONPATH, its log, a card line, and a maker of
+    fake checkouts."""
+    (tmp_path / "mods").mkdir()
+    (tmp_path / "mods" / "fake_probe.py").write_text(FAKE_PROBE)
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(filter(None, (str(tmp_path / "mods"),
+                                                                   os.environ.get("PYTHONPATH")))))
+    monkeypatch.setenv("FAKE_PROBE_LOG", str(tmp_path / "log.jsonl"))
+    monkeypatch.setattr(toolkit, "card", lambda query="": "a test card")
+
+    def log():
+        return [json.loads(line) for line in (tmp_path / "log.jsonl").read_text().splitlines()]
+
+    def checkout(name, body='DIGEST = "same"\n'):
+        return _checkout(tmp_path.resolve() / name, body)
+
+    return log, checkout
+
+
+def test_in_turns_runs_parent_change_change_parent(fakes, capsys, tmp_path):
+    log, checkout = fakes
+    parent, change = checkout("parent"), checkout("change")
+    out = tmp_path / "out" / "runs.json"
+    line, runs = toolkit.in_turns("fake_probe", parent, change=change, flags=("--all",), first=("--first",),
+                                  parent_first=("--parent-first",), digests=("digest",), out=out)
+    assert line == "a test card"
+    assert [r["label"] for r in runs] == ["parent", "change", "change", "parent"]
+    assert [Path(r["root"]) for r in runs] == [parent, change, change, parent]
+    assert [(Path(root), a[2:]) for root, a in log()] == [
+        (parent, ["--all", "--parent-first"]), (change, ["--all", "--first"]), (change, ["--all"]),
+        (parent, ["--all"])]
+    assert json.loads(out.read_text()) == {"card": "a test card", "runs": runs}
+    shown = capsys.readouterr().out.splitlines()
+    assert shown[0] == "a test card" and [s.split(":")[0] for s in shown[1:]] == [r["label"] for r in runs]
+
+
+def test_in_turns_without_a_parent_runs_children_of_the_change(fakes):
+    log, checkout = fakes
+    change = checkout("change")
+    _, runs = toolkit.in_turns("fake_probe", change=change, first=("--first",), children=3)
+    assert [r["label"] for r in runs] == ["change"] * 3
+    assert [a[2:] for _, a in log()] == [["--first"], [], []]
+
+
+def test_in_turns_refuses_a_digest_that_differs(fakes):
+    _, checkout = fakes
+    parent, change = checkout("parent"), checkout("change", 'DIGEST = "other"\n')
+    with pytest.raises(SystemExit, match="fake_probe: digest differs between the versions or runs"):
+        toolkit.in_turns("fake_probe", parent, change=change, digests=("digest",))
+    # a key left out of the digests is not compared
+    _, runs = toolkit.in_turns("fake_probe", parent, change=change)
+    assert [r["digest"] for r in runs] == ["same", "other", "other", "same"]
+
+
+def test_in_turns_reports_a_child_that_fails(fakes):
+    log, checkout = fakes
+    parent, change = checkout("parent"), checkout("change", 'DIGEST = "same"\nFAIL = True\n')
+    with pytest.raises(SystemExit, match=r"(?s)the change child .* failed \(3\).*the fake program fails"):
+        toolkit.in_turns("fake_probe", parent, change=change)
+    assert [Path(root) for root, _ in log()] == [parent, change]
+    with pytest.raises(SystemExit, match="must name a checkout"):
+        toolkit.in_turns("fake_probe", parent / "volumeraytracer_tpu_torch", change=change)
+
+
+def test_child_takes_its_program_from_its_root_and_its_tools_from_this_checkout(fakes):
+    """A child's ``volumeraytracer_tpu_torch`` is its root's; its toolkit,
+    imported before and after ``program``, is this checkout's, though the
+    root holds one of its own."""
+    _, checkout = fakes
+    parent, change = checkout("parent"), checkout("change")
+    _, runs = toolkit.in_turns("fake_probe", parent, change=change)
+    for r in runs:
+        assert Path(r["program"]).resolve().is_relative_to(Path(r["root"]))
+        assert Path(r["toolkit"]).resolve() == Path(toolkit.__file__).resolve()
+    assert "volumeraytracer_tpu_torch" in sys.modules  # this process's program is not the fakes'
+    with pytest.raises(RuntimeError, match="imported before"):
+        toolkit.program(parent)

@@ -30,7 +30,6 @@ from volumeraytracer_tpu_torch.kernels import _build
 from volumeraytracer_tpu_torch.kernels import render as rk
 from volumeraytracer_tpu_torch.models import camera
 from volumeraytracer_tpu_torch.ops.fields import build_packed_field
-from volumeraytracer_tpu_torch.probes import probe_k4k6 as probe
 from test_torch_camera import cameras, scene
 
 BUDGET = 64
@@ -308,23 +307,6 @@ def test_wrappers_launch_or_raise_off_the_cpu():
     assert rk.channel_groups(4) == [(0, 4)]
     assert rk.channel_groups(5) == [(0, 4), (4, 1)]
     assert rk.channel_groups(9) == [(0, 4), (4, 4), (8, 1)]
-
-
-def test_ptxas_reader_keeps_the_largest_of_an_instantiation_set():
-    """R1's ten instantiations read as one kernel with the most registers
-    and spills among them, so that phase 2 of chip_smoke.py sees a spill in
-    any of them."""
-    log = "".join(
-        f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117render_fwd_kernelILi{nc}ELb1EEEvPK6float4'"
-        f" for 'sm_90a'\n"
-        f"ptxas info    : Function properties for _ZN12_GLOBAL__N_117render_fwd_kernelILi{nc}ELb1EEEvPK6float4\n"
-        f"    0 bytes stack frame, {8 if nc == 2 else 0} bytes spill stores, 0 bytes spill loads\n"
-        f"ptxas info    : Used {60 + 4 * nc} registers, 600 bytes cmem[0]\n"
-        for nc in range(5)
-    )
-    assert probe.ptxas_by_kernel(log) == {
-        "render_fwd": {"spill_stores": 8, "spill_loads": 0, "registers": 76, "smem_bytes": 0}}
-    assert {"render_fwd", "render_bwd"} <= set(probe.KERNELS)
 
 
 #: what the CUDA sources need from the CUDA headers, for the host: one

@@ -230,7 +230,7 @@ def test_unported_trace_options_raise(kw, raises, tmp_path, monkeypatch):
 def test_import_leaves_jax_out():
     code = ("import sys, volumeraytracer_tpu_torch, volumeraytracer_tpu_torch.cli, "
             "volumeraytracer_tpu_torch.utils.serialization, volumeraytracer_tpu_torch.utils.logging, "
-            "volumeraytracer_tpu_torch.workloads, volumeraytracer_tpu_torch.parallel, "
+            "probes.toolkit, volumeraytracer_tpu_torch.parallel, "
             "volumeraytracer_tpu_torch.utils.profiling, volumeraytracer_tpu_torch.utils.image_io, "
             "volumeraytracer_tpu_torch.utils.jpeg; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
